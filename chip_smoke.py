@@ -1,0 +1,306 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the torch port (tpu_dialmpc_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — DIAL-MPC on go2_stand (the Go2 stand-in scene)
+at the full planner width, Nsample=2048, Hsample=20, Hnode=5, 8 substeps per
+control — through the entry points a user calls (`get_env`, `MBDPI`,
+`make_control_step`), after building the substep kernel from the sources in
+this checkout and holding it against its plain PyTorch version on the card.
+
+Phases (each prints its lines; any failure exits non-zero with no result):
+  1. the card, as nvidia-smi reports its name and power limit;
+  2. the kernel build (nvcc, sm_90a) with ptxas' register and spill lines;
+  3. kernel vs plain version on the same inputs, B=2049 and B=1, 8 substeps;
+  4. the main path: reset, the reverse warm start, 3 control steps, with the
+     kernel's launch count checked, plus a small reverse_once checked against
+     the plain substep chain, then timings.
+The last two lines are the kernels' JSON record and the result JSON.
+It needs a CUDA device and the repository around it; it never runs on a CPU.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+N_SUBSTEPS = 8
+# The kernel follows the plain version's op order with the same rounding
+# (nvcc -fmad=false, the same CUDA math library), so the two agree to the last
+# bit on the card; 1e-6 of each output's scale leaves room for a last-bit
+# difference in a library function and is far below the >=1e-3 error a wrong
+# formula gives.
+REL_TOL = 1e-6
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+def near_home_inputs(model, B, seed, device):
+    """Home keyframe with perturbed joints and velocities, zero warmstart,
+    random torques within the motors' range."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.asarray(model.key_qpos["home"]), (B, 1))
+    qpos[:, 7:] += rng.normal(scale=0.05, size=(B, model.nq - 7))
+    qvel = rng.normal(scale=0.2, size=(B, model.nv))
+    ws = np.zeros((B, model.nv))
+    ctrl = rng.uniform(-10.0, 10.0, size=(B, model.nu))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+            for a in (qpos, qvel, ws, ctrl)]
+
+
+def cuda_ms(fn, reps):
+    """Mean device ms per call of fn over reps calls, CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    line = out.stdout.strip().splitlines()[0]
+    print(line)  # as nvidia-smi gives it: name, power limit
+    return line
+
+
+def phase_build(env, device):
+    t0 = time.perf_counter()
+    env.fused_step.library(device)
+    secs = time.perf_counter() - t0
+    print(f"[build] fused_step.cu for sm_90a: {secs:.2f} s (nvcc + load + model upload)")
+    for line in (env.fused_step.build_log or "").splitlines():
+        if any(k in line for k in ("registers", "spill", "stack frame")):
+            print(f"[build] {line.strip()}")
+    return secs
+
+
+def phase_compare(env, device):
+    """Kernel vs plain version on the card; returns (max abs err, kernel ms,
+    plain ms) at B=2049."""
+    import torch
+
+    fs = env.fused_step
+    names = ("qpos", "qvel", "warmstart", "derived")
+    worst = 0.0
+    for B, seed in ((2049, 0), (1, 1)):
+        args = near_home_inputs(env.model, B, seed, device)
+        got = fs(*args)
+        want = fs.plain(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            check(g.shape == w.shape, f"B={B} {name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+            check(bool(torch.isfinite(g).all()), f"B={B} {name}: non-finite kernel output")
+            err = (g - w).abs().max().item()
+            tol = REL_TOL * max(1.0, w.abs().max().item())
+            worst = max(worst, err)
+            print(f"[compare] B={B} n_substeps={N_SUBSTEPS} {name}: max abs diff "
+                  f"{err:.3e} (tolerance {tol:.3e})")
+            check(err <= tol, f"kernel disagrees with the plain version: B={B} {name}")
+    args = near_home_inputs(env.model, 2049, 2, device)
+    for _ in range(3):
+        fs(*args)
+    ms = cuda_ms(lambda: fs(*args), 20)
+    fs.plain(*args)
+    plain_ms = cuda_ms(lambda: fs.plain(*args), 2)
+    print(f"[compare] B=2049 time per call: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.1f} ms")
+    return worst, ms, plain_ms
+
+
+class _PlainSubsteps:
+    """The plain substep chain where an env expects its FusedStep."""
+
+    def __init__(self, fs):
+        self.spec = fs.spec
+        self.plain = fs.plain
+
+    def __call__(self, *args):
+        return self.plain(*args)
+
+
+def make_env(device):
+    from tpu_dialmpc_torch.envs import dial_defaults, get_env
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    env = get_env("go2_stand", device=device)
+    cfg = DialConfig(**dial_defaults("go2_stand"))
+    check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == (2048, 20, 5, 8),
+          "go2_stand is not at the full planner width")
+    return env, cfg
+
+
+def run_main_path(env, cfg, device):
+    import torch
+
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    mbdpi = MBDPI(cfg, env)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    step_init = make_control_step(mbdpi, cfg.Ndiffuse_init)
+    step_rest = make_control_step(mbdpi, cfg.Ndiffuse)
+    n_steps = 3
+    horizon = cfg.Hsample + 1
+    expected = (
+        (cfg.Ndiffuse - 1) * horizon  # reverse: Ndiffuse-1 reverse_once
+        + (1 + cfg.Ndiffuse_init * horizon)  # first control step
+        + (n_steps - 1) * (1 + cfg.Ndiffuse * horizon)  # the rest
+    )
+
+    env.fused_step.launches = 0  # every count to 0 just before the main path
+    state = to_lean(env.reset())
+    Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=torch.float32, device=device)
+    Y0 = mbdpi.reverse(state, Y0, gen)
+    rewards = []
+    for t in range(n_steps):
+        state, Y0, infos = (step_init if t == 0 else step_rest)(state, Y0, gen)
+        rewards.append(state.reward)
+        check(bool(torch.isfinite(infos.rews).all()), f"step {t}: non-finite rollout rewards")
+    torch.cuda.synchronize()
+    launches = env.fused_step.launches
+
+    rewards = torch.stack(rewards)
+    quat = state.pipeline.qpos[3:7]
+    up_z = (1.0 - 2.0 * (quat[1] ** 2 + quat[2] ** 2)).item()
+    print(f"[main] go2_stand N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
+          f"{env.config.n_substeps}: reset, reverse, {n_steps} control steps; rewards "
+          f"{[round(r, 5) for r in rewards.tolist()]}, torso z "
+          f"{state.pipeline.qpos[2].item():.4f}, up·z {up_z:.4f}")
+    check(bool(torch.isfinite(rewards).all()), "non-finite executed rewards")
+    check(bool(torch.isfinite(Y0).all()) and Y0.shape == (cfg.Hnode + 1, env.action_size),
+          "Ybar is non-finite or misshapen")
+    check(up_z > 0.5 and not bool(state.done), "the torso did not stay upright")
+    print(f"[main] kernel launches: {launches} (expected {expected} = "
+          f"{cfg.Ndiffuse - 1}x{horizon} + (1 + {cfg.Ndiffuse_init}x{horizon}) + "
+          f"{n_steps - 1}x(1 + {cfg.Ndiffuse}x{horizon}))")
+    check(launches == expected, "the main path did not launch the kernel as expected")
+    return mbdpi, state, Y0, gen, step_rest, launches
+
+
+def check_small_against_plain(env, cfg, device):
+    """One small reverse_once through the kernel and through the plain
+    substep chain, same card, same injected noise."""
+    import dataclasses
+
+    import torch
+
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+
+    small = dataclasses.replace(cfg, Nsample=64, Hsample=4, Hnode=2)
+    ref_env = type(env)(env.config, device=device)
+    ref_env._fused_step = _PlainSubsteps(env.fused_step)
+    noise = torch.randn((small.Nsample, small.Hnode + 1, env.action_size),
+                        generator=torch.Generator(device=device).manual_seed(5),
+                        device=device)
+    out = []
+    for e in (env, ref_env):
+        mb = MBDPI(small, e)
+        Y = torch.zeros((small.Hnode + 1, e.action_size), device=device)
+        scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
+        out.append(mb.reverse_once(to_lean(e.reset()), None, Y, scale, noise=noise))
+    (kY, kinfo), (pY, pinfo) = out
+    torch.cuda.synchronize()
+    for name, a, b in (("rews", kinfo.rews, pinfo.rews), ("Ybar", kY, pY)):
+        err = (a - b).abs().max().item()
+        tol = REL_TOL * max(1.0, b.abs().max().item())
+        print(f"[main] small reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
+              f"max abs diff {err:.3e} (tolerance {tol:.3e})")
+        check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
+
+
+def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device):
+    import torch
+
+    scale = torch.as_tensor(mbdpi.sigma_control, dtype=torch.float32, device=device)
+
+    def timed(fn, reps):
+        fn()  # warm-up
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    ro_ms = timed(lambda: mbdpi.reverse_once(state, gen, Y0, scale), 5)
+    cs_ms = timed(lambda: step_rest(state, Y0, gen), 5)
+    print(f"[time] median ms per reverse_once: {ro_ms:.2f}; per control step "
+          f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f}")
+    return ro_ms, cs_ms
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    if not (ROOT / "tpu_dialmpc_torch" / "csrc" / "fused_step.cu").is_file():
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    device = torch.device("cuda", 0)
+
+    try:
+        card = phase_card()
+        env, cfg = make_env(device)
+        phase_build(env, device)
+        max_err, ms, plain_ms = phase_compare(env, device)
+        mbdpi, state, Y0, gen, step_rest, launches = run_main_path(env, cfg, device)
+        check_small_against_plain(env, cfg, device)
+        ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device)
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    print(f"[summary] {card}: reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
+          f"fused_step kernel {ms:.3f} ms vs plain {plain_ms:.1f} ms per call at B=2049")
+    print(json.dumps({"kernels": [{
+        "name": "fused_step",
+        "route": "cuda",
+        "source": "tpu_dialmpc_torch/csrc/fused_step.cu",
+        "replaces": "tpu_dialmpc/dynamics/fused.py:1440",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

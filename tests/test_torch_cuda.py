@@ -1,0 +1,83 @@
+"""torch port, the fused substep kernel on the card: marked `cuda`, and each
+test skips without a CUDA device.
+
+It imports neither jax nor the JAX package, so it runs where only PyTorch is
+installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
+sets jax up for the JAX package's tests:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerance: the kernel follows the plain version's op order with the same
+rounding (nvcc -fmad=false, the same CUDA math library), so on the card the
+two agree to 1e-6 of each output's scale; a wrong formula shows up at 1e-3
+and above.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import PORT_NPZ, near_home_states
+from tpu_dialmpc_torch.dynamics import fused, fused_cuda
+from tpu_dialmpc_torch.dynamics.model import load_model
+
+pytestmark = pytest.mark.cuda
+
+SPEC = fused.DerivedSpec(torso_body=1)  # "base"
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def model():
+    return load_model(str(PORT_NPZ))
+
+
+def _inputs(model, B, seed, device):
+    rng = np.random.default_rng(seed)
+    qpos, qvel, _ = near_home_states(model, rng, B, scale_q=0.05, scale_v=0.2)
+    arrays = (qpos, qvel, np.zeros((B, model.nv)), rng.uniform(-10, 10, (B, model.nu)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+            for a in arrays]
+
+
+@pytest.mark.parametrize("B,n_substeps", [(1, 8), (257, 8), (2049, 1)])
+def test_kernel_matches_plain_on_card(card, model, B, n_substeps):
+    fs = fused_cuda.FusedStep(model, n_substeps, SPEC)
+    args = _inputs(model, B, B, card)
+    out = fs(*args)
+    ref = fs.plain(*args)
+    torch.cuda.synchronize()
+    assert fs.launches == 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and bool(torch.isfinite(o).all())
+        assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())
+
+
+def test_empty_batch_launches_nothing(card, model):
+    fs = fused_cuda.FusedStep(model, 1, SPEC)
+    out = fs(*_inputs(model, 0, 0, card))
+    assert fs.launches == 0
+    assert [tuple(o.shape) for o in out] == [
+        (0, model.nq), (0, model.nv), (0, model.nv), (0, fused.derived_size(model, SPEC))
+    ]
+
+
+@pytest.mark.parametrize("case", ["float64", "strided", "wrong_width"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(card, model, case):
+    fs = fused_cuda.FusedStep(model, 1, SPEC)
+    args = _inputs(model, 4, 0, card)
+    if case == "float64":
+        args[1], error = args[1].double(), TypeError
+    elif case == "strided":
+        args[0], error = torch.cat([args[0], args[0]], dim=1)[:, ::2], ValueError
+    else:
+        args[3], error = args[3][:, :-1].contiguous(), ValueError
+    with pytest.raises(error):
+        fs(*args)
+    assert fs.launches == 0

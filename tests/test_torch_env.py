@@ -1,0 +1,146 @@
+"""torch port, envs/: the Go2 env's action maps, reward stack, termination
+and gait targets against the JAX env on the same random batched inputs, for
+each config option the port carries, in float64.
+
+Tolerance 1e-12: the same formulas, no physics in between."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import use_standin_assets
+from tpu_dialmpc.envs import get_env as jget_env
+from tpu_dialmpc.envs.base import StateInfo as JStateInfo
+from tpu_dialmpc_torch.envs import get_env
+from tpu_dialmpc_torch.envs import gait as tgait
+from tpu_dialmpc.envs import gait as jgait
+from tpu_dialmpc_torch.envs.base import StateInfo
+
+TOL = 1e-12
+B = 16
+
+VARIANTS = {
+    "go2_stand": {},
+    "trot_gait": dict(gait="trot"),
+    "turn": dict(gait="trot", default_vyaw=1.5, turn_period=75),
+    "yaw_eigen": dict(yaw_mode="eigen", default_vyaw=-0.7),
+    "goal_x": dict(goal_x=0.01),
+    "y_anchor": dict(y_anchor_weight=1.0),
+    "energy": dict(energy_weight=0.5),
+    "done_penalty": dict(done_penalty=2.0),
+    "physical_termination": dict(termination_range_source="physical"),
+    "model_ranges": dict(joint_range_source="model"),
+    "model_eigen_ranges": dict(joint_range_source="model_eigen"),
+    "vel_weight": dict(vel_weight=2.5, default_vy=0.3, ramp_up_time=0.5),
+}
+
+
+def _envs(monkeypatch, overrides):
+    use_standin_assets(monkeypatch)
+    kw = dict(dtype="float64", **overrides)
+    return jget_env("go2_stand", **kw), get_env("go2_stand", **kw)
+
+
+def _inputs(env, seed):
+    rng = np.random.default_rng(seed)
+    m = env.model
+    qpos = np.tile(np.asarray(m.key_qpos["home"]), (B, 1))
+    # the first half near home, the second half often out of range
+    qpos[:, 7:] += rng.normal(size=(B, m.nu)) * np.repeat([0.05, 0.4], B // 2)[:, None]
+    quat = rng.normal(size=(B, 4))
+    quat[: B // 2] = [1.0, 0.0, 0.0, 0.0] + 0.1 * quat[: B // 2]  # mostly upright
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    torso_xpos = rng.normal(scale=0.05, size=(B, 3)) + [0.0, 0.0, 0.25]
+    torso_xpos[:3, 2] = 0.1  # below the 0.18 m termination height
+    arrays = dict(
+        qpos=qpos,
+        qvel=rng.normal(size=(B, m.nv)),
+        site_xpos=rng.normal(scale=0.02, size=(B, m.nsite, 3)) + [0.0, 0.0, 0.02],
+        torso_xpos=torso_xpos,
+        torso_xquat=quat,
+        torso_cvel=rng.normal(size=(B, 6)),
+        root_com=torso_xpos + rng.normal(scale=0.01, size=(B, 3)),
+        qfrc_actuator=rng.normal(scale=10.0, size=(B, m.nv)),
+        ctrl=rng.normal(scale=10.0, size=(B, m.nu)),
+    )
+    info = dict(
+        pos_tar=np.tile([0.282, 0.0, 0.3], (B, 1)),
+        vel_tar=rng.normal(size=(B, 3)),
+        ang_vel_tar=rng.normal(size=(B, 3)),
+        yaw_tar=rng.normal(size=B),
+        step=rng.integers(0, 200, size=B).astype(np.int32),
+        z_feet=rng.uniform(0, 0.05, size=(B, 4)),
+        z_feet_tar=rng.uniform(0, 0.05, size=(B, 4)),
+        last_contact=rng.uniform(size=(B, 4)) < 0.5,
+        feet_air_time=rng.uniform(0, 0.2, size=(B, 4)),
+    )
+    return arrays, info
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_post_physics_matches_jax(monkeypatch, variant):
+    jenv, tenv = _envs(monkeypatch, VARIANTS[variant])
+    arrays, info = _inputs(tenv, seed=len(variant))
+    keys = jax.random.split(jax.random.PRNGKey(0), B)
+    jinfo = JStateInfo(rng=keys, **{k: jnp.asarray(v) for k, v in info.items()})
+    jr, jd, jinfo2 = jax.vmap(
+        lambda a, i: jenv._post_physics(**a, info=i)
+    )({k: jnp.asarray(v) for k, v in arrays.items()}, jinfo)
+    tr, td, tinfo2 = tenv._post_physics(
+        **{k: torch.as_tensor(v) for k, v in arrays.items()},
+        info=StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()}),
+    )
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=TOL)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    if variant == "model_eigen_ranges":
+        # quirk Q10: the first range row is the freejoint's (0, 0), so every
+        # sample with a nonzero first joint angle terminates
+        assert td.all()
+    else:
+        assert td.any() and not td.all()  # both branches of termination exercised
+    for f in dataclasses.fields(StateInfo):
+        got = getattr(tinfo2, f.name).numpy()
+        want = np.asarray(getattr(jinfo2, f.name))
+        if got.dtype == bool or np.issubdtype(got.dtype, np.integer):
+            np.testing.assert_array_equal(got, want, err_msg=f.name)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOL, err_msg=f.name)
+
+
+@pytest.mark.parametrize("variant", ["go2_stand", "model_ranges", "model_eigen_ranges"])
+def test_ctrl_map_matches_jax(monkeypatch, variant):
+    jenv, tenv = _envs(monkeypatch, VARIANTS[variant])
+    arrays, _ = _inputs(tenv, seed=1)
+    act = np.random.default_rng(2).uniform(-1.2, 1.2, size=(B, tenv.action_size))
+    want = jenv._ctrl_batch(jnp.asarray(act), jnp.asarray(arrays["qpos"]),
+                            jnp.asarray(arrays["qvel"]))
+    got = tenv._ctrl_batch(torch.as_tensor(act), torch.as_tensor(arrays["qpos"]),
+                           torch.as_tensor(arrays["qvel"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+    np.testing.assert_allclose(
+        tenv.act2joint(torch.as_tensor(act)).numpy(),
+        np.asarray(jax.vmap(jenv.act2joint)(jnp.asarray(act))), rtol=0, atol=TOL,
+    )
+
+
+@pytest.mark.parametrize("name", sorted(tgait.GAIT_PARAMS))
+def test_foot_step_targets_match_jax(name):
+    duty, cadence, amplitude = tgait.GAIT_PARAMS[name]
+    phases = np.asarray(tgait.GAIT_PHASES[name])
+    t = np.linspace(0.0, 3.0, 301)[:, None]
+    want = jgait.get_foot_step(duty, cadence, amplitude, jnp.asarray(phases), jnp.asarray(t))
+    got = tgait.get_foot_step(duty, cadence, amplitude, torch.as_tensor(phases),
+                              torch.as_tensor(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+    assert tgait.GAIT_PHASES[name] == jgait.GAIT_PHASES[name]
+
+
+def test_unported_options_raise():
+    for kw in (dict(randomize_tasks=True), dict(leg_control="position"),
+               dict(crate_top_z=0.3), dict(joint_range_source="climb")):
+        with pytest.raises(NotImplementedError):
+            get_env("go2_stand", **kw)

@@ -1,0 +1,278 @@
+"""The fused substep's CUDA kernel (`csrc/fused_step.cu`) and its wrapper.
+
+`FusedStep(model, n_substeps, spec)` is called like the JAX package's
+`build_fused_step` function: (qpos (B,nq), qvel (B,nv), ws (B,nv),
+ctrl (B,nu)) -> (qpos', qvel', ws', derived (B, ND)).
+
+- On CPU tensors it runs the plain PyTorch version (`fused.py`).
+- On CUDA tensors it launches the kernel, or raises: float32, contiguous,
+  the model's widths, all on one device.  It never falls back.
+
+The kernel is built from the checkout's sources at the first CUDA call
+(`_build.py`), with the model's sizes as compile-time constants; the model's
+values are packed here into the kernel's `FusedModel` struct and uploaded to
+its `__constant__` memory once.  `launches` counts kernel launches and
+nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from tpu_dialmpc_torch.dynamics import _build, fused
+from tpu_dialmpc_torch.dynamics.model import PhysicsModel
+
+SOURCE = "fused_step.cu"
+
+
+def _imp_params(solref, solimp) -> List[float]:
+    """A row's ImpParams (fused.py _impedance and _kb_const, in double)."""
+    dmin, dmax, width, mid, power = (float(x) for x in solimp)
+    mid = min(max(mid, fused.MJ_MINIMP), fused.MJ_MAXIMP)
+    power = max(power, 1.0)
+    k, b = fused._kb_const(tuple(float(x) for x in solref), dmax)
+    return [
+        dmin, dmax - dmin, 1.0 / max(width, fused.MJ_MINVAL), mid, power,
+        1.0 / mid ** (power - 1.0), 1.0 / (1.0 - mid) ** (power - 1.0), k, -b,
+    ]
+
+
+def _bits(idx) -> int:
+    out = 0
+    for j in idx:
+        out |= 1 << int(j)
+    return out
+
+
+def pack_model(
+    model: PhysicsModel, meta, spec: fused.DerivedSpec
+) -> Tuple[dict, bytes]:
+    """(the kernel's -D sizes, the FusedModel struct as bytes).
+
+    Fields are written in the struct's order; every field is 4 bytes wide, so
+    the layout has no padding.  Arrays sized 0 in the model are padded to one
+    element, as the struct's FS_DIM does."""
+    nv = model.nv
+    if nv > 32:
+        raise ValueError(f"the kernel keeps dof patterns in 32-bit masks; nv={nv}")
+    slots, limits, floss = meta.contact_slots, meta.limit_rows, meta.floss_rows
+    maxd = max([len(s["dofs"]) for s in slots], default=0)
+    crows = []  # (slot, t, s * mu, diagApprox), in the plain version's row order
+    for si, s in enumerate(slots):
+        iw = s["invweight"]
+        if s["condim"] == 1:
+            crows.append((si, -1, 0.0, iw))
+        else:
+            for t in range(2):
+                mu = s["friction"][t]
+                for sgn in (1.0, -1.0):
+                    crows.append((si, t, sgn * mu, 2.0 * (iw + mu * mu * iw)))
+    nb = model.nbody
+    sub_mass = [float(x) for x in model.body_mass]
+    for b in range(nb - 1, 0, -1):
+        sub_mass[int(model.body_parentid[b])] += sub_mass[b]
+    torso = spec.torso_body
+    defines = dict(
+        FS_NQ=model.nq, FS_NV=nv, FS_NU=model.nu, FS_NBODY=nb, FS_NJNT=model.njnt,
+        FS_NGEOM=int(model.geom_bodyid.shape[0]), FS_NSITE=model.nsite,
+        FS_NSLOT=len(slots), FS_NCROW=len(crows), FS_NLIM=len(limits),
+        FS_NFL=len(floss), FS_MAXD=maxd, FS_ND=fused.derived_size(model, spec),
+        FS_IMPLICIT=int(bool(model.eulerdamp) and bool((model.dof_damping != 0).any())),
+        FS_WANT_SITES=int(spec.want_sites), FS_WANT_QFRC=int(spec.want_qfrc_actuator),
+    )
+
+    parts: List[np.ndarray] = []
+
+    def put(values, dtype, n=None, width=1):
+        a = np.asarray(values, dtype=np.float64 if dtype == "f" else np.int64)
+        a = a.reshape(-1, width) if width > 1 else a.reshape(-1)
+        if n is not None and a.shape[0] < max(n, 1):
+            pad = np.zeros((max(n, 1) - a.shape[0],) + a.shape[1:], a.dtype)
+            a = np.concatenate([a, pad])
+        np_dtype = {"f": np.float32, "i": np.int32, "u": np.uint32}[dtype]
+        parts.append(a.astype(np_dtype).reshape(-1))
+
+    put([model.timestep, model.tolerance * model.meaninertia * max(1, nv)], "f")
+    put([max(1, model.iterations), max(1, model.ls_iterations)], "i")
+    put(model.gravity, "f")
+    put([torso, int(model.body_rootid[torso])], "i")
+    put(model.body_parentid, "i")
+    put(model.body_rootid, "i")
+    put(model.body_jntadr, "i")
+    for f in ("body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
+              "body_inertia"):
+        put(getattr(model, f), "f")
+    put(sub_mass, "f")
+    put([1.0 / max(m, 1e-12) for m in sub_mass], "f")
+    for f in ("jnt_type", "jnt_qposadr", "jnt_dofadr", "jnt_bodyid"):
+        put(getattr(model, f), "i")
+    put(model.jnt_pos, "f")
+    put(model.jnt_axis, "f")
+    put(model.qpos0, "f")
+    put(model.dof_bodyid, "i")
+    put([_bits(a) for a in meta.anc_strict], "u")
+    put([_bits(a) for a in meta.anc_solver], "u")
+    put(model.dof_armature, "f")
+    put(model.dof_damping, "f")
+    put([model.timestep * float(d) for d in model.dof_damping], "f")
+    put(model.geom_bodyid, "i")
+    put(model.geom_pos, "f")
+    put(model.geom_quat, "f")
+    put(model.geom_size[:, 0], "f")
+    put(model.site_bodyid, "i", model.nsite)
+    put(model.site_pos, "f", model.nsite, 3)
+    put(model.actuator_dofadr, "i")
+    put(model.actuator_qposadr, "i")
+    put(model.actuator_ctrllimited, "i")
+    put(model.actuator_forcelimited, "i")
+    put([int(np.any(np.asarray(b) != 0.0)) for b in model.actuator_biasprm], "i")
+    put(model.actuator_gainprm, "f")
+    put(model.actuator_biasprm, "f")
+    put(model.actuator_gear, "f")
+    put(model.actuator_ctrlrange, "f")
+    put(model.actuator_forcerange, "f")
+    ns = len(slots)
+    for key in ("g1", "g2", "body1", "body2"):
+        put([s[key] for s in slots], "i", ns)
+    put([len(s["dofs"]) for s in slots], "i", ns)
+    put([list(s["dofs"]) + [0] * (maxd - len(s["dofs"])) for s in slots], "i", ns,
+        max(maxd, 1))
+    for key in ("body1", "body2"):
+        put([_bits(np.nonzero(model.body_dof_mask[s[key]] > 0.5)[0]) for s in slots],
+            "u", ns)
+    put([s["includemargin"] for s in slots], "f", ns)
+    put([_imp_params(s["solref"], s["solimp"]) for s in slots], "f", ns, 9)
+    nc = len(crows)
+    put([c[0] for c in crows], "i", nc)
+    put([c[1] for c in crows], "i", nc)
+    put([c[2] for c in crows], "f", nc)
+    put([c[3] for c in crows], "f", nc)
+    nl = len(limits)
+    put([r["qadr"] for r in limits], "i", nl)
+    put([r["dadr"] for r in limits], "i", nl)
+    for key in ("sign", "bound", "margin", "invweight"):
+        put([r[key] for r in limits], "f", nl)
+    put([_imp_params(r["solref"], r["solimp"]) for r in limits], "f", nl, 9)
+    # friction-loss rows are fully constant: the plain version folds them
+    nf = len(floss)
+    fl_D, fl_negb, fl_knee, fl_lin0 = [], [], [], []
+    for r in floss:
+        _, D = fused._aref_d(r["solref"], r["solimp"], r["invweight"], 0.0, 0.0, 0.0, None)
+        knee = r["floss"] * (1.0 / max(D, 1e-30))
+        fl_D.append(D)
+        fl_negb.append(-fused._kb_const(r["solref"], r["solimp"][1])[1])
+        fl_knee.append(knee)
+        fl_lin0.append(0.5 * (knee * r["floss"]))
+    put([r["dof"] for r in floss], "i", nf)
+    put([r["floss"] for r in floss], "f", nf)
+    for vals in (fl_D, fl_negb, fl_knee, fl_lin0):
+        put(vals, "f", nf)
+    return defines, b"".join(p.tobytes() for p in parts)
+
+
+class _Library:
+    """One built kernel library with the model uploaded to its constants."""
+
+    def __init__(self, path):
+        lib = ctypes.CDLL(str(path))
+        lib.fused_model_nbytes.restype = ctypes.c_size_t
+        lib.fused_model_nbytes.argtypes = []
+        lib.fused_step_upload.restype = ctypes.c_int
+        lib.fused_step_upload.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        lib.fused_step_launch.restype = ctypes.c_int
+        lib.fused_step_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+        self.lib = lib
+
+    def upload(self, blob: bytes):
+        n = self.lib.fused_model_nbytes()
+        if n != len(blob):
+            raise RuntimeError(
+                f"FusedModel layout mismatch: kernel struct {n} bytes, packed {len(blob)}"
+            )
+        buf = ctypes.create_string_buffer(blob, len(blob))
+        err = self.lib.fused_step_upload(buf, len(blob))
+        if err != 0:
+            raise RuntimeError(f"uploading the model to the kernel failed (error {err})")
+
+    def launch(self, n_substeps, qpos, qvel, ws, ctrl, outs, stream: int) -> int:
+        ptrs = [t.data_ptr() for t in (qpos, qvel, ws, ctrl, *outs)]
+        return self.lib.fused_step_launch(qpos.shape[0], n_substeps, *ptrs, stream)
+
+
+def build_library(model, meta, spec, host=False, out_dir=None):
+    """Build (or find) and load the kernel library for this model, with the
+    model uploaded; returns (library, build log, built now)."""
+    defines, blob = pack_model(model, meta, spec)
+    path, log, built = _build.build(
+        SOURCE, defines, key=hashlib.sha256(blob).digest(), host=host, out_dir=out_dir
+    )
+    lib = _Library(path)
+    lib.upload(blob)
+    return lib, log, built
+
+
+class FusedStep:
+    """The fused substep chain for one model: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+
+    def __init__(self, model: PhysicsModel, n_substeps: int, spec: fused.DerivedSpec):
+        self.model = model
+        self.n_substeps = int(n_substeps)
+        self.spec = spec
+        self.plain = fused.build_fused_step(model, n_substeps, spec)
+        self.meta = fused._meta(model)
+        self.nd = fused.derived_size(model, spec)
+        self.launches = 0
+        self.build_log = None  # nvcc's output, after the first CUDA call
+        self._libs = {}  # device index -> _Library
+
+    def library(self, device: torch.device) -> _Library:
+        """The kernel for `device`, built and uploaded at first use."""
+        idx = device.index if device.index is not None else torch.cuda.current_device()
+        if idx not in self._libs:
+            with torch.cuda.device(idx):
+                lib, self.build_log, _ = build_library(self.model, self.meta, self.spec)
+            self._libs[idx] = lib
+        return self._libs[idx]
+
+    def __call__(self, qpos, qvel, ws, ctrl):
+        args = (qpos, qvel, ws, ctrl)
+        if all(t.device.type == "cpu" for t in args):
+            return self.plain(qpos, qvel, ws, ctrl)
+        return self.launch(qpos, qvel, ws, ctrl)
+
+    def launch(self, qpos, qvel, ws, ctrl):
+        m = self.model
+        device = qpos.device
+        B = qpos.shape[0] if qpos.dim() == 2 else -1
+        for name, t, width in (("qpos", qpos, m.nq), ("qvel", qvel, m.nv),
+                               ("ws", ws, m.nv), ("ctrl", ctrl, m.nu)):
+            if t.device != device or device.type != "cuda":
+                raise ValueError(f"{name}: expected a CUDA tensor on {device}, got {t.device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+            if t.dim() != 2 or t.shape != (B, width):
+                raise ValueError(f"{name}: expected shape ({B}, {width}), got {tuple(t.shape)}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: expected a contiguous tensor")
+        lib = self.library(device)
+        outs = (
+            torch.empty((B, m.nq), dtype=torch.float32, device=device),
+            torch.empty((B, m.nv), dtype=torch.float32, device=device),
+            torch.empty((B, m.nv), dtype=torch.float32, device=device),
+            torch.empty((B, self.nd), dtype=torch.float32, device=device),
+        )
+        if B == 0:  # nothing to launch
+            return outs
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = lib.launch(self.n_substeps, qpos, qvel, ws, ctrl, outs, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_step kernel launch failed: cudaGetLastError() = {err}")
+        self.launches += 1
+        return outs

@@ -1,0 +1,105 @@
+"""Environment state containers, as dataclasses of tensors.
+
+Counterpart of `tpu_dialmpc/envs/base.py`.  JAX's NamedTuple pytrees become
+dataclasses; `map_tensors` plays the part of `jax.tree_util.tree_map` for the
+one place that needs it (broadcasting a state to a batch of candidates).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+
+def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
+    """A copy of a state dataclass with `fn` applied to every tensor field
+    (recursing into nested state dataclasses)."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = fn(v)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = map_tensors(v, fn)
+    return dataclasses.replace(obj, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class StateInfo:
+    """Command targets and bookkeeping carried from step to step.
+
+    The JAX StateInfo also holds a PRNG key that `_post_physics` splits every
+    step; that key feeds only `randomize_tasks` (the command re-draw every
+    500 steps), which the port does not implement, so the port carries no key
+    in its place.  Fields have a leading batch shape (...) in rollouts."""
+
+    pos_tar: torch.Tensor  # (..., 3)
+    vel_tar: torch.Tensor  # (..., 3)
+    ang_vel_tar: torch.Tensor  # (..., 3)
+    yaw_tar: torch.Tensor  # (...)
+    step: torch.Tensor  # (...) int32
+    z_feet: torch.Tensor  # (..., n_feet)
+    z_feet_tar: torch.Tensor  # (..., n_feet)
+    last_contact: torch.Tensor  # (..., n_feet) bool
+    feet_air_time: torch.Tensor  # (..., n_feet)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineState:
+    """Physics state plus the derived quantities of its last forward pass."""
+
+    qpos: torch.Tensor  # (nq,)
+    qvel: torch.Tensor  # (nv,)
+    qacc_warmstart: torch.Tensor  # (nv,)
+    xpos: torch.Tensor  # (nbody, 3)
+    xquat: torch.Tensor  # (nbody, 4)
+    site_xpos: torch.Tensor  # (nsite, 3)
+    subtree_com: torch.Tensor  # (nbody, 3)
+    cvel: torch.Tensor  # (nbody, 6) [ang; lin] com-anchored
+    qfrc_actuator: torch.Tensor  # (nv,)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvState:
+    pipeline: PipelineState
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: StateInfo
+
+
+@dataclasses.dataclass(frozen=True)
+class LeanPipelineState:
+    """Live physics state only (qpos, qvel, warmstart): what the control loop
+    carries between steps."""
+
+    qpos: torch.Tensor  # (nq,)
+    qvel: torch.Tensor  # (nv,)
+    qacc_warmstart: torch.Tensor  # (nv,)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeanEnvState:
+    """EnvState with a LeanPipelineState — the same field names, so code that
+    reads .pipeline.qpos / .reward / .info works on either."""
+
+    pipeline: LeanPipelineState
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: StateInfo
+
+
+def to_lean(state: EnvState) -> LeanEnvState:
+    ps = state.pipeline
+    return LeanEnvState(
+        pipeline=LeanPipelineState(
+            qpos=ps.qpos, qvel=ps.qvel, qacc_warmstart=ps.qacc_warmstart
+        ),
+        obs=state.obs,
+        reward=state.reward,
+        done=state.done,
+        info=state.info,
+    )

@@ -1,0 +1,115 @@
+"""Batched rollouts and the executed step through the fused substep.
+
+Counterpart of `tpu_dialmpc/envs/fused_rollout.py`:
+
+- `rollout_batch(state, all_us)` rolls every candidate control sequence
+  (B, T, nu) through the substep chain and the env's reward stack and
+  returns the (B, T) reward matrix the planner scores — one kernel launch
+  per horizon step for all B candidates, the horizon a Python loop.
+- `step_lean(state, action)` is the executed control step: the same chain at
+  B=1.
+
+On CUDA tensors the chain is the CUDA kernel (`dynamics/fused_cuda.py`); on
+CPU tensors it is the plain PyTorch version, in the env's dtype.
+
+Requires the host env to provide:
+  model, config, device, _torso_idx, _dtype,
+  _ctrl_batch(action (B,nu), qpos (B,nq), qvel (B,nv)) -> ctrl (B,nu)
+  _post_physics(qpos, qvel, site_xpos, torso_xpos, torso_xquat, torso_cvel,
+                root_com, qfrc_actuator, info, ctrl) -> (reward, done, info')
+  _get_obs(qpos, qvel, torso_xpos, torso_xquat, torso_cvel, root_com, info, ctrl)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_dialmpc_torch.dynamics import fused
+from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
+from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState, map_tensors
+
+
+class FusedRolloutMixin:
+    _fused_step = None
+
+    @property
+    def fused_step(self) -> FusedStep:
+        """The env's substep chain: n_substeps per call, reward inputs out.
+        Its `launches` counts the CUDA kernel's launches."""
+        if self._fused_step is None:
+            spec = fused.DerivedSpec(
+                torso_body=self._torso_idx, want_sites=True, want_qfrc_actuator=True
+            )
+            self._fused_step = FusedStep(self.model, self.config.n_substeps, spec)
+        return self._fused_step
+
+    def _step_batch(self, qpos, qvel, ws, info, action):
+        """One env step for a batch: (B, ...) state, (B, nu) action."""
+        fs = self.fused_step
+        ctrl = self._ctrl_batch(action, qpos, qvel)
+        qpos2, qvel2, ws2, der_flat = fs(qpos, qvel, ws, ctrl)
+        der = fused.split_derived(self.model, fs.spec, der_flat)
+        reward, done, info2 = self._post_physics(
+            qpos=qpos2,
+            qvel=qvel2,
+            site_xpos=der["site_xpos"],
+            torso_xpos=der["torso_xpos"],
+            torso_xquat=der["torso_xquat"],
+            torso_cvel=der["torso_cvel"],
+            root_com=der["root_com"],
+            qfrc_actuator=der["qfrc_actuator"],
+            info=info,
+            ctrl=ctrl,
+        )
+        return qpos2, qvel2, ws2, der, ctrl, reward, done, info2
+
+    def step_lean(self, state, action) -> LeanEnvState:
+        """The executed control step (B=1).  Accepts an EnvState or a
+        LeanEnvState (only .pipeline.{qpos,qvel,qacc_warmstart} and .info are
+        read) and returns a LeanEnvState."""
+        ps = state.pipeline
+        dtype = self._dtype
+
+        def one(x):
+            return x.to(dtype)[None].contiguous()
+
+        info = map_tensors(state.info, lambda x: x[None])
+        qpos2, qvel2, ws2, der, ctrl, reward, done, info2 = self._step_batch(
+            one(ps.qpos), one(ps.qvel), one(ps.qacc_warmstart), info,
+            one(action),
+        )
+        info2 = map_tensors(info2, lambda x: x[0])
+        obs = self._get_obs(
+            qpos2[0], qvel2[0], der["torso_xpos"][0], der["torso_xquat"][0],
+            der["torso_cvel"][0], der["root_com"][0], info2, ctrl[0],
+        )
+        return LeanEnvState(
+            pipeline=LeanPipelineState(qpos=qpos2[0], qvel=qvel2[0], qacc_warmstart=ws2[0]),
+            obs=obs,
+            reward=reward[0],
+            done=done[0],
+            info=info2,
+        )
+
+    def rollout_batch(self, state, all_us):
+        """Batched rollout (B, T, nu) -> per-step rewards (B, T).
+
+        Every candidate starts from `state`; rewards, termination and info
+        updates are the code path `step_lean` uses."""
+        B, T = all_us.shape[0], all_us.shape[1]
+        dtype = self._dtype
+        ps = state.pipeline
+
+        def bcast(x):
+            return x.to(dtype).expand((B,) + tuple(x.shape)).contiguous()
+
+        qpos, qvel, ws = bcast(ps.qpos), bcast(ps.qvel), bcast(ps.qacc_warmstart)
+        info = map_tensors(state.info, lambda x: x.expand((B,) + tuple(x.shape)))
+        us = all_us.to(dtype)
+        rews = []
+        for t in range(T):
+            qpos, qvel, ws, _, _, reward, _, info = self._step_batch(
+                qpos, qvel, ws, info, us[:, t]
+            )
+            rews.append(reward)
+        return torch.stack(rews, dim=1)

@@ -1,0 +1,367 @@
+"""Unitree Go2 quadruped environment, the `go2_stand` subset (batched torch).
+
+Counterpart of `tpu_dialmpc/envs/go2.py`: the same config fields, action
+maps, reward stack, termination and observation.  The physics of every step
+runs through the fused substep (`envs/fused_rollout.py`), so the env has no
+single-sample `step` of its own: the executed step is `step_lean` and the
+planner's rollouts are `rollout_batch`, as on the JAX package's TPU path.
+
+Not ported yet (they raise NotImplementedError): `randomize_tasks`, position
+leg control, the crate options (`crate_top_z`, `crate_x`) and the "climb"
+joint-range table.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tpu_dialmpc_torch.core import rotations as rot
+from tpu_dialmpc_torch.dynamics import fused
+from tpu_dialmpc_torch.dynamics.model import JNT_HINGE, PhysicsModel, load_model
+from tpu_dialmpc_torch.envs import gait
+from tpu_dialmpc_torch.envs.base import EnvState, PipelineState, StateInfo
+from tpu_dialmpc_torch.envs.fused_rollout import FusedRolloutMixin
+
+ASSETS = Path(__file__).resolve().parents[1] / "assets"
+
+# compiled scenes (the JAX package's `compile_model` + `save_model` output)
+SCENES = {"go2_force": "go2_force.npz"}
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitreeGo2EnvConfig:
+    """The JAX package's UnitreeGo2EnvConfig fields, with the same defaults
+    (see tpu_dialmpc/envs/go2.py for each field's story)."""
+
+    kp: float = 30.0
+    kd: float = 1.0
+    action_scale: float = 1.0
+    default_vx: float = 0.0
+    default_vy: float = 0.0
+    default_vyaw: float = 0.0
+    ramp_up_time: float = 1.0
+    gait: str = "stand"
+    timestep: float = 0.0025
+    randomize_tasks: bool = False
+    leg_control: str = "torque"  # "torque" (ported) | "position" (not yet)
+    n_substeps: int = 1
+    scene: str = "go2_force"
+    energy_weight: float = 0.0
+    dtype: str = "float32"
+    joint_range_source: str = "upstream"  # "upstream" | "model" | "model_eigen"
+    termination_range_source: str = "action"  # "action" | "physical"
+    turn_period: int = 0
+    yaw_mode: str = "atan2"  # "atan2" | "eigen"
+    crate_top_z: float = 0.0
+    crate_ramp: float = 0.40
+    crate_x: float = 0.0
+    goal_x: float = 0.0
+    y_anchor_weight: float = 0.0
+    vel_weight: float = 1.0
+    done_penalty: float = 0.0
+
+
+class UnitreeGo2Env(FusedRolloutMixin):
+    """Go2 env on one device; its methods take batched tensors."""
+
+    FEET_SITES = ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
+    TORSO_BODY = "base"
+
+    def __init__(
+        self,
+        config: UnitreeGo2EnvConfig = UnitreeGo2EnvConfig(),
+        device: torch.device | str = "cpu",
+        model: PhysicsModel | None = None,
+    ):
+        if config.randomize_tasks:
+            raise NotImplementedError("randomize_tasks is not ported yet")
+        if config.leg_control != "torque":
+            raise NotImplementedError("position leg control is not ported yet")
+        if config.crate_top_z > 0.0 or config.crate_x != 0.0:
+            raise NotImplementedError("the crate options are not ported yet")
+        if config.joint_range_source not in ("upstream", "model", "model_eigen"):
+            raise NotImplementedError(
+                f"joint_range_source={config.joint_range_source!r} is not ported"
+            )
+        self.config = config
+        self.device = torch.device(device)
+        self._dtype = {"float32": torch.float32, "float64": torch.float64}[config.dtype]
+        if model is None:
+            if config.scene not in SCENES:
+                raise NotImplementedError(f"scene {config.scene!r} is not ported yet")
+            model = load_model(str(ASSETS / SCENES[config.scene]))
+        self.model: PhysicsModel = model.with_options(timestep=config.timestep)
+        self._torso_idx = self.model.body_names.index(self.TORSO_BODY)
+        self._feet_site_id = [self.model.site_names.index(s) for s in self.FEET_SITES]
+        key_qpos = self.model.key_qpos.get("home")
+        self._init_q = np.asarray(key_qpos if key_qpos is not None else self.model.qpos0)
+
+        hinge = [j for j in range(self.model.njnt) if self.model.jnt_type[j] == JNT_HINGE]
+        model_range = np.asarray(self.model.jnt_range)[hinge]
+        nu = self.model.nu
+        if config.joint_range_source == "upstream" and nu == 12:
+            # upstream dial-mpc table (dial_mpc/include/UnitreeGo2Env.h:276-288)
+            joint_range = np.array(
+                [[-0.5, 0.5], [0.4, 1.4], [-2.3, -0.85]] * 2
+                + [[-0.5, 0.5], [0.4, 1.4], [-2.3, -1.3]] * 2
+            )
+            physical = model_range.copy()
+        elif config.joint_range_source == "model_eigen":
+            # quirk Q10: jnt_range rows 0..nu-1, including the freejoint's row
+            joint_range = np.asarray(self.model.jnt_range)[:nu]
+            physical = joint_range.copy()
+        else:
+            joint_range = model_range
+            physical = model_range.copy()
+        # torque limits from actuator ctrlrange; (0,0) -> unlimited
+        cr = np.asarray(self.model.actuator_ctrlrange)
+        unlimited = np.all(np.abs(cr) < 1e-6, axis=1)
+        torque_range = np.where(unlimited[:, None], np.array([[-np.inf, np.inf]]), cr)
+        termination = (
+            model_range[:nu] if config.termination_range_source == "physical" else joint_range
+        )
+        self._foot_radius = 0.0175
+        gait_name = config.gait if config.gait in gait.GAIT_PHASES else "trot"
+        self._gait_params = tuple(float(x) for x in gait.GAIT_PARAMS[gait_name])
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x), dtype=self._dtype, device=self.device)
+
+        self.joint_range = t(joint_range)
+        self.physical_joint_range = t(physical)
+        self.joint_torque_range = t(torque_range)
+        self.termination_joint_range = t(termination)
+        self._gait_phases = t(gait.GAIT_PHASES[gait_name])
+
+    # ------------------------------------------------------------------
+    @property
+    def action_size(self) -> int:
+        return self.model.nu
+
+    @property
+    def dt(self) -> float:
+        """Env step duration (= timestep when n_substeps=1)."""
+        return self.config.timestep * self.config.n_substeps
+
+    @property
+    def observation_size(self) -> int:
+        return 6 + self.model.nu + self.model.nq + 6 + (self.model.nv - 6)
+
+    def _zeros(self, *shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or self._dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def reset(self) -> EnvState:
+        """Keyframe "home" at rest.  The derived fields come from the plain
+        forward stages of the fused substep (FK, CoM velocities, actuation at
+        zero ctrl), the port's counterpart of `pipeline.init`; the warmstart is
+        zero, as after mj_resetData."""
+        m = self.model
+        qpos = torch.as_tensor(self._init_q, dtype=self._dtype, device=self.device)
+        qvel = self._zeros(m.nv)
+        q = list(qpos[None].unbind(-1))
+        v = list(qvel[None].unbind(-1))
+        like = q[0]
+        fk = fused._fk(m, q)
+        cvel, _ = fused._com_vel(m, fk, v)
+        qfrc_act = fused._actuator_force(m, [torch.zeros_like(like)] * m.nu, q, v)
+
+        def stack(rows):  # list of per-body scalar tuples -> (n, k)
+            return torch.stack([fused._stack(r, like)[0] for r in rows])
+
+        ps = PipelineState(
+            qpos=qpos,
+            qvel=qvel,
+            qacc_warmstart=self._zeros(m.nv),
+            xpos=stack(fk["xpos"]),
+            xquat=stack(fk["xquat"]),
+            site_xpos=stack(fk["site_xpos"]),
+            subtree_com=stack(fk["subtree_com"]),
+            cvel=stack(cvel),
+            qfrc_actuator=fused._stack(qfrc_act, like)[0],
+        )
+        n_feet = len(self.FEET_SITES)
+        info = StateInfo(
+            pos_tar=torch.tensor([0.282, 0.0, 0.3], dtype=self._dtype, device=self.device),
+            vel_tar=self._zeros(3),
+            ang_vel_tar=self._zeros(3),
+            yaw_tar=self._zeros(),
+            step=self._zeros(dtype=torch.int32),
+            z_feet=self._zeros(n_feet),
+            z_feet_tar=self._zeros(n_feet),
+            last_contact=self._zeros(n_feet, dtype=torch.bool),
+            feet_air_time=self._zeros(n_feet),
+        )
+        b = self._torso_idx
+        root = int(m.body_rootid[b])
+        obs = self._get_obs(
+            ps.qpos, ps.qvel, ps.xpos[b], ps.xquat[b], ps.cvel[b], ps.subtree_com[root],
+            info, self._zeros(m.nu),
+        )
+        return EnvState(
+            pipeline=ps, obs=obs, reward=self._zeros(),
+            done=self._zeros(dtype=torch.bool), info=info,
+        )
+
+    # ------------------------------------------------------------------
+    def act2joint(self, act: torch.Tensor) -> torch.Tensor:
+        """Normalized action (..., nu) in [-1, 1] -> joint targets."""
+        jr, pr = self.joint_range, self.physical_joint_range
+        act_normalized = (act * self.config.action_scale + 1.0) / 2.0
+        targets = jr[:, 0] + act_normalized * (jr[:, 1] - jr[:, 0])
+        return torch.minimum(torch.maximum(targets, pr[:, 0]), pr[:, 1])
+
+    def _act2tau_qv(self, act, q, qd):
+        """PD torque map toward the action's joint targets."""
+        target = self.act2joint(act)
+        tau = self.config.kp * (target - q) - self.config.kd * qd
+        tr = self.joint_torque_range
+        return torch.minimum(torch.maximum(tau, tr[:, 0]), tr[:, 1])
+
+    def _ctrl_batch(self, action, qpos, qvel):
+        """Batched action (..., nu) -> ctrl (..., nu) (the PD torque map)."""
+        nu = self.model.nu
+        return self._act2tau_qv(action, qpos[..., 7 : 7 + nu], qvel[..., 6 : 6 + nu])
+
+    # ------------------------------------------------------------------
+    def _foot_step_target(self, step):
+        duty, cadence, amplitude = self._gait_params
+        t = step.to(self._dtype) * self.dt
+        return gait.get_foot_step(
+            duty, cadence, amplitude, self._gait_phases, t[..., None]
+        ).to(self._dtype)
+
+    def _post_physics(
+        self,
+        qpos,
+        qvel,
+        site_xpos,
+        torso_xpos,
+        torso_xquat,
+        torso_cvel,
+        root_com,
+        qfrc_actuator,
+        info: StateInfo,
+        ctrl,
+    ):
+        """Command schedule + rewards + termination + info update, over a
+        leading batch shape (...) — the JAX package's `_post_physics`, which
+        `step_lean` and `rollout_batch` both call."""
+        cfg = self.config
+        dtype = self._dtype
+        dt = self.dt
+
+        # command schedule: exact reference ramp min(v·t/T, v)
+        t = info.step.to(dtype) * dt
+        frac = t / cfg.ramp_up_time
+        vx = torch.clamp(cfg.default_vx * frac, max=cfg.default_vx)
+        vy = torch.clamp(cfg.default_vy * frac, max=cfg.default_vy)
+        if cfg.turn_period:
+            sign = (1.0 - 2.0 * ((info.step // cfg.turn_period) % 2)).to(dtype)
+            mag = torch.clamp(abs(cfg.default_vyaw) * frac, max=abs(cfg.default_vyaw))
+            vyaw = mag * sign
+        else:
+            vyaw = torch.clamp(cfg.default_vyaw * frac, max=cfg.default_vyaw)
+        if cfg.goal_x > 0.0:
+            vx = vx * (torso_xpos[..., 0] < cfg.goal_x).to(dtype)
+        vel_tar = torch.stack([vx, vy, info.vel_tar[..., 2]], dim=-1)
+        ang_vel_tar = torch.stack(
+            [info.ang_vel_tar[..., 0], info.ang_vel_tar[..., 1], vyaw], dim=-1
+        )
+
+        # rewards
+        z_feet = site_xpos[..., self._feet_site_id, 2]
+        z_feet_tar = self._foot_step_target(info.step)
+        reward_gaits = -torch.sum(((z_feet_tar - z_feet) / 0.05) ** 2, dim=-1)
+
+        up_global = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=qpos.device)
+        up_body = rot.rotate(up_global, torso_xquat)
+        reward_upright = -torch.sum((up_body - up_global) ** 2, dim=-1)
+
+        if cfg.turn_period:
+            yaw_tar = info.yaw_tar + ang_vel_tar[..., 2] * dt
+        else:
+            yaw_tar = info.yaw_tar + ang_vel_tar[..., 2] * dt * info.step.to(dtype)
+        if cfg.yaw_mode == "eigen":
+            yaw = rot.quat_to_yaw_eigen(torso_xquat)
+        else:
+            yaw = rot.quat_to_yaw(torso_xquat)
+        d_yaw = yaw - yaw_tar
+        wrapped = torch.atan2(torch.sin(d_yaw), torch.cos(d_yaw))
+        reward_yaw = -(wrapped**2)
+
+        vb, ab = self._body_velocities(torso_xpos, torso_xquat, torso_cvel, root_com)
+        reward_vel = -torch.sum((vb[..., :2] - vel_tar[..., :2]) ** 2, dim=-1)
+        reward_ang_vel = -((ab[..., 2] - ang_vel_tar[..., 2]) ** 2)
+
+        z_torso = torso_xpos[..., 2]
+        reward_height = -((z_torso - info.pos_tar[..., 2]) ** 2)
+
+        reward_energy = torch.zeros_like(reward_height)
+        if cfg.energy_weight != 0.0:
+            tau = qfrc_actuator[..., 6:]
+            qd = qvel[..., 6:]
+            reward_energy = -torch.sum(torch.clamp(tau * qd / 160.0, min=0.0) ** 2, dim=-1)
+
+        reward = (
+            0.1 * reward_gaits
+            + 0.5 * reward_upright
+            + 0.3 * reward_yaw
+            + cfg.vel_weight * reward_vel
+            + 1.0 * reward_ang_vel
+            + 1.0 * reward_height
+            + cfg.energy_weight * reward_energy
+        )
+        if cfg.y_anchor_weight != 0.0:
+            reward = reward - cfg.y_anchor_weight * (
+                (torso_xpos[..., 1] - info.pos_tar[..., 1]) ** 2
+            )
+
+        # termination
+        jr = self.termination_joint_range
+        joint_angles = qpos[..., 7 : 7 + self.model.nu]
+        out_of_range = torch.any((joint_angles < jr[:, 0]) | (joint_angles > jr[:, 1]), dim=-1)
+        done = (torch.sum(up_body * up_global, dim=-1) < 0.0) | out_of_range | (z_torso < 0.18)
+        if cfg.done_penalty != 0.0:
+            reward = reward - cfg.done_penalty * done.to(dtype)
+
+        # contact / air-time tracking
+        contact = (z_feet - self._foot_radius) < 1e-3
+        contact_filt = contact | info.last_contact
+        feet_air_time = torch.where(contact_filt, 0.0, info.feet_air_time + dt)
+
+        new_info = StateInfo(
+            pos_tar=info.pos_tar,
+            vel_tar=vel_tar,
+            ang_vel_tar=ang_vel_tar,
+            yaw_tar=yaw_tar if cfg.turn_period else info.yaw_tar,
+            step=info.step + 1,
+            z_feet=z_feet,
+            z_feet_tar=z_feet_tar,
+            last_contact=contact,
+            feet_air_time=feet_air_time,
+        )
+        return reward, done, new_info
+
+    # ------------------------------------------------------------------
+    def _body_velocities(self, torso_xpos, torso_xquat, torso_cvel, root_com):
+        """Torso body-frame linear/angular velocity."""
+        offset = torso_xpos - root_com
+        cvel_ang = torso_cvel[..., :3]
+        cvel_lin = torso_cvel[..., 3:]
+        vel_lin = cvel_lin - torch.linalg.cross(offset, cvel_ang, dim=-1)
+        vb = rot.global_to_body_velocity(vel_lin, torso_xquat)
+        ab = rot.global_to_body_velocity(cvel_ang, torso_xquat)
+        return vb, ab
+
+    def _get_obs(self, qpos, qvel, torso_xpos, torso_xquat, torso_cvel, root_com, info, ctrl):
+        """55-dim observation: [vel_tar, ang_vel_tar, ctrl, qpos, vb, ab, qvel[6:]]."""
+        vb, ab = self._body_velocities(torso_xpos, torso_xquat, torso_cvel, root_com)
+        return torch.cat(
+            [info.vel_tar, info.ang_vel_tar, ctrl, qpos, vb, ab, qvel[..., 6:]], dim=-1
+        )

@@ -1,0 +1,70 @@
+"""Named task registry: env config + planner defaults per task.
+
+Counterpart of `tpu_dialmpc/envs/registry.py`, for the tasks the port runs
+(so far `go2_stand`, the reference benchmark workload).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+_REGISTRY: Dict[str, Callable[..., object]] = {}
+_DIAL_DEFAULTS: Dict[str, dict] = {}
+
+# Per-task planner defaults (DialConfig kwargs), as in the JAX package.
+_DIAL_COMMON = dict(
+    Nsample=2048,
+    Ndiffuse=2,
+    Ndiffuse_init=10,
+    temp_sample=0.05,
+    horizon_diffuse_factor=0.9,
+    traj_diffuse_factor=0.5,
+    ctrl_dt=0.02,
+    n_steps=400,
+)
+_GO2_DIAL = dict(_DIAL_COMMON, Hsample=20, Hnode=5)
+
+
+def get_env(name: str, device="cpu", **overrides):
+    """Instantiate a registered task env on `device`, with config-field
+    overrides."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown task {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name](device=device, **overrides)
+
+
+def list_envs():
+    return sorted(_REGISTRY)
+
+
+def dial_defaults(name: str) -> dict:
+    """Planner (DialConfig) defaults for a registered task."""
+    if name not in _DIAL_DEFAULTS:
+        raise KeyError(f"unknown task {name!r}; known: {sorted(_DIAL_DEFAULTS)}")
+    return dict(_DIAL_DEFAULTS[name])
+
+
+def _go2(defaults):
+    from tpu_dialmpc_torch.envs.go2 import UnitreeGo2Env, UnitreeGo2EnvConfig
+
+    # registered tasks substep ctrl_dt / timestep = 8 times per control
+    defaults.setdefault("n_substeps", 8)
+
+    def factory(device="cpu", **overrides):
+        cfg = dataclasses.replace(UnitreeGo2EnvConfig(**defaults), **overrides)
+        return UnitreeGo2Env(cfg, device=device)
+
+    return factory
+
+
+def _register(name: str, factory, dial: dict):
+    _REGISTRY[name] = factory
+    _DIAL_DEFAULTS[name] = dict(dial)
+
+
+# the reference benchmark config (dial-core-test.cpp:8-32: gait=stand, vx=0.8,
+# kp=30, kd=0.65, torque mode)
+_register("go2_stand", _go2(
+    dict(gait="stand", default_vx=0.8, kp=30.0, kd=0.65, leg_control="torque")
+), _GO2_DIAL)

@@ -1,0 +1,202 @@
+"""DIAL-MPC planner (MBDPI): diffusion-style annealed sampling MPC.
+
+Counterpart of `tpu_dialmpc/planner/dial.py`, in PyTorch:
+
+- node <-> dense spline transforms and the receding-horizon shift are fixed
+  matrices (core/spline.py) applied as einsums;
+- the candidate noise is drawn from an explicit `torch.Generator` (the JAX
+  package splits `jax.random` keys); `reverse_once(..., noise=)` takes
+  injected noise, which is how the tests hold the port against the JAX
+  package on the same draws;
+- rollouts go through the env's `rollout_batch` (one substep-kernel launch per
+  horizon step for all Nsample+1 candidates);
+- `reverse` and `improve` are Python loops over `reverse_once`.
+
+Not ported yet (they raise NotImplementedError): `compat_q1` (sequentially
+chained rollouts, reference quirk Q1) and `diag_states` (softmax-weighted
+rollout states, quirk Q4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpu_dialmpc_torch.core import spline
+
+
+@dataclasses.dataclass(frozen=True)
+class DialConfig:
+    """Planner hyperparameters, as in the JAX package (dial-core.h:35-49)."""
+
+    seed: int = 0
+    Hsample: int = 16
+    Hnode: int = 4
+    Nsample: int = 20
+    Ndiffuse: int = 2
+    Ndiffuse_init: int = 10
+    temp_sample: float = 0.05
+    horizon_diffuse_factor: float = 0.5
+    ctrl_dt: float = 0.02
+    n_steps: int = 400
+    traj_diffuse_factor: float = 0.5
+    update_method: str = "mppi"
+    spline_mode: str = "ref"  # "ref" replicates the C++ spline quirks
+    # "sample" (default): scalar std of the mean rewards across samples, the
+    # upstream semantics; "time": per-sample std across time, the C++ (Q9)
+    score_std: str = "sample"
+    compat_q1: bool = False  # not ported yet
+    diag_states: bool = False  # not ported yet
+
+
+class ReverseInfo(NamedTuple):
+    """Per-iteration diagnostics (see the JAX package's ReverseInfo)."""
+
+    rews: torch.Tensor  # (Nsample+1,) per-candidate mean rewards
+    rew_Ybar: torch.Tensor  # scalar: mean reward of the anchor trajectory
+    weights: torch.Tensor  # (Nsample+1,) softmax weights
+    ess: torch.Tensor  # effective sample size 1/Σw²
+    entropy: torch.Tensor  # softmax weight entropy
+    new_noise_scale: torch.Tensor  # (Hnode+1,) — unchanged (quirk Q5)
+    qbar: torch.Tensor  # (1, 1) zeros: the C++ placeholders (diag_states)
+    qdbar: torch.Tensor
+    xbar: torch.Tensor
+
+
+def _stack_infos(infos):
+    return ReverseInfo(*(torch.stack(list(f)) for f in zip(*infos)))
+
+
+class MBDPI:
+    """Model-Based Diffusion Planner on the env's device."""
+
+    def __init__(self, args: DialConfig, env):
+        if args.compat_q1:
+            raise NotImplementedError("compat_q1 (reference quirk Q1) is not ported yet")
+        if args.diag_states:
+            raise NotImplementedError("diag_states (reference quirk Q4) is not ported yet")
+        self.args = args
+        self.env = env
+        self.nu = env.action_size
+        self.device = torch.device(getattr(env, "device", "cpu"))
+
+        # sigma schedule (dial-core.h:388-395)
+        sigma0, sigma1 = 1e-2, 1.0
+        B = np.log(sigma1 / sigma0) / args.Ndiffuse
+        self.sigmas = sigma0 * np.exp(B * np.arange(args.Ndiffuse))
+        # per-node noise schedule (dial-core.h:397-404)
+        self.sigma_control = args.horizon_diffuse_factor ** np.arange(args.Hnode, -1, -1)
+        mode = args.spline_mode
+
+        def mat(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=self.device)
+
+        self._node2u = mat(spline.node2u_matrix(args.Hnode, args.Hsample, args.ctrl_dt, mode))
+        self._u2node = mat(spline.u2node_matrix(args.Hnode, args.Hsample, args.ctrl_dt, mode))
+        self._shift = mat(spline.shift_matrix(args.Hnode, args.Hsample, args.ctrl_dt, mode))
+
+    # ------------------------------------------------------------------
+    def node2u(self, nodes: torch.Tensor) -> torch.Tensor:
+        """(..., Hnode+1, nu) -> (..., Hsample+1, nu) dense controls."""
+        return torch.einsum("qn,...nu->...qu", self._node2u.to(nodes.dtype), nodes)
+
+    def u2node(self, us: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("qn,...nu->...qu", self._u2node.to(us.dtype), us)
+
+    def shift(self, Y: torch.Tensor) -> torch.Tensor:
+        """Receding-horizon shift as one precomposed linear map."""
+        return torch.einsum("qn,...nu->...qu", self._shift.to(Y.dtype), Y)
+
+    # ------------------------------------------------------------------
+    def rollout_us_batch(self, state, all_us: torch.Tensor) -> torch.Tensor:
+        """(B, Hsample+1, nu) -> rewards (B, Hsample+1); every rollout starts
+        from `state`."""
+        return self.env.rollout_batch(state, all_us)
+
+    def _candidates(self, generator, Ybar_i, noise_scale, noise):
+        """Noisy node-trajectory candidates + appended anchor (dial-core.h:477-514)."""
+        args = self.args
+        dtype = Ybar_i.dtype
+        if noise is None:
+            noise = torch.randn(
+                (args.Nsample, args.Hnode + 1, self.nu),
+                generator=generator, dtype=dtype, device=Ybar_i.device,
+            )
+        eps = noise * noise_scale.to(dtype)[None, :, None]
+        Y0s = Ybar_i[None] + eps
+        # pin the first (currently executing) node (dial-core.h:493)
+        Y0s[:, 0, :] = Ybar_i[0]
+        all_Y0s = torch.cat([Y0s, Ybar_i[None]], dim=0)
+        return torch.clamp(all_Y0s, -1.0, 1.0)
+
+    def _score_update(self, rewss, all_Y0s, noise_scale):
+        """Score, softmax, weighted average (dial-core.h:529-592)."""
+        args = self.args
+        rews = rewss.mean(dim=-1)
+        rew_Ybar = rewss[-1].mean()
+        if args.score_std == "time":
+            var = torch.mean((rewss - rews[:, None]) ** 2, dim=-1)
+            std = torch.where(var > 1e-14, torch.sqrt(var), 1e-7)
+        else:
+            # population std, as jnp.std
+            std = torch.clamp(rews.std(correction=0), min=1e-7)
+        logp0 = (rews - rew_Ybar) / (std * args.temp_sample)
+        logp0 = logp0 - torch.max(logp0)
+        weights = torch.softmax(logp0, dim=0)
+        Ybar = torch.einsum("n,nij->ij", weights, all_Y0s)
+        z = torch.zeros((1, 1), dtype=rewss.dtype, device=rewss.device)
+        info = ReverseInfo(
+            rews=rews,
+            rew_Ybar=rew_Ybar,
+            weights=weights,
+            ess=1.0 / torch.sum(weights**2),
+            entropy=-torch.sum(weights * torch.log(weights + 1e-30)),
+            new_noise_scale=noise_scale,
+            qbar=z, qdbar=z, xbar=z,
+        )
+        return Ybar, info
+
+    def reverse_once(
+        self,
+        state,
+        generator: Optional[torch.Generator],
+        Ybar_i: torch.Tensor,
+        noise_scale: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, ReverseInfo]:
+        """One annealing step (dial-core.h:469-593)."""
+        all_Y0s = self._candidates(generator, Ybar_i, noise_scale, noise)
+        all_us = self.node2u(all_Y0s)  # (Nsample+1, Hsample+1, nu)
+        rewss = self.rollout_us_batch(state, all_us)  # (Nsample+1, Hsample+1)
+        return self._score_update(rewss, all_Y0s, noise_scale)
+
+    # ------------------------------------------------------------------
+    def reverse(self, state, YN: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """Warm-start chain: i = Ndiffuse-1 … 1 (dial-core.h:598-614)."""
+        args = self.args
+        Y = YN
+        for i in range(args.Ndiffuse - 1, 0, -1):
+            scale = torch.full((args.Hnode + 1,), float(self.sigmas[i]),
+                               dtype=YN.dtype, device=YN.device)
+            Y, _ = self.reverse_once(state, generator, Y, scale)
+        return Y
+
+    def improve(
+        self, state, Y0: torch.Tensor, generator: torch.Generator, n_diffuse: int
+    ) -> Tuple[torch.Tensor, ReverseInfo]:
+        """n_diffuse reverse_once steps with the annealed schedule
+        factor = sigma_control · traj_diffuse_factor^i (dial-core-test.cpp:84-92).
+        Returns the new Y and the per-iteration infos stacked."""
+        args = self.args
+        Y, infos = Y0, []
+        for i in range(n_diffuse):
+            scale = torch.as_tensor(
+                self.sigma_control * args.traj_diffuse_factor**i,
+                dtype=Y0.dtype, device=Y0.device,
+            )
+            Y, info = self.reverse_once(state, generator, Y, scale)
+            infos.append(info)
+        return Y, _stack_infos(infos)
