@@ -3,17 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — DIAL-MPC on go2_stand (the Go2 stand-in scene)
-at the full planner width, Nsample=2048, Hsample=20, Hnode=5, 8 substeps per
-control — through the entry points a user calls (`get_env`, `MBDPI`,
-`make_control_step`), after building the substep kernel from the sources in
-this checkout and holding it against its plain PyTorch version on the card.
+Drives the port's two paths through the entry points a user calls
+(`get_env`, `MBDPI`, `make_control_step`), each at its task's full planner
+width with 8 substeps per control, after building that model's substep
+kernel from the sources in this checkout and holding it against its plain
+PyTorch version on the card:
 
-Phases (each prints its lines; any failure exits non-zero with no result):
-  1. the card, as nvidia-smi reports its name and power limit;
-  2. the kernel build (nvcc, sm_90a) with ptxas' register and spill lines;
-  3. kernel vs plain version on the same inputs, B=2049 and B=1, 8 substeps;
-  4. the main path: reset, the reverse warm start, 3 control steps, with the
+- go2_stand on the Go2 stand-in scene (plane-sphere contacts), Nsample=2048,
+  Hsample=20, Hnode=5: the reference benchmark workload;
+- go2_crate_climb on the crate stand-in scene (all six contact kinds),
+  Nsample=2048, Hsample=25, Hnode=5.
+
+Phases, for each path (each prints its lines; any failure exits non-zero
+with no result), after the card as nvidia-smi reports its name and power
+limit:
+  1. the kernel build (nvcc, sm_90a) for this model, with ptxas' register,
+     stack and spill lines;
+  2. kernel vs plain version on the same inputs, B=2049 and B=1, 8
+     substeps; on the crate model, inputs that touch every contact kind, and
+     the active contacts per kind are printed and checked;
+  3. the main path: reset, the reverse warm start, 3 control steps, with the
      kernel's launch count checked, plus a small reverse_once checked against
      the plain substep chain, then timings.
 The last two lines are the kernels' JSON record and the result JSON.
@@ -29,6 +38,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 N_SUBSTEPS = 8
+# each path: (task, the model file its kernel is built for, its full width
+# (Nsample, Hsample, Hnode, n_substeps))
+PATHS = (
+    ("go2_stand", "go2_force", (2048, 20, 5, 8)),
+    ("go2_crate_climb", "go2_force_crate", (2048, 25, 5, 8)),
+)
+CRATE_FACE_X = 0.79  # the base 0.2 m before the crate's face at x = 1.3 - 0.31
 # The kernel follows the plain version's op order with the same rounding
 # (nvcc -fmad=false, the same CUDA math library), so the two agree to the last
 # bit on the card; 1e-6 of each output's scale leaves room for a last-bit
@@ -62,6 +78,26 @@ def near_home_inputs(model, B, seed, device):
             for a in (qpos, qvel, ws, ctrl)]
 
 
+def crate_inputs(model, B, seed, device):
+    """Crate-scene inputs that touch every contact kind (see
+    tests/torch_port_helpers.py:crate_states), zero warmstart, random torques
+    within the motors' range.  At B=1: the sample that leads with its torso
+    into the crate's face (plane-sphere, capsule-box and box-box contacts)."""
+    import numpy as np
+    import torch
+
+    from torch_port_helpers import crate_states
+
+    rng = np.random.default_rng(seed)
+    n = max(B, 6)
+    qpos, qvel = crate_states(model, rng, n)
+    ws = np.zeros((n, model.nv))
+    ctrl = rng.uniform(-10.0, 10.0, size=(n, model.nu))
+    rows = slice(1, 2) if B == 1 else slice(0, B)
+    return [torch.as_tensor(a[rows], dtype=torch.float32, device=device).contiguous()
+            for a in (qpos, qvel, ws, ctrl)]
+
+
 def cuda_ms(fn, reps):
     """Mean device ms per call of fn over reps calls, CUDA events."""
     import torch
@@ -86,27 +122,40 @@ def phase_card():
     return line
 
 
-def phase_build(env, device):
+def phase_build(env, device, tag):
     t0 = time.perf_counter()
     env.fused_step.library(device)
     secs = time.perf_counter() - t0
-    print(f"[build] fused_step.cu for sm_90a: {secs:.2f} s (nvcc + load + model upload)")
+    print(f"[build {tag}] fused_step.cu for sm_90a: {secs:.2f} s (nvcc + load + model upload)")
     for line in (env.fused_step.build_log or "").splitlines():
         if any(k in line for k in ("registers", "spill", "stack frame")):
-            print(f"[build] {line.strip()}")
+            print(f"[build {tag}] {line.strip()}")
     return secs
 
 
-def phase_compare(env, device):
+def phase_compare(env, device, tag):
     """Kernel vs plain version on the card; returns (max abs err, kernel ms,
-    plain ms) at B=2049."""
+    plain ms) at B=2049.  On a model with more than plane-sphere contacts
+    the inputs touch every contact kind, and at B=2049 every kind must have
+    active contacts."""
     import torch
 
+    from tpu_dialmpc_torch.dynamics import fused
+
     fs = env.fused_step
+    crate = len(env.model.pairs) > 1
+    inputs = crate_inputs if crate else near_home_inputs
     names = ("qpos", "qvel", "warmstart", "derived")
     worst = 0.0
     for B, seed in ((2049, 0), (1, 1)):
-        args = near_home_inputs(env.model, B, seed, device)
+        args = inputs(env.model, B, seed, device)
+        if crate:
+            active = fused.active_contacts(env.model, args[0])
+            print(f"[compare {tag}] B={B} active contacts per kind: " + ", ".join(
+                f"{KIND_NAMES[k]} {n}" for k, n in active.items()))
+            if B > 1:
+                check(all(n > 0 for n in active.values()),
+                      f"B={B}: a contact kind has no active contact, the compare proves nothing")
         got = fs(*args)
         want = fs.plain(*args)
         torch.cuda.synchronize()
@@ -116,16 +165,18 @@ def phase_compare(env, device):
             err = (g - w).abs().max().item()
             tol = REL_TOL * max(1.0, w.abs().max().item())
             worst = max(worst, err)
-            print(f"[compare] B={B} n_substeps={N_SUBSTEPS} {name}: max abs diff "
+            print(f"[compare {tag}] B={B} n_substeps={N_SUBSTEPS} {name}: max abs diff "
                   f"{err:.3e} (tolerance {tol:.3e})")
             check(err <= tol, f"kernel disagrees with the plain version: B={B} {name}")
-    args = near_home_inputs(env.model, 2049, 2, device)
+    args = inputs(env.model, 2049, 2, device)
     for _ in range(3):
         fs(*args)
     ms = cuda_ms(lambda: fs(*args), 20)
+    # the plain version takes seconds per call: one warm call, one timed
     fs.plain(*args)
-    plain_ms = cuda_ms(lambda: fs.plain(*args), 2)
-    print(f"[compare] B=2049 time per call: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.1f} ms")
+    plain_ms = cuda_ms(lambda: fs.plain(*args), 1)
+    print(f"[compare {tag}] B=2049 time per call: kernel {ms:.3f} ms, plain PyTorch "
+          f"{plain_ms:.1f} ms")
     return worst, ms, plain_ms
 
 
@@ -140,18 +191,23 @@ class _PlainSubsteps:
         return self.plain(*args)
 
 
-def make_env(device):
+KIND_NAMES = {(0, 2): "plane-sphere", (0, 3): "plane-capsule", (0, 6): "plane-box",
+              (2, 6): "sphere-box", (3, 6): "capsule-box", (6, 6): "box-box"}
+
+
+def make_env(task, scene, width, device):
     from tpu_dialmpc_torch.envs import dial_defaults, get_env
     from tpu_dialmpc_torch.planner.dial import DialConfig
 
-    env = get_env("go2_stand", device=device)
-    cfg = DialConfig(**dial_defaults("go2_stand"))
-    check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == (2048, 20, 5, 8),
-          "go2_stand is not at the full planner width")
+    env = get_env(task, device=device)
+    cfg = DialConfig(**dial_defaults(task))
+    check(env.config.scene == scene, f"{task} does not run on {scene}")
+    check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == width,
+          f"{task} is not at the full planner width {width}")
     return env, cfg
 
 
-def run_main_path(env, cfg, device):
+def run_main_path(env, cfg, device, task, envs):
     import torch
 
     from tpu_dialmpc_torch.envs.base import to_lean
@@ -170,7 +226,8 @@ def run_main_path(env, cfg, device):
         + (n_steps - 1) * (1 + cfg.Ndiffuse * horizon)  # the rest
     )
 
-    env.fused_step.launches = 0  # every count to 0 just before the main path
+    for e in envs:  # every count to 0 just before this path
+        e.fused_step.launches = 0
     state = to_lean(env.reset())
     Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=torch.float32, device=device)
     Y0 = mbdpi.reverse(state, Y0, gen)
@@ -181,11 +238,12 @@ def run_main_path(env, cfg, device):
         check(bool(torch.isfinite(infos.rews).all()), f"step {t}: non-finite rollout rewards")
     torch.cuda.synchronize()
     launches = env.fused_step.launches
+    others = [e.fused_step.launches for e in envs if e is not env]
 
     rewards = torch.stack(rewards)
     quat = state.pipeline.qpos[3:7]
     up_z = (1.0 - 2.0 * (quat[1] ** 2 + quat[2] ** 2)).item()
-    print(f"[main] go2_stand N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
+    print(f"[main {task}] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
           f"{env.config.n_substeps}: reset, reverse, {n_steps} control steps; rewards "
           f"{[round(r, 5) for r in rewards.tolist()]}, torso z "
           f"{state.pipeline.qpos[2].item():.4f}, up·z {up_z:.4f}")
@@ -193,16 +251,18 @@ def run_main_path(env, cfg, device):
     check(bool(torch.isfinite(Y0).all()) and Y0.shape == (cfg.Hnode + 1, env.action_size),
           "Ybar is non-finite or misshapen")
     check(up_z > 0.5 and not bool(state.done), "the torso did not stay upright")
-    print(f"[main] kernel launches: {launches} (expected {expected} = "
+    print(f"[main {task}] kernel launches: {launches} (expected {expected} = "
           f"{cfg.Ndiffuse - 1}x{horizon} + (1 + {cfg.Ndiffuse_init}x{horizon}) + "
-          f"{n_steps - 1}x(1 + {cfg.Ndiffuse}x{horizon}))")
+          f"{n_steps - 1}x(1 + {cfg.Ndiffuse}x{horizon})); other models' kernels: {others}")
     check(launches == expected, "the main path did not launch the kernel as expected")
+    check(not any(others), "the main path launched another model's kernel")
     return mbdpi, state, Y0, gen, step_rest, launches
 
 
-def check_small_against_plain(env, cfg, device):
+def check_small_against_plain(env, cfg, device, task):
     """One small reverse_once through the kernel and through the plain
-    substep chain, same card, same injected noise."""
+    substep chain, same card, same injected noise; on the crate task from a
+    state at the crate's face, so the rollouts meet the crate."""
     import dataclasses
 
     import torch
@@ -221,18 +281,24 @@ def check_small_against_plain(env, cfg, device):
         mb = MBDPI(small, e)
         Y = torch.zeros((small.Hnode + 1, e.action_size), device=device)
         scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
-        out.append(mb.reverse_once(to_lean(e.reset()), None, Y, scale, noise=noise))
+        start = to_lean(e.reset())
+        if e.config.crate_top_z > 0.0:
+            qpos = start.pipeline.qpos.clone()
+            qpos[0] = CRATE_FACE_X
+            start = dataclasses.replace(
+                start, pipeline=dataclasses.replace(start.pipeline, qpos=qpos))
+        out.append(mb.reverse_once(start, None, Y, scale, noise=noise))
     (kY, kinfo), (pY, pinfo) = out
     torch.cuda.synchronize()
     for name, a, b in (("rews", kinfo.rews, pinfo.rews), ("Ybar", kY, pY)):
         err = (a - b).abs().max().item()
         tol = REL_TOL * max(1.0, b.abs().max().item())
-        print(f"[main] small reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
+        print(f"[main {task}] small reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
               f"max abs diff {err:.3e} (tolerance {tol:.3e})")
         check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
 
 
-def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device):
+def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task):
     import torch
 
     scale = torch.as_tensor(mbdpi.sigma_control, dtype=torch.float32, device=device)
@@ -250,7 +316,7 @@ def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device):
 
     ro_ms = timed(lambda: mbdpi.reverse_once(state, gen, Y0, scale), 5)
     cs_ms = timed(lambda: step_rest(state, Y0, gen), 5)
-    print(f"[time] median ms per reverse_once: {ro_ms:.2f}; per control step "
+    print(f"[time {task}] median ms per reverse_once: {ro_ms:.2f}; per control step "
           f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f}")
     return ro_ms, cs_ms
 
@@ -264,36 +330,45 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    if not (ROOT / "tpu_dialmpc_torch" / "csrc" / "fused_step.cu").is_file():
+    if not all((ROOT / f).is_file() for f in ("tpu_dialmpc_torch/csrc/fused_step.cu",
+                                               "tests/torch_port_helpers.py")):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(1, str(ROOT / "tests"))
     device = torch.device("cuda", 0)
 
+    records, summary = [], []
     try:
         card = phase_card()
-        env, cfg = make_env(device)
-        phase_build(env, device)
-        max_err, ms, plain_ms = phase_compare(env, device)
-        mbdpi, state, Y0, gen, step_rest, launches = run_main_path(env, cfg, device)
-        check_small_against_plain(env, cfg, device)
-        ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device)
+        envs = [(task, scene) + make_env(task, scene, width, device)
+                for task, scene, width in PATHS]
+        all_envs = [env for _, _, env, _ in envs]
+        for task, scene, env, cfg in envs:
+            phase_build(env, device, scene)
+            max_err, ms, plain_ms = phase_compare(env, device, scene)
+            mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
+                env, cfg, device, task, all_envs)
+            check_small_against_plain(env, cfg, device, task)
+            ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task)
+            summary.append(f"{task} reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
+                           f"fused_step[{scene}] {ms:.3f} ms vs plain {plain_ms:.1f} ms")
+            records.append({
+                "name": f"fused_step[{scene}]",
+                "route": "cuda",
+                "source": "tpu_dialmpc_torch/csrc/fused_step.cu",
+                "replaces": "tpu_dialmpc/dynamics/fused.py:1440",
+                "launches": launches,
+                "max_abs_err": max_err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+            })
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    print(f"[summary] {card}: reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
-          f"fused_step kernel {ms:.3f} ms vs plain {plain_ms:.1f} ms per call at B=2049")
-    print(json.dumps({"kernels": [{
-        "name": "fused_step",
-        "route": "cuda",
-        "source": "tpu_dialmpc_torch/csrc/fused_step.cu",
-        "replaces": "tpu_dialmpc/dynamics/fused.py:1440",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(f"[summary] {card}, per call at B=2049: " + "; ".join(summary))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

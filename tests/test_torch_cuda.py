@@ -1,5 +1,6 @@
-"""torch port, the fused substep kernel on the card: marked `cuda`, and each
-test skips without a CUDA device.
+"""torch port, the fused substep kernel on the card, for the Go2 stand-in
+(plane-sphere contacts) and the crate stand-in (all six contact kinds):
+marked `cuda`, and each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import PORT_NPZ, near_home_states
+from torch_port_helpers import CRATE_NPZ, PORT_NPZ, crate_states, near_home_states
 from tpu_dialmpc_torch.dynamics import fused, fused_cuda
 from tpu_dialmpc_torch.dynamics.model import load_model
 
@@ -36,6 +37,11 @@ def card():
 @pytest.fixture(scope="module")
 def model():
     return load_model(str(PORT_NPZ))
+
+
+@pytest.fixture(scope="module")
+def crate_model():
+    return load_model(str(CRATE_NPZ))
 
 
 def _inputs(model, B, seed, device):
@@ -81,3 +87,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card, model, case):
     with pytest.raises(error):
         fs(*args)
     assert fs.launches == 0
+
+
+@pytest.mark.parametrize("B", [12, 2049])
+def test_crate_kernel_matches_plain_on_card(card, crate_model, B):
+    """The crate build: 8 substeps on a batch where every contact kind has
+    an active contact."""
+    m = crate_model
+    rng = np.random.default_rng(B)
+    qpos, qvel = crate_states(m, rng, B)
+    arrays = (qpos, qvel, np.zeros((B, m.nv)), rng.uniform(-10, 10, (B, m.nu)))
+    args = [torch.as_tensor(a, dtype=torch.float32, device=card).contiguous() for a in arrays]
+    active = fused.active_contacts(m, args[0])
+    assert len(active) == 6 and all(n > 0 for n in active.values()), active
+    fs = fused_cuda.FusedStep(m, 8, SPEC)
+    out = fs(*args)
+    ref = fs.plain(*args)
+    torch.cuda.synchronize()
+    assert fs.launches == 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and bool(torch.isfinite(o).all())
+        assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())

@@ -36,6 +36,10 @@ VARIANTS = {
     "model_ranges": dict(joint_range_source="model"),
     "model_eigen_ranges": dict(joint_range_source="model_eigen"),
     "vel_weight": dict(vel_weight=2.5, default_vy=0.3, ramp_up_time=0.5),
+    # the crate scene: terrain-aware foot targets and the torso-height ramp
+    # (crate_top_z), or the crate moved out of the way (crate_x)
+    "crate_climb": dict(scene="go2_force_crate", crate_top_z=0.30, gait="climb", goal_x=1.35),
+    "crate_x": dict(scene="go2_force_crate", crate_x=30.0, gait="pronk"),
 }
 
 
@@ -56,10 +60,19 @@ def _inputs(env, seed):
     quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
     torso_xpos = rng.normal(scale=0.05, size=(B, 3)) + [0.0, 0.0, 0.25]
     torso_xpos[:3, 2] = 0.1  # below the 0.18 m termination height
+    site_xpos = rng.normal(scale=0.02, size=(B, m.nsite, 3)) + [0.0, 0.0, 0.02]
+    if env.config.scene == "go2_force_crate":
+        # the crate's footprint is x in [0.99, 1.61], |y| < 0.46; the torso
+        # ramp runs from x = 0.84 to 1.24: feet inside and outside the
+        # footprint, the torso before, on and past the ramp
+        site_xpos[..., 0] = rng.uniform(0.6, 2.0, size=(B, m.nsite))
+        site_xpos[..., 1] = rng.uniform(-0.7, 0.7, size=(B, m.nsite))
+        site_xpos[..., 2] = rng.uniform(0.0, 0.35, size=(B, m.nsite))
+        torso_xpos[:, 0] = rng.uniform(0.6, 1.5, size=B)
     arrays = dict(
         qpos=qpos,
         qvel=rng.normal(size=(B, m.nv)),
-        site_xpos=rng.normal(scale=0.02, size=(B, m.nsite, 3)) + [0.0, 0.0, 0.02],
+        site_xpos=site_xpos,
         torso_xpos=torso_xpos,
         torso_xquat=quat,
         torso_cvel=rng.normal(size=(B, 6)),
@@ -94,6 +107,13 @@ def test_post_physics_matches_jax(monkeypatch, variant):
         **{k: torch.as_tensor(v) for k, v in arrays.items()},
         info=StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()}),
     )
+    if tenv._crate is not None:
+        cx, cy, hx, hy, _ = tenv._crate
+        feet = arrays["site_xpos"][:, tenv._feet_site_id]
+        inside = (np.abs(feet[..., 0] - cx) < hx) & (np.abs(feet[..., 1] - cy) < hy)
+        assert inside.any() and not inside.all()
+        ramp = (arrays["torso_xpos"][:, 0] - (cx - hx - 0.15)) / tenv.config.crate_ramp
+        assert (ramp < 0).any() and ((ramp > 0) & (ramp < 1)).any() and (ramp > 1).any()
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=TOL)
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     if variant == "model_eigen_ranges":
@@ -141,6 +161,13 @@ def test_foot_step_targets_match_jax(name):
 
 def test_unported_options_raise():
     for kw in (dict(randomize_tasks=True), dict(leg_control="position"),
-               dict(crate_top_z=0.3), dict(joint_range_source="climb")):
+               dict(joint_range_source="climb")):
         with pytest.raises(NotImplementedError):
+            get_env("go2_stand", **kw)
+
+
+def test_crate_options_need_the_crate_scene():
+    """As in the JAX env: the crate options on a scene without `box_body`."""
+    for kw in (dict(crate_top_z=0.3), dict(crate_x=30.0)):
+        with pytest.raises(ValueError):
             get_env("go2_stand", **kw)

@@ -1,7 +1,9 @@
 """torch port, dynamics/fused.py and fused_cuda.py: the plain substep chain
 against the JAX package's fused scalar graph and its XLA pipeline, the
 launch counter and device checks of the kernel wrapper, and the kernel
-source's arithmetic through its host (g++) build.
+source's arithmetic through its host (g++) build, on the Go2 stand-in
+(plane-sphere contacts) and on the crate stand-in (all six contact kinds,
+on batches where every kind has an active contact).
 
 Tolerances, with their reasons:
 - float32 vs the eager JAX `fused._substep`: those of tests/test_fused.py
@@ -9,7 +11,9 @@ Tolerances, with their reasons:
   the same graph in float32, whose truncated Newton solve amplifies
   last-bit differences of the two libraries' sin/cos/rsqrt.
 - float64 vs `pipeline.step` and vs the JAX graph: 1e-9 / 1e-10 (see each
-  test): the same math in float64, in another factorization order.
+  test): the same math in float64, in another factorization order.  On the
+  crate scene the warmstart output (the solver's qacc, up to ~1e3 in hard
+  contact) is held to 1e-10 of its scale.
 """
 
 import functools
@@ -20,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_standin_model, near_home_states, port_model_from
+from torch_port_helpers import crate_states, jax_standin_model, near_home_states, port_model_from
 from tpu_dialmpc.dynamics import fused as jfused
 from tpu_dialmpc.dynamics import pipeline
 from tpu_dialmpc_torch.dynamics import fused as tfused
@@ -48,6 +52,27 @@ def _trials(model, n=3):
         ctrl = rng.uniform(-20, 20, size=(1, model.nu))
         out.append((qpos, qvel, ws, ctrl))
     return out
+
+
+@pytest.fixture(scope="module")
+def crate_models():
+    mp = pytest.MonkeyPatch()
+    try:
+        jm = jax_standin_model(mp, "go2_force_crate")
+    finally:
+        mp.undo()
+    return jm, port_model_from(jm)
+
+
+def _crate_batch(model, seed, B=24):
+    """Crate-scene inputs with every contact kind active (asserted)."""
+    rng = np.random.default_rng(seed)
+    qpos, qvel = crate_states(model, rng, B)
+    ws = rng.normal(scale=0.5, size=(B, model.nv))
+    ctrl = rng.uniform(-20, 20, size=(B, model.nu))
+    active = tfused.active_contacts(model, torch.as_tensor(qpos))
+    assert len(active) == 6 and all(n > 0 for n in active.values()), active
+    return qpos, qvel, ws, ctrl
 
 
 def _jax_substeps(jm, qpos, qvel, ws, ctrl, dtype, n_substeps=1):
@@ -212,3 +237,90 @@ def test_kernel_source_host_build_matches_plain(models, tmp_path):
         scale = p64.abs().max().item()
         err = (k - p32).abs().max().item()
         assert err <= 4 * envelope + 1e-6 * scale, (name, err, envelope, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_crate_plain_substep_matches_jax_graph(crate_models, dtype):
+    """All six contact kinds; one batched eager JAX call per dtype."""
+    jm, tm = crate_models
+    args = _crate_batch(tm, seed=0)
+    q, v, w, d = _port(tm, *args, getattr(torch, dtype))
+    jq, jv, jw, jd = _jax_substeps(jm, *args, getattr(jnp, dtype))
+    if dtype == "float64":
+        for got, want in ((q, jq), (v, jv), (d, jd)):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+        np.testing.assert_allclose(w, jw, rtol=0, atol=1e-10 * np.abs(jw).max())
+        return
+    spec = tfused.DerivedSpec(torso_body=TORSO)
+    got = tfused.split_derived(tm, spec, torch.as_tensor(d))
+    want = tfused.split_derived(tm, spec, torch.as_tensor(jd))
+    np.testing.assert_allclose(q, jq, atol=2e-5)
+    np.testing.assert_allclose(v, jv, atol=5e-4)
+    for key, atol in (("site_xpos", 2e-5), ("torso_xquat", 2e-5),
+                      ("torso_cvel", 1e-3), ("qfrc_actuator", 1e-4)):
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), atol=atol)
+
+
+def test_crate_plain_matches_pipeline_step_float64(crate_models):
+    """All six kinds against the XLA physics pipeline (dense solves,
+    another op order), one vmapped call."""
+    jm, tm = crate_models
+    qpos, qvel, ws, ctrl = _crate_batch(tm, seed=1, B=12)
+
+    def one(q, v, w, c):
+        st = pipeline.PipelineState(
+            qpos=q, qvel=v, qacc_warmstart=w, xpos=None, xquat=None, site_xpos=None,
+            subtree_com=None, cvel=None, qfrc_actuator=None, efc_force=None,
+        )
+        r = pipeline.step(jm, st, c, n_substeps=1)
+        return r.qpos, r.qvel, r.qacc_warmstart, r.site_xpos, r.cvel[TORSO], r.qfrc_actuator
+
+    ref = [np.asarray(x) for x in jax.jit(jax.vmap(one))(
+        *(jnp.asarray(a) for a in (qpos, qvel, ws, ctrl)))]
+    q, v, w, d = _port(tm, qpos, qvel, ws, ctrl, torch.float64)
+    der = tfused.split_derived(tm, tfused.DerivedSpec(torso_body=TORSO), torch.as_tensor(d))
+    np.testing.assert_allclose(q, ref[0], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(v, ref[1], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(w, ref[2], rtol=1e-9, atol=1e-9)
+    for key, r in (("site_xpos", ref[3]), ("torso_cvel", ref[4]), ("qfrc_actuator", ref[5])):
+        np.testing.assert_allclose(der[key].numpy(), r, rtol=0, atol=1e-9)
+
+
+def test_crate_kernel_source_host_build_matches_plain(crate_models, tmp_path):
+    """The g++ build of csrc/fused_step.cu on the crate model against the
+    plain version, float32, one substep, every kind active: the whole step
+    within the envelope of the go2_force test above, and each slot's contact
+    geometry (dist, pos, frame) within 1e-6 of the output's scale; the host
+    forward kinematics differs from torch's only in the last bits of
+    glibc's sin/cos, which the geometry passes on without amplification."""
+    _, tm = crate_models
+    spec = tfused.DerivedSpec(torso_body=TORSO)
+    meta = tfused._meta(tm)
+    lib, _, _ = fused_cuda.build_library(tm, meta, spec, host=True, out_dir=tmp_path)
+    qpos, qvel, ws, ctrl = _crate_batch(tm, seed=2, B=48)
+    args = [torch.as_tensor(a, dtype=torch.float32).contiguous()
+            for a in (qpos, qvel, np.zeros_like(ws), ctrl / 2)]
+    nd = tfused.derived_size(tm, spec)
+    B = qpos.shape[0]
+    outs = tuple(torch.empty(B, n) for n in (tm.nq, tm.nv, tm.nv, nd))
+    assert lib.launch(1, *args, outs, 0) == 0
+    plain32 = tfused.build_fused_step(tm, 1, spec)(*args)
+    plain64 = tfused.build_fused_step(tm, 1, spec)(*(a.double() for a in args))
+    for name, k, p32, p64 in zip(("qpos", "qvel", "ws", "derived"), outs, plain32, plain64):
+        envelope = (p32.double() - p64).abs().max().item()
+        scale = p64.abs().max().item()
+        err = (k - p32).abs().max().item()
+        assert err <= 4 * envelope + 1e-6 * scale, (name, err, envelope, scale)
+
+    got = lib.contacts(args[0], len(meta.contact_slots))
+    q = list(args[0].unbind(-1))
+    fk = tfused._fk(tm, q)
+    kinds = set()
+    for si, slot in enumerate(meta.contact_slots):
+        dist, pos, frame = tfused._contact_geometry(tm, fk, slot, q[0])
+        want = tfused._stack([dist, *pos, *frame[0], *frame[1], *frame[2]], q[0])
+        err = (got[:, si] - want).abs().max().item()
+        assert err <= 1e-6 * max(1.0, want.abs().max().item()), (slot["kind"], slot["sub"], err)
+        if bool((want[:, 0] < slot["includemargin"]).any()):
+            kinds.add(slot["kind"])
+    assert kinds == set(tm.pairs)

@@ -1,5 +1,6 @@
 """torch port, dynamics/model.py + fused._meta: the committed stand-in model
-file and the port's static metadata against the JAX package.
+files, the crate tasks' patched models and the port's static metadata
+against the JAX package.
 
 Exact comparisons: both sides hold the same numpy values."""
 
@@ -8,7 +9,13 @@ import dataclasses
 import numpy as np
 import pytest
 
-from torch_port_helpers import PORT_NPZ, jax_standin_model, port_model_from
+from torch_port_helpers import (
+    CRATE_NPZ,
+    PORT_NPZ,
+    jax_standin_model,
+    port_model_from,
+    use_standin_assets,
+)
 from tpu_dialmpc.dynamics import collision as jcollision
 from tpu_dialmpc.dynamics import fused as jfused
 from tpu_dialmpc_torch.dynamics import collision as tcollision
@@ -41,6 +48,32 @@ def test_committed_npz_equals_fresh_compile(jax_model):
     port = load_model(str(PORT_NPZ))
     for f in dataclasses.fields(PhysicsModel):
         _assert_same(getattr(port, f.name), getattr(jax_model, f.name), f.name)
+
+
+def test_committed_crate_npz_equals_fresh_compile(monkeypatch):
+    jax_crate = jax_standin_model(monkeypatch, "go2_force_crate")
+    port = load_model(str(CRATE_NPZ))
+    for f in dataclasses.fields(PhysicsModel):
+        _assert_same(getattr(port, f.name), getattr(jax_crate, f.name), f.name)
+
+
+@pytest.mark.parametrize("task", ["go2_crate", "go2_crate_climb", "go2_jump"])
+def test_crate_task_model_equals_jax_compile(monkeypatch, task):
+    """The port moves the crate in the compiled model (crate_top_z: 0.30 for
+    go2_crate_climb, crate_x: 30 for go2_jump); the JAX env moves it in the
+    MjModel and compiles.  The two models are equal field by field."""
+    from tpu_dialmpc.envs import get_env as jget_env
+    from tpu_dialmpc_torch.envs import get_env
+
+    use_standin_assets(monkeypatch)
+    jenv, tenv = jget_env(task), get_env(task)
+    for f in dataclasses.fields(PhysicsModel):
+        _assert_same(getattr(tenv.model, f.name), getattr(jenv.model, f.name), f.name)
+    assert tenv._crate == jenv._crate
+    crate = tenv.model.body_names.index("box_body")
+    assert tuple(tenv.model.body_pos[crate]) == {
+        "go2_crate": (1.3, 0.0, 0.3), "go2_crate_climb": (1.3, 0.0, 0.0),
+        "go2_jump": (30.0, 0.0, 0.3)}[task]
 
 
 def test_from_numpy_fields_equals_load_model(jax_model):

@@ -1,6 +1,8 @@
-"""torch port, the go2_stand slice end to end on the Go2 stand-in, against
-the JAX package's CPU path, in float64, at a small size: Nsample=8,
-Hsample=4, Hnode=2, n_substeps=2.
+"""torch port, the go2_stand slice end to end on the Go2 stand-in, and the
+go2_crate_climb slice on the crate stand-in, against the JAX package's CPU
+path, in float64, at a small size: Nsample=8 (go2_stand) or 16
+(go2_crate_climb), Hsample=4, Hnode=2, n_substeps=2.  The crate case plans
+from a state 0.2 m before the crate's face, so the rollouts meet the crate.
 
 The JAX side is the CPU reference path (XLA physics pipeline under
 vmap(scan(env.step))); the port runs its plain substep chain.  Each JAX
@@ -16,6 +18,7 @@ Tolerances (float64), with their reasons:
   std·temp_sample, which scales the physics rounding up.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -28,7 +31,9 @@ import pytest
 import torch
 
 from torch_port_helpers import ASSETS
+from tpu_dialmpc.dynamics import pipeline as jpipeline
 from tpu_dialmpc.envs import get_env as jget_env
+from tpu_dialmpc.envs.base import EnvState as JEnvState
 from tpu_dialmpc.envs.registry import dial_defaults as jdial_defaults
 from tpu_dialmpc.planner import dial as jdial
 from tpu_dialmpc_torch.envs import dial_defaults, get_env
@@ -145,6 +150,127 @@ def test_control_step_matches_jax(slice_):
     try:
         step = trunner.make_control_step(tmb, n_diffuse)
         ts, tY, tinfos = step(to_lean(slice_["tstate"]), torch.as_tensor(Y0), None)
+    finally:
+        del tmb._candidates
+    _close(ts.pipeline.qpos, js.pipeline.qpos, 1e-9)
+    _close(ts.reward, js.reward, 1e-9)
+    _close(tinfos.rews, np.stack(jrews), 1e-9)
+    _close(tY, jY, 1e-7)
+
+
+CRATE_SIZE = dict(Nsample=16, Hsample=4, Hnode=2)
+FACE_X = 0.79  # the base 0.2 m before the crate's face at x = 1.3 - 0.31
+
+
+@pytest.fixture(scope="module")
+def crate_slice():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TPU_DIALMPC_ASSETS", str(ASSETS))
+    try:
+        jenv = jget_env("go2_crate_climb", n_substeps=N_SUB, dtype="float64")
+    finally:
+        mp.undo()
+    assert jdial_defaults("go2_crate_climb") == dial_defaults("go2_crate_climb")
+    kw = dict(dial_defaults("go2_crate_climb"), **CRATE_SIZE)
+    jmb = jdial.MBDPI(jdial.DialConfig(**kw), jenv)
+    tenv = get_env("go2_crate_climb", n_substeps=N_SUB, dtype="float64")
+    tmb = tdial.MBDPI(tdial.DialConfig(**kw), tenv)
+    jstate = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
+    tstate = tenv.reset()
+    # the same reset state, moved to the crate's face
+    qpos = np.asarray(jstate.pipeline.qpos).copy()
+    qpos[0] = FACE_X
+    jface = JEnvState(
+        pipeline=jpipeline.init(jenv.model, jnp.asarray(qpos), jstate.pipeline.qvel),
+        obs=jstate.obs, reward=jstate.reward, done=jstate.done, info=jstate.info,
+    )
+    tface = dataclasses.replace(
+        to_lean(tstate),
+        pipeline=dataclasses.replace(to_lean(tstate).pipeline, qpos=torch.as_tensor(qpos)),
+    )
+    return dict(
+        jenv=jenv, jmb=jmb, tenv=tenv, tmb=tmb, jstate=jstate, tstate=tstate,
+        jface=jface, tface=tface,
+        jstep=jax.jit(jenv.step),
+        jreverse_once=jax.jit(
+            lambda s, Y, scale, noise: jmb.reverse_once(s, None, Y, scale, noise=noise)
+        ),
+    )
+
+
+def _crate_noise(seed):
+    return np.random.default_rng(seed).normal(
+        size=(CRATE_SIZE["Nsample"], CRATE_SIZE["Hnode"] + 1, 12)
+    )
+
+
+def test_crate_reset_matches_jax(crate_slice):
+    js, ts = crate_slice["jstate"], crate_slice["tstate"]
+    _close(ts.obs, js.obs, 1e-12)
+    for f in ("qpos", "qvel", "qacc_warmstart", "xpos", "xquat", "site_xpos",
+              "subtree_com", "cvel", "qfrc_actuator"):
+        _close(getattr(ts.pipeline, f), getattr(js.pipeline, f), 1e-12)
+    # the crate was moved so its top face is at 0.30 m
+    crate = crate_slice["tenv"].model.body_names.index("box_body")
+    _close(ts.pipeline.xpos[crate], [1.3, 0.0, 0.0], 0.0)
+
+
+def test_crate_env_step_matches_jax(crate_slice):
+    """One env step at the crate's face: the front feet and calves press on
+    the crate."""
+    a = _action(crate_slice["tenv"].action_size)
+    js = crate_slice["jstep"](crate_slice["jface"], jnp.asarray(a))
+    ts = crate_slice["tenv"].step_lean(crate_slice["tface"], torch.as_tensor(a))
+    for f in ("qpos", "qvel", "qacc_warmstart"):
+        _close(getattr(ts.pipeline, f), getattr(js.pipeline, f), 1e-9)
+    _close(ts.obs, js.obs, 1e-9)
+    _close(ts.reward, js.reward, 1e-9)
+    assert bool(ts.done) == bool(js.done)
+    for f in ("vel_tar", "ang_vel_tar", "z_feet", "z_feet_tar", "feet_air_time"):
+        _close(getattr(ts.info, f), getattr(js.info, f), 1e-9)
+
+
+def test_crate_reverse_once_matches_jax(crate_slice):
+    """One reverse_once from the crate's face with injected noise."""
+    Y = np.random.default_rng(21).uniform(-0.3, 0.3, size=(CRATE_SIZE["Hnode"] + 1, 12))
+    scale = crate_slice["tmb"].sigma_control
+    noise = _crate_noise(22)
+    jY, jinfo = crate_slice["jreverse_once"](
+        crate_slice["jface"], jnp.asarray(Y), jnp.asarray(scale), jnp.asarray(noise)
+    )
+    tY, tinfo = crate_slice["tmb"].reverse_once(
+        crate_slice["tface"], None, torch.as_tensor(Y), torch.as_tensor(scale),
+        noise=torch.as_tensor(noise),
+    )
+    _close(tinfo.rews, jinfo.rews, 1e-9)
+    _close(tinfo.rew_Ybar, jinfo.rew_Ybar, 1e-9)
+    _close(tinfo.weights, jinfo.weights, 1e-7)
+    _close(tY, jY, 1e-7)
+
+
+def test_crate_control_step_matches_jax(crate_slice):
+    """make_control_step from the crate's face: execute Y0[0], shift,
+    improve with Ndiffuse=2."""
+    jmb, tmb = crate_slice["jmb"], crate_slice["tmb"]
+    n_diffuse = tmb.args.Ndiffuse
+    Y0 = np.random.default_rng(23).uniform(-0.3, 0.3, size=(CRATE_SIZE["Hnode"] + 1, 12))
+    noises = [_crate_noise(30 + i) for i in range(n_diffuse)]
+
+    js = crate_slice["jstep"](crate_slice["jface"], jnp.asarray(Y0[0]))
+    jY = jmb.shift(jnp.asarray(Y0))
+    jrews = []
+    for i in range(n_diffuse):
+        scale = jmb.sigma_control * jmb.args.traj_diffuse_factor**i
+        jY, jinfo = crate_slice["jreverse_once"](js, jY, jnp.asarray(scale),
+                                                 jnp.asarray(noises[i]))
+        jrews.append(jinfo.rews)
+
+    it = iter(noises)
+    orig = tmb._candidates
+    tmb._candidates = lambda gen, Y, scale, noise: orig(gen, Y, scale, torch.as_tensor(next(it)))
+    try:
+        step = trunner.make_control_step(tmb, n_diffuse)
+        ts, tY, tinfos = step(crate_slice["tface"], torch.as_tensor(Y0), None)
     finally:
         del tmb._candidates
     _close(ts.pipeline.qpos, js.pipeline.qpos, 1e-9)

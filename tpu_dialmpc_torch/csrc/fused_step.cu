@@ -8,10 +8,16 @@
 //
 // What it computes, per sample: n_substeps x (forward kinematics, CoM
 // frames, CRB mass matrix, RNE bias, actuation, LDL^T smooth acceleration,
-// plane-sphere contacts + joint-limit + friction-loss rows, truncated Newton
-// solve with an exact 1-D Newton line search, optional implicit joint
-// damping, semi-implicit Euler with quaternion integration), then writes
-// (qpos', qvel', warmstart' = the solver's qacc, derived reward inputs).
+// contact rows of the six pair kinds (plane-sphere, plane-capsule,
+// plane-box, sphere-box, capsule-box, box-box; condim 1 or 3 pyramidal) +
+// joint-limit + friction-loss rows, truncated Newton solve with an exact
+// 1-D Newton line search, optional implicit joint damping, semi-implicit
+// Euler with quaternion integration), then writes (qpos', qvel',
+// warmstart' = the solver's qacc, derived reward inputs).  Geoms on bodies
+// without dofs (the floor, a mocap crate) have a constant pose: the plain
+// version folds their math into constants in double precision, so the
+// host packs those values (pose, a box's corners, a plane's contact frame)
+// precomputed in double and rounded once, and the kernel reads them.
 //
 // What bounds it on this card: arithmetic per sample and the per-thread
 // registers and local memory that hold its state — about 31k scalar ops per
@@ -19,7 +25,14 @@
 // graph) against 80 + 19 + 18 + 18 + 12 floats of input and output per
 // sample.  Bytes to and from device memory are negligible; the working set
 // (mass matrix, Hessian, constraint rows, tree quantities: a few KB per
-// sample) is not.
+// sample) is not.  It grows with the contact rows: 52 rows and an 11.6 KB
+// stack frame on the flat Go2 scene (4 slots), 244 rows and a 29.2 KB frame
+// on the crate scene (52 slots of six kinds), at 255 registers both.
+//
+// Contact slots run one after another in a loop with a branch per kind;
+// capsule-box's slot 1 repeats slot 0's four projection sweeps (the JAX
+// graph's CSE merges them; here each slot computes its own, the same
+// values).
 //
 // What the design does about it (a first, simple version):
 // - one thread per sample, the n_substeps loop inside the thread, so a
@@ -78,6 +91,15 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #define JNT_SLIDE 2
 #define JNT_HINGE 3
 
+// contact slot kinds (fused_cuda.py KIND_CODES); geom1 is the first geom
+// of the kind's name
+#define KIND_PLANE_SPHERE 0
+#define KIND_PLANE_CAPSULE 1
+#define KIND_PLANE_BOX 2
+#define KIND_SPHERE_BOX 3
+#define KIND_CAPSULE_BOX 4
+#define KIND_BOX_BOX 5
+
 // Soft-constraint constants of one row (fused.py _impedance, _kb_const),
 // evaluated in double on the host and rounded once, as the plain version's
 // Python constants are.
@@ -109,9 +131,15 @@ struct FusedModel {
   int dof_body[FS_NV];
   uint32_t anc_strict[FS_NV], anc_solver[FS_NV];
   float dof_armature[FS_NV], dof_damping[FS_NV], dof_damp_dt[FS_NV];
-  // collidable geoms, sites
+  // collidable geoms (size: sphere r; capsule r, half-length; box
+  // half-sizes), sites
   int geom_body[FS_NGEOM];
-  float geom_pos[FS_NGEOM][3], geom_quat[FS_NGEOM][4], geom_size0[FS_NGEOM];
+  float geom_pos[FS_NGEOM][3], geom_quat[FS_NGEOM][4], geom_size[FS_NGEOM][3];
+  // geoms of constant pose, folded on the host in double: world pose, a
+  // box's 8 corners (fused.py _box_corners order), a plane's (n, t1, t2)
+  int geom_static[FS_NGEOM];
+  float geom_sxpos[FS_NGEOM][3], geom_sxmat[FS_NGEOM][9];
+  float geom_scorner[FS_NGEOM][8][3], geom_sframe[FS_NGEOM][9];
   int site_body[FS_DIM(FS_NSITE)];
   float site_pos[FS_DIM(FS_NSITE)][3];
   // actuators
@@ -119,7 +147,8 @@ struct FusedModel {
   int act_ctrllimited[FS_NU], act_forcelimited[FS_NU], act_hasbias[FS_NU];
   float act_gain[FS_NU], act_bias[FS_NU][3], act_gear[FS_NU];
   float act_ctrlrange[FS_NU][2], act_forcerange[FS_NU][2];
-  // contact slots (plane-sphere: geom1 the plane, geom2 the sphere)
+  // contact slots: kind, sub-contact index, geoms, bodies, dof list
+  int slot_kind[FS_DIM(FS_NSLOT)], slot_sub[FS_DIM(FS_NSLOT)];
   int slot_g1[FS_DIM(FS_NSLOT)], slot_g2[FS_DIM(FS_NSLOT)];
   int slot_body1[FS_DIM(FS_NSLOT)], slot_body2[FS_DIM(FS_NSLOT)];
   int slot_ndof[FS_DIM(FS_NSLOT)], slot_dof[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)];
@@ -282,6 +311,314 @@ FS_DEVICE void m_vec(const float* M, const float* x, float* out) {
   }
 }
 
+// ---- forward kinematics of the bodies (fused.py _fk, its first loop) ----
+FS_DEVICE void body_frames(const float* q, float (*xpos)[3], float (*xquat)[4],
+                           float (*xanchor)[3], float (*xaxis)[3]) {
+  const FusedModel& m = c_model;
+  xpos[0][0] = xpos[0][1] = xpos[0][2] = 0.0f;
+  xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
+  for (int b = 1; b < FS_NBODY; ++b) {
+    int p = m.body_parent[b];
+    float t[3], pos[3], quat[4];
+    qrotate(m.body_pos[b], xquat[p], t);
+    for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + t[i];
+    qmul(xquat[p], m.body_quat[b], quat);
+    int j = m.body_jnt[b];
+    if (j >= 0) {
+      int qa = m.jnt_qadr[j];
+      const float* ax = m.jnt_axis[j];
+      const float* jp = m.jnt_pos[j];
+      int jt = m.jnt_type[j];
+      if (jt == JNT_FREE) {
+        for (int i = 0; i < 3; ++i) pos[i] = q[qa + i];
+        for (int i = 0; i < 4; ++i) quat[i] = q[qa + 3 + i];
+        qnormalize(quat);
+        for (int i = 0; i < 3; ++i) { xanchor[j][i] = pos[i]; xaxis[j][i] = ax[i]; }
+      } else if (jt == JNT_SLIDE) {
+        float aw[3], t2[3];
+        qrotate(ax, quat, aw);
+        qrotate(jp, quat, t2);
+        float trans = q[qa] - m.qpos0[qa];
+        for (int i = 0; i < 3; ++i) {
+          xanchor[j][i] = pos[i] + t2[i];
+          pos[i] = pos[i] + aw[i] * trans;
+          xaxis[j][i] = aw[i];
+        }
+      } else {  // hinge
+        float anchor[3], t2[3];
+        qrotate(jp, quat, t2);
+        for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + t2[i];
+        float half = 0.5f * (q[qa] - m.qpos0[qa]);
+        float sh = sinf(half);
+        float qloc[4] = {cosf(half), ax[0] * sh, ax[1] * sh, ax[2] * sh};
+        float nq[4];
+        qmul(quat, qloc, nq);
+        for (int i = 0; i < 4; ++i) quat[i] = nq[i];
+        qrotate(jp, quat, t2);
+        for (int i = 0; i < 3; ++i) {
+          pos[i] = anchor[i] - t2[i];
+          xanchor[j][i] = anchor[i];
+        }
+        qrotate(ax, quat, xaxis[j]);
+      }
+    }
+    for (int i = 0; i < 3; ++i) xpos[b][i] = pos[i];
+    for (int i = 0; i < 4; ++i) xquat[b][i] = quat[i];
+  }
+}
+
+// world pose of every collidable geom; a static geom's is the host's
+FS_DEVICE void geom_frames(const float (*xpos)[3], const float (*xquat)[4], float (*gpos)[3],
+                           float (*gmat)[9]) {
+  const FusedModel& m = c_model;
+  for (int g = 0; g < FS_NGEOM; ++g) {
+    if (m.geom_static[g]) {
+      for (int i = 0; i < 3; ++i) gpos[g][i] = m.geom_sxpos[g][i];
+      for (int i = 0; i < 9; ++i) gmat[g][i] = m.geom_sxmat[g][i];
+      continue;
+    }
+    int b = m.geom_body[g];
+    float t[3], gq[4];
+    qrotate(m.geom_pos[g], xquat[b], t);
+    for (int i = 0; i < 3; ++i) gpos[g][i] = xpos[b][i] + t[i];
+    qmul(xquat[b], m.geom_quat[g], gq);
+    qmat(gq, gmat[g]);
+  }
+}
+
+// ---- contact geometry (fused.py _contact_geometry and its helpers) ----
+// 3x3 matrices are row-major; m33_vec(m, v)_i = m_i . v, m33_t_vec(m, v)_i =
+// column i . v, each a left-to-right sum as the plain version's sdot.
+FS_DEVICE void m33_vec(const float* m, const float* v, float* o) {
+  float o0 = m[0] * v[0] + m[1] * v[1] + m[2] * v[2];
+  float o1 = m[3] * v[0] + m[4] * v[1] + m[5] * v[2];
+  float o2 = m[6] * v[0] + m[7] * v[1] + m[8] * v[2];
+  o[0] = o0; o[1] = o1; o[2] = o2;
+}
+FS_DEVICE void m33_t_vec(const float* m, const float* v, float* o) {
+  float o0 = m[0] * v[0] + m[3] * v[1] + m[6] * v[2];
+  float o1 = m[1] * v[0] + m[4] * v[1] + m[7] * v[2];
+  float o2 = m[2] * v[0] + m[5] * v[1] + m[8] * v[2];
+  o[0] = o0; o[1] = o1; o[2] = o2;
+}
+
+// mju_makeFrame of a per-sample normal (fused.py _make_frame): t1 from the
+// y or z axis, whichever is farther from n, then t2 = n x t1
+FS_DEVICE void make_frame(const float* n, float* t1, float* t2) {
+  bool use_y = fabsf(n[1]) < 0.5f;
+  float b1 = use_y ? 1.0f : 0.0f, b2 = use_y ? 0.0f : 1.0f;
+  float nb = n[1] * b1 + n[2] * b2;
+  t1[0] = -(n[0] * nb);
+  t1[1] = b1 - n[1] * nb;
+  t1[2] = b2 - n[2] * nb;
+  float inv = rsqrtf(dot3(t1, t1));
+  for (int i = 0; i < 3; ++i) t1[i] = t1[i] * inv;
+  cross3(n, t1, t2);
+}
+
+// collision.sphere_box (fused.py _sphere_box_scalar): dist of a sphere
+// (center spos, radius r) against a box (bpos, rotation bm, half-sizes sz),
+// the contact point and the normal from the box into the sphere, in world
+// coordinates.  Outside: from the closest box point; inside: through the
+// face of least depth (the first of a tie wins).
+FS_DEVICE float sphere_box(const float* spos, float r, const float* bpos, const float* bm,
+                           const float* sz, float* pos_w, float* n_w) {
+  float rel[3] = {spos[0] - bpos[0], spos[1] - bpos[1], spos[2] - bpos[2]};
+  float local[3], clamped[3], delta[3];
+  m33_t_vec(bm, rel, local);
+  for (int i = 0; i < 3; ++i) clamped[i] = fs_min(fs_max(local[i], -sz[i]), sz[i]);
+  bool outside = (fabsf(local[0]) > sz[0]) || (fabsf(local[1]) > sz[1]) || (fabsf(local[2]) > sz[2]);
+  for (int i = 0; i < 3; ++i) delta[i] = local[i] - clamped[i];
+  float len_out = sqrtf(fs_max(dot3(delta, delta), 0.0f));
+  float inv_len = 1.0f / fs_max(len_out, 1e-12f);
+  float dist_out = len_out - r;
+  float depth[3], sg[3];
+  for (int i = 0; i < 3; ++i) depth[i] = sz[i] - fabsf(local[i]);
+  bool m0 = (depth[0] <= depth[1]) && (depth[0] <= depth[2]);
+  bool m1 = !m0 && (depth[1] <= depth[2]);
+  bool mk[3] = {m0, m1, !(m0 || m1)};
+  for (int i = 0; i < 3; ++i) sg[i] = fs_sign(local[i]);
+  float depth_min = m0 ? depth[0] : (m1 ? depth[1] : depth[2]);
+  float dist_in = -(depth_min + r);
+  float n_loc[3], p_loc[3];
+  for (int i = 0; i < 3; ++i) {
+    float n_out = delta[i] * inv_len;
+    float p_out = clamped[i] + n_out * (0.5f * dist_out);
+    float n_in = mk[i] ? sg[i] : 0.0f;
+    float surface = mk[i] ? sg[i] * sz[i] : local[i];
+    float p_in = surface + n_in * (0.5f * dist_in);
+    n_loc[i] = outside ? n_out : n_in;
+    p_loc[i] = outside ? p_out : p_in;
+  }
+  float t[3];
+  m33_vec(bm, n_loc, n_w);
+  m33_vec(bm, p_loc, t);
+  for (int i = 0; i < 3; ++i) pos_w[i] = bpos[i] + t[i];
+  return outside ? dist_out : dist_in;
+}
+
+// corner k of a box, x slowest then y then z, each sign - before +
+FS_DEVICE void box_corner(const float* bpos, const float* bm, const float* sz, int k,
+                          float* c) {
+  float local[3] = {(k & 4) ? sz[0] : -sz[0], (k & 2) ? sz[1] : -sz[1],
+                    (k & 1) ? sz[2] : -sz[2]};
+  float t[3];
+  m33_vec(bm, local, t);
+  for (int i = 0; i < 3; ++i) c[i] = bpos[i] + t[i];
+}
+
+// the deepest point of segment a-b against a box: 4 sweeps of projecting
+// the box point onto the segment and clamping the segment point into the
+// box (collision._capsule_box)
+FS_DEVICE void capsule_box_sweeps(const float* a, const float* b, const float* bpos,
+                                  const float* bm, const float* sz, float* seg) {
+  float ab[3] = {b[0] - a[0], b[1] - a[1], b[2] - a[2]};
+  float denom = fs_max(dot3(ab, ab), 1e-12f);
+  float p[3] = {bpos[0], bpos[1], bpos[2]};
+  for (int it = 0; it < 4; ++it) {
+    float pa[3] = {p[0] - a[0], p[1] - a[1], p[2] - a[2]};
+    float t = dot3(pa, ab) / denom;
+    t = fs_min(fs_max(t, 0.0f), 1.0f);
+    for (int i = 0; i < 3; ++i) seg[i] = a[i] + ab[i] * t;
+    float rel[3] = {seg[0] - bpos[0], seg[1] - bpos[1], seg[2] - bpos[2]}, local[3], w[3];
+    m33_t_vec(bm, rel, local);
+    for (int i = 0; i < 3; ++i) local[i] = fs_min(fs_max(local[i], -sz[i]), sz[i]);
+    m33_vec(bm, local, w);
+    for (int i = 0; i < 3; ++i) p[i] = bpos[i] + w[i];
+  }
+}
+
+// dist, pos and frame (n, t1, t2) of contact slot s, given every geom's
+// world pose (gpos, gmat)
+FS_DEVICE float contact_geometry(int s, const float (*gpos)[3], const float (*gmat)[9],
+                                 float* pos, float* n, float* t1, float* t2) {
+  const FusedModel& m = c_model;
+  int kind = m.slot_kind[s], sub = m.slot_sub[s];
+  int g1 = m.slot_g1[s], g2 = m.slot_g2[s];
+  const float* p1 = gpos[g1];
+  const float* R1 = gmat[g1];
+  const float* p2 = gpos[g2];
+  const float* R2 = gmat[g2];
+  const float* sz1 = m.geom_size[g1];
+  const float* sz2 = m.geom_size[g2];
+
+  if (kind <= KIND_PLANE_BOX) {
+    // the plane's normal and its generic frame
+    float gt1[3], gt2[3];
+    if (m.geom_static[g1]) {
+      for (int i = 0; i < 3; ++i) {
+        n[i] = m.geom_sframe[g1][i];
+        gt1[i] = m.geom_sframe[g1][3 + i];
+        gt2[i] = m.geom_sframe[g1][6 + i];
+      }
+    } else {
+      n[0] = R1[2]; n[1] = R1[5]; n[2] = R1[8];
+      make_frame(n, gt1, gt2);
+    }
+    if (kind == KIND_PLANE_BOX) {
+      // the corner of rank `sub` by depth (ties broken by corner index),
+      // picked by sums of 8 masked terms in corner order
+      float c[8][3], d[8];
+      for (int k = 0; k < 8; ++k) {
+        if (m.geom_static[g2]) {
+          for (int i = 0; i < 3; ++i) c[k][i] = m.geom_scorner[g2][k][i];
+        } else {
+          box_corner(p2, R2, sz2, k, c[k]);
+        }
+        float rel[3] = {c[k][0] - p1[0], c[k][1] - p1[1], c[k][2] - p1[2]};
+        d[k] = dot3(n, rel);
+      }
+      float dist = 0.0f, pc[3] = {0.0f, 0.0f, 0.0f};
+      for (int k = 0; k < 8; ++k) {
+        float rank = 0.0f;
+        for (int j = 0; j < 8; ++j) {
+          if (j == k) continue;
+          bool before = (d[j] < d[k]) || ((d[j] == d[k]) && (j < k));
+          rank = rank + (before ? 1.0f : 0.0f);
+        }
+        bool sel = rank == (float)sub;
+        dist = (k == 0) ? (sel ? d[k] : 0.0f) : dist + (sel ? d[k] : 0.0f);
+        for (int i = 0; i < 3; ++i)
+          pc[i] = (k == 0) ? (sel ? c[k][i] : 0.0f) : pc[i] + (sel ? c[k][i] : 0.0f);
+      }
+      for (int i = 0; i < 3; ++i) pos[i] = pc[i] - n[i] * (0.5f * dist);
+      for (int i = 0; i < 3; ++i) { t1[i] = gt1[i]; t2[i] = gt2[i]; }
+      return dist;
+    }
+    // plane-sphere; plane-capsule is a sphere at the capsule's end `sub`
+    float spos[3], r = sz2[0];
+    float axis[3] = {R2[2], R2[5], R2[8]};
+    if (kind == KIND_PLANE_CAPSULE) {
+      float h = (sub == 0) ? sz2[1] : -sz2[1];
+      for (int i = 0; i < 3; ++i) spos[i] = p2[i] + axis[i] * h;
+    } else {
+      for (int i = 0; i < 3; ++i) spos[i] = p2[i];
+    }
+    float rel[3] = {spos[0] - p1[0], spos[1] - p1[1], spos[2] - p1[2]};
+    float dist = dot3(n, rel) - r;
+    float hs = r + 0.5f * dist;
+    for (int i = 0; i < 3; ++i) pos[i] = spos[i] - n[i] * hs;
+    if (kind == KIND_PLANE_SPHERE) {
+      for (int i = 0; i < 3; ++i) { t1[i] = gt1[i]; t2[i] = gt2[i]; }
+      return dist;
+    }
+    // MuJoCo's plane-capsule frame: t1 is the capsule axis projected onto
+    // the plane, the generic frame's where that projection vanishes
+    float na = dot3(n, axis), proj[3];
+    for (int i = 0; i < 3; ++i) proj[i] = axis[i] - n[i] * na;
+    float pl2 = dot3(proj, proj);
+    bool nearz = pl2 < 1e-20f;
+    float inv = 1.0f / sqrtf(nearz ? 1.0f : pl2);
+    for (int i = 0; i < 3; ++i) t1[i] = nearz ? gt1[i] : proj[i] * inv;
+    cross3(n, t1, t2);
+    return dist;
+  }
+
+  // the box kinds: geom2 is a box; the normal is flipped to point from
+  // geom1 into the box
+  float dist, nw[3];
+  if (kind == KIND_SPHERE_BOX) {
+    dist = sphere_box(p1, sz1[0], p2, R2, sz2, pos, nw);
+  } else if (kind == KIND_CAPSULE_BOX) {
+    // slot 0: the deepest segment point; slot 1: the deeper end point,
+    // switched off (dist 1) where it is slot 0's point
+    float r = sz1[0], half = sz1[1];
+    float axis[3] = {R1[2], R1[5], R1[8]}, a[3], b[3], seg[3];
+    for (int i = 0; i < 3; ++i) {
+      a[i] = p1[i] - axis[i] * half;
+      b[i] = p1[i] + axis[i] * half;
+    }
+    capsule_box_sweeps(a, b, p2, R2, sz2, seg);
+    if (sub == 0) {
+      dist = sphere_box(seg, r, p2, R2, sz2, pos, nw);
+    } else {
+      float pa[3], na[3], pb[3], nbv[3];
+      float da = sphere_box(a, r, p2, R2, sz2, pa, na);
+      float db = sphere_box(b, r, p2, R2, sz2, pb, nbv);
+      bool deeper = da < db;
+      dist = deeper ? da : db;
+      float gap[3];
+      for (int i = 0; i < 3; ++i) {
+        pos[i] = deeper ? pa[i] : pb[i];
+        nw[i] = deeper ? na[i] : nbv[i];
+        gap[i] = seg[i] - (deeper ? a[i] : b[i]);
+      }
+      if (dot3(gap, gap) < 1e-12f) dist = 1.0f;
+    }
+  } else {  // box-box: box1's corner `sub` against box2
+    float c[3];
+    if (m.geom_static[g1]) {
+      for (int i = 0; i < 3; ++i) c[i] = m.geom_scorner[g1][sub][i];
+    } else {
+      box_corner(p1, R1, sz1, sub, c);
+    }
+    dist = sphere_box(c, 0.0f, p2, R2, sz2, pos, nw);
+  }
+  for (int i = 0; i < 3; ++i) n[i] = -nw[i];
+  make_frame(n, t1, t2);
+  return dist;
+}
+
 // ---- soft constraints (fused.py _impedance, _aref_d) ----
 FS_DEVICE float impedance(const ImpParams& p, float pos, float margin) {
   float x = fabsf(pos - margin) * p.inv_width;
@@ -417,56 +754,7 @@ FS_DEVICE void substep(float* q, float* v, float* w, const float* ctrl, float* d
   // _fk: body frames
   float xpos[FS_NBODY][3], xquat[FS_NBODY][4];
   float xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
-  xpos[0][0] = xpos[0][1] = xpos[0][2] = 0.0f;
-  xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
-  for (int b = 1; b < FS_NBODY; ++b) {
-    int p = m.body_parent[b];
-    float t[3], pos[3], quat[4];
-    qrotate(m.body_pos[b], xquat[p], t);
-    for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + t[i];
-    qmul(xquat[p], m.body_quat[b], quat);
-    int j = m.body_jnt[b];
-    if (j >= 0) {
-      int qa = m.jnt_qadr[j];
-      const float* ax = m.jnt_axis[j];
-      const float* jp = m.jnt_pos[j];
-      int jt = m.jnt_type[j];
-      if (jt == JNT_FREE) {
-        for (int i = 0; i < 3; ++i) pos[i] = q[qa + i];
-        for (int i = 0; i < 4; ++i) quat[i] = q[qa + 3 + i];
-        qnormalize(quat);
-        for (int i = 0; i < 3; ++i) { xanchor[j][i] = pos[i]; xaxis[j][i] = ax[i]; }
-      } else if (jt == JNT_SLIDE) {
-        float aw[3], t2[3];
-        qrotate(ax, quat, aw);
-        qrotate(jp, quat, t2);
-        float trans = q[qa] - m.qpos0[qa];
-        for (int i = 0; i < 3; ++i) {
-          xanchor[j][i] = pos[i] + t2[i];
-          pos[i] = pos[i] + aw[i] * trans;
-          xaxis[j][i] = aw[i];
-        }
-      } else {  // hinge
-        float anchor[3], t2[3];
-        qrotate(jp, quat, t2);
-        for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + t2[i];
-        float half = 0.5f * (q[qa] - m.qpos0[qa]);
-        float sh = sinf(half);
-        float qloc[4] = {cosf(half), ax[0] * sh, ax[1] * sh, ax[2] * sh};
-        float nq[4];
-        qmul(quat, qloc, nq);
-        for (int i = 0; i < 4; ++i) quat[i] = nq[i];
-        qrotate(jp, quat, t2);
-        for (int i = 0; i < 3; ++i) {
-          pos[i] = anchor[i] - t2[i];
-          xanchor[j][i] = anchor[i];
-        }
-        qrotate(ax, quat, xaxis[j]);
-      }
-    }
-    for (int i = 0; i < 3; ++i) xpos[b][i] = pos[i];
-    for (int i = 0; i < 4; ++i) xquat[b][i] = quat[i];
-  }
+  body_frames(q, xpos, xquat, xanchor, xaxis);
 
   // inertial frames, subtree CoM
   float xipos[FS_NBODY][3], ximat[FS_NBODY][9], sub_mpos[FS_NBODY][3], com[FS_NBODY][3];
@@ -657,35 +945,12 @@ FS_DEVICE void substep(float* q, float* v, float* w, const float* ctrl, float* d
   }
   {
     float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
-    for (int g = 0; g < FS_NGEOM; ++g) {
-      int b = m.geom_body[g];
-      float t[3], gq[4];
-      qrotate(m.geom_pos[g], xquat[b], t);
-      for (int i = 0; i < 3; ++i) gpos[g][i] = xpos[b][i] + t[i];
-      qmul(xquat[b], m.geom_quat[g], gq);
-      qmat(gq, gmat[g]);
-    }
+    geom_frames(xpos, xquat, gpos, gmat);
     float jn[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)], jt1[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)],
         jt2[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)], sdist[FS_DIM(FS_NSLOT)];
     for (int s = 0; s < FS_NSLOT; ++s) {
-      // plane-sphere geometry (fused.py _plane_sphere_scalar, _make_frame)
-      const float* p1 = gpos[m.slot_g1[s]];
-      const float* R1 = gmat[m.slot_g1[s]];
-      const float* p2 = gpos[m.slot_g2[s]];
-      float r = m.geom_size0[m.slot_g2[s]];
-      float n[3] = {R1[2], R1[5], R1[8]};
-      float d12[3] = {p2[0] - p1[0], p2[1] - p1[1], p2[2] - p1[2]};
-      float dist = dot3(n, d12) - r;
-      float hs = r + 0.5f * dist;
-      float pos[3] = {p2[0] - n[0] * hs, p2[1] - n[1] * hs, p2[2] - n[2] * hs};
-      float bv[3] = {0.0f, 0.0f, 0.0f};
-      if (fabsf(n[1]) < 0.5f) bv[1] = 1.0f; else bv[2] = 1.0f;
-      float nb = dot3(n, bv);
-      float t1[3] = {bv[0] - n[0] * nb, bv[1] - n[1] * nb, bv[2] - n[2] * nb};
-      float inv = 1.0f / sqrtf(dot3(t1, t1));
-      for (int i = 0; i < 3; ++i) t1[i] = t1[i] * inv;
-      float t2[3];
-      cross3(n, t1, t2);
+      float pos[3], n[3], t1[3], t2[3];
+      float dist = contact_geometry(s, gpos, gmat, pos, n, t1, t2);
       sdist[s] = dist;
       // point Jacobians of pos on body2 minus body1 (fused.py _point_jac)
       const float* c2 = com[m.body_root[m.slot_body2[s]]];
@@ -919,6 +1184,26 @@ extern "C" int fused_step_launch(int batch, int n_substeps, const float* qpos,
 extern "C" int fused_step_upload(const void* model, size_t nbytes) {
   if (nbytes != sizeof(FusedModel)) return -1;
   memcpy(&c_model, model, nbytes);
+  return 0;
+}
+
+// Host build only: the contact geometry of every slot at each sample's
+// qpos, out (batch, FS_NSLOT, 13) = dist, pos, n, t1, t2.  The CPU tests
+// hold it against the plain version's _contact_geometry kind by kind.
+// Returns -1, and writes nothing, when the caller's widths are not the
+// build's.
+extern "C" int fused_contacts(int batch, int nq, int nslot, const float* qpos, float* out) {
+  if (nq != FS_NQ || nslot != FS_NSLOT) return -1;
+  for (int b = 0; b < batch; ++b) {
+    float xpos[FS_NBODY][3], xquat[FS_NBODY][4], xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
+    float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
+    body_frames(qpos + (size_t)b * FS_NQ, xpos, xquat, xanchor, xaxis);
+    geom_frames(xpos, xquat, gpos, gmat);
+    for (int s = 0; s < FS_NSLOT; ++s) {
+      float* o = out + ((size_t)b * FS_NSLOT + s) * 13;
+      o[0] = contact_geometry(s, gpos, gmat, o + 1, o + 4, o + 7, o + 10);
+    }
+  }
   return 0;
 }
 

@@ -16,9 +16,12 @@ The op order matches the JAX graph, so float64 runs agree with the JAX
 package to rounding, and the kernel, which follows the same order, agrees
 with the float32 run closely.
 
-Contact kinds: only plane-sphere is ported; the other kinds of the JAX kernel
-(plane-capsule, plane-box, sphere-box, capsule-box, box-box) raise
-NotImplementedError.
+Contact kinds: the six of the JAX kernel, plane-sphere, plane-capsule,
+plane-box, sphere-box, capsule-box and box-box (condim 1 or 3, pyramidal),
+with the JAX kernel's per-kind approximations (`_contact_geometry`).  A
+geom on a body with no dofs (the floor, a mocap crate) has a constant pose,
+so its contact math folds into Python constants in double precision, as in
+the JAX graph.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 from tpu_dialmpc_torch.dynamics.collision import contact_params
 from tpu_dialmpc_torch.dynamics.constraint import MJ_MAXIMP, MJ_MINIMP, MJ_MINVAL
 from tpu_dialmpc_torch.dynamics.model import (
+    GEOM_BOX,
+    GEOM_CAPSULE,
     GEOM_PLANE,
     GEOM_SPHERE,
     JNT_FREE,
@@ -265,6 +270,14 @@ def qmat(q):
     )
 
 
+def m33_vec(m, v):
+    return tuple(sdot(m[i], v) for i in range(3))
+
+
+def m33_t_vec(m, v):
+    return tuple(sdot((m[0][i], m[1][i], m[2][i]), v) for i in range(3))
+
+
 def qnormalize(q):
     inv = srsqrt(sdot(q, q))
     return tuple(smul(x, inv) for x in q)
@@ -345,9 +358,14 @@ def _ancestors(model: PhysicsModel):
     )
 
 
-# contact kinds this port implements (the JAX kernel also has plane-capsule,
-# plane-box, sphere-box, capsule-box and box-box)
-_FUSED_KINDS = ((GEOM_PLANE, GEOM_SPHERE),)
+_FUSED_KINDS = (
+    (GEOM_PLANE, GEOM_SPHERE),
+    (GEOM_PLANE, GEOM_CAPSULE),
+    (GEOM_PLANE, GEOM_BOX),
+    (GEOM_SPHERE, GEOM_BOX),
+    (GEOM_CAPSULE, GEOM_BOX),
+    (GEOM_BOX, GEOM_BOX),
+)
 
 
 def supported(model: PhysicsModel) -> bool:
@@ -869,16 +887,186 @@ def _plane_sphere_scalar(ppos, n, spos, r, like):
     return dist, pos, _make_frame(n, like)
 
 
+def _sphere_box_scalar(spos, r, bpos, bmat, size, like):
+    """collision.sphere_box on batched scalars (normal from box into sphere)."""
+    rel = v3sub(spos, bpos)
+    local = m33_t_vec(bmat, rel)
+    sz = tuple(float(s) for s in size[:3])
+    clamped = tuple(smin(smax(local[i], -sz[i]), sz[i]) for i in range(3))
+    out_i = [sabs(local[i]) > sz[i] for i in range(3)]
+    outside = out_i[0] | out_i[1] | out_i[2]
+    delta_out = v3sub(local, clamped)
+    len2 = v3dot(delta_out, delta_out)
+    len_out = ssqrt(smax(len2, 0.0))
+    inv_len = srecip(smax(len_out, 1e-12))
+    n_out = v3scale(delta_out, inv_len)
+    dist_out = ssub(len_out, r)
+    pos_out = v3add(clamped, v3scale(n_out, smul(0.5, dist_out)))
+    # inside: the face of least depth (argmin order: the first of a tie wins)
+    depths = tuple(ssub(sz[i], sabs(local[i])) for i in range(3))
+    m0 = (depths[0] <= depths[1]) & (depths[0] <= depths[2])
+    m1 = (~m0) & (depths[1] <= depths[2])
+    m2 = ~(m0 | m1)
+    masks = (m0, m1, m2)
+    sgns = tuple(torch.sign(local[i]) for i in range(3))
+    n_in = tuple(swhere(masks[i], sgns[i], 0.0) for i in range(3))
+    depth_min = swhere(m0, depths[0], swhere(m1, depths[1], depths[2]))
+    dist_in = sneg(sadd(depth_min, r))
+    surface = tuple(swhere(masks[i], smul(sgns[i], sz[i]), local[i]) for i in range(3))
+    pos_in = v3add(surface, v3scale(n_in, smul(0.5, dist_in)))
+
+    dist = swhere(outside, dist_out, dist_in)
+    n_local = tuple(swhere(outside, n_out[i], n_in[i]) for i in range(3))
+    pos_local = tuple(swhere(outside, pos_out[i], pos_in[i]) for i in range(3))
+    n_world = m33_vec(bmat, n_local)
+    pos_world = v3add(bpos, m33_vec(bmat, pos_local))
+    return dist, pos_world, n_world
+
+
+def _box_corners(bpos, bmat, size):
+    """The 8 corners, x slowest then y then z, each sign -1 before +1."""
+    sz = tuple(float(s) for s in size[:3])
+    corners = []
+    for sx in (-1, 1):
+        for sy in (-1, 1):
+            for sz_ in (-1, 1):
+                local = (sx * sz[0], sy * sz[1], sz_ * sz[2])
+                corners.append(v3add(bpos, m33_vec(bmat, local)))
+    return corners
+
+
+def _closest_on_segment_scalar(a, b, p):
+    ab = v3sub(b, a)
+    denom = smax(v3dot(ab, ab), 1e-12)
+    t = sdiv(v3dot(v3sub(p, a), ab), denom)
+    t = smin(smax(t, 0.0), 1.0)
+    return v3add(a, v3scale(ab, t))
+
+
+def _capsule_box_sweeps(a, b, bpos, bmat, size):
+    """The deepest point of segment a-b against the box: 4 sweeps of
+    segment projection and box clamping (collision._capsule_box)."""
+    seg = None
+    p = bpos
+    sz = tuple(float(s) for s in size[:3])
+    for _ in range(4):
+        seg = _closest_on_segment_scalar(a, b, p)
+        local = m33_t_vec(bmat, v3sub(seg, bpos))
+        local = tuple(smin(smax(local[i], -sz[i]), sz[i]) for i in range(3))
+        p = v3add(bpos, m33_vec(bmat, local))
+    return seg
+
+
 def _contact_geometry(model, fk, slot, like):
-    """dist, pos, frame for one contact slot (plane-sphere only)."""
+    """dist, pos, frame for one contact slot: collision.collide's per-kind
+    math (with its capsule-box and box-box approximations) on batched
+    scalars."""
     kind = slot["kind"]
     g1, g2 = slot["g1"], slot["g2"]
     p1, m1 = fk["geom_xpos"][g1], fk["geom_xmat"][g1]
-    p2 = fk["geom_xpos"][g2]
+    p2, m2 = fk["geom_xpos"][g2], fk["geom_xmat"][g2]
+    size1, size2 = model.geom_size[g1], model.geom_size[g2]
+
     if kind == (GEOM_PLANE, GEOM_SPHERE):
         n = (m1[0][2], m1[1][2], m1[2][2])
-        return _plane_sphere_scalar(p1, n, p2, float(model.geom_size[g2][0]), like)
-    raise NotImplementedError(f"contact kind {kind} is not ported yet")
+        return _plane_sphere_scalar(p1, n, p2, float(size2[0]), like)
+
+    if kind == (GEOM_PLANE, GEOM_CAPSULE):
+        # slot `sub` is the end cap at +half (sub 0) or -half (sub 1)
+        n = (m1[0][2], m1[1][2], m1[2][2])
+        axis = (m2[0][2], m2[1][2], m2[2][2])
+        r, half = float(size2[0]), float(size2[1])
+        sgn = 1.0 if slot["sub"] == 0 else -1.0
+        spos = v3add(p2, v3scale(axis, sgn * half))
+        dist, pos, _ = _plane_sphere_scalar(p1, n, spos, r, like)
+        # MuJoCo's plane-capsule frame: t1 is the capsule axis projected onto
+        # the plane, the generic frame's where that projection vanishes
+        proj = v3sub(axis, v3scale(n, v3dot(n, axis)))
+        pl2 = v3dot(proj, proj)
+        _, gen_t1, _ = _make_frame(n, like)
+        nearz = pl2 < 1e-20
+        inv = sdiv(1.0, ssqrt(swhere(nearz, 1.0, pl2)))
+        t1 = tuple(swhere(nearz, gen_t1[a], smul(proj[a], inv), like) for a in range(3))
+        t2 = v3cross(n, t1)
+        return dist, pos, (n, t1, t2)
+
+    if kind == (GEOM_PLANE, GEOM_BOX):
+        # 4 slots: the 4 deepest of the 8 corners; slot `sub` is the corner
+        # of rank `sub` by distance, ties broken by corner index.  The
+        # selection is a sum of 8 masked terms, as in the JAX graph.
+        n = (m1[0][2], m1[1][2], m1[2][2])
+        corners = _box_corners(p2, m2, size2)
+        dists = [v3dot(n, v3sub(c, p1)) for c in corners]
+        ranks = []
+        for i in range(8):
+            r_i = 0.0
+            for j in range(8):
+                if j == i:
+                    continue
+                lt = dists[j] < dists[i]
+                tie = (dists[j] == dists[i]) & (j < i)
+                r_i = sadd(r_i, swhere(lt | tie, 1.0, 0.0, like))
+            ranks.append(r_i)
+        k = slot["sub"]
+        sel = [ranks[i] == k for i in range(8)]
+        d = ssum([swhere(sel[i], dists[i], 0.0, like) for i in range(8)])
+        pos_c = tuple(
+            ssum([swhere(sel[i], corners[i][a], 0.0, like) for i in range(8)])
+            for a in range(3)
+        )
+        pos = v3sub(pos_c, v3scale(n, smul(0.5, d)))
+        return d, pos, _make_frame(n, like)
+
+    if kind == (GEOM_SPHERE, GEOM_BOX):
+        d, pos, n_world = _sphere_box_scalar(p1, float(size1[0]), p2, m2, size2, like)
+        # the contact normal points from geom1 (the sphere) into the box
+        return d, pos, _make_frame(v3scale(n_world, -1.0), like)
+
+    if kind == (GEOM_CAPSULE, GEOM_BOX):
+        # slot 0: the deepest segment point; slot 1: the deeper end point,
+        # switched off (dist 1) where it is slot 0's point
+        r, half = float(size1[0]), float(size1[1])
+        axis = (m1[0][2], m1[1][2], m1[2][2])
+        a = v3sub(p1, v3scale(axis, half))
+        b = v3add(p1, v3scale(axis, half))
+        if slot["sub"] == 0:
+            seg = _capsule_box_sweeps(a, b, p2, m2, size2)
+            d, pos, n_world = _sphere_box_scalar(seg, r, p2, m2, size2, like)
+        else:
+            da = _sphere_box_scalar(a, r, p2, m2, size2, like)
+            db = _sphere_box_scalar(b, r, p2, m2, size2, like)
+            deeper = da[0] < db[0]
+            d = swhere(deeper, da[0], db[0])
+            pos = tuple(swhere(deeper, da[1][i], db[1][i]) for i in range(3))
+            n_world = tuple(swhere(deeper, da[2][i], db[2][i]) for i in range(3))
+            seg = _capsule_box_sweeps(a, b, p2, m2, size2)
+            end = tuple(swhere(deeper, a[i], b[i]) for i in range(3))
+            gap = v3sub(seg, end)
+            dup = ssum([smul(gap[i], gap[i]) for i in range(3)]) < 1e-12
+            d = swhere(dup, 1.0, d)
+        return d, pos, _make_frame(v3scale(n_world, -1.0), like)
+
+    if kind == (GEOM_BOX, GEOM_BOX):
+        # 8 slots: box1's corners against box2 (a point in a box)
+        c = _box_corners(p1, m1, size1)[slot["sub"]]
+        d, pos, n_world = _sphere_box_scalar(c, 0.0, p2, m2, size2, like)
+        return d, pos, _make_frame(v3scale(n_world, -1.0), like)
+
+    raise NotImplementedError(f"contact kind {kind} is not a fused kind")
+
+
+def active_contacts(model: PhysicsModel, qpos: torch.Tensor) -> Dict[tuple, int]:
+    """Per contact kind, how many (sample, slot) contacts are active
+    (dist < margin) at the poses qpos (B, nq): the plain forward kinematics
+    and contact geometry, in qpos's dtype and on its device."""
+    q = list(qpos.unbind(-1))
+    fk = _fk(model, q)
+    counts = {kind: 0 for kind in sorted(model.pairs)}
+    for slot in _meta(model).contact_slots:
+        dist, _, _ = _contact_geometry(model, fk, slot, q[0])
+        active = torch.as_tensor(dist < slot["includemargin"])
+        counts[slot["kind"]] += int(active.sum())
+    return counts
 
 
 def _point_jac(model, fk, point, body, dofs):

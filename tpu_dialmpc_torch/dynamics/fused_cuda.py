@@ -25,9 +25,25 @@ import numpy as np
 import torch
 
 from tpu_dialmpc_torch.dynamics import _build, fused
-from tpu_dialmpc_torch.dynamics.model import PhysicsModel
+from tpu_dialmpc_torch.dynamics.model import (
+    GEOM_BOX,
+    GEOM_CAPSULE,
+    GEOM_PLANE,
+    GEOM_SPHERE,
+    PhysicsModel,
+)
 
 SOURCE = "fused_step.cu"
+
+# contact slot kinds, as csrc/fused_step.cu numbers them (KIND_*)
+KIND_CODES = {
+    (GEOM_PLANE, GEOM_SPHERE): 0,
+    (GEOM_PLANE, GEOM_CAPSULE): 1,
+    (GEOM_PLANE, GEOM_BOX): 2,
+    (GEOM_SPHERE, GEOM_BOX): 3,
+    (GEOM_CAPSULE, GEOM_BOX): 4,
+    (GEOM_BOX, GEOM_BOX): 5,
+}
 
 
 def _imp_params(solref, solimp) -> List[float]:
@@ -40,6 +56,30 @@ def _imp_params(solref, solimp) -> List[float]:
         dmin, dmax - dmin, 1.0 / max(width, fused.MJ_MINVAL), mid, power,
         1.0 / mid ** (power - 1.0), 1.0 / (1.0 - mid) ** (power - 1.0), k, -b,
     ]
+
+
+def _static_geoms(model: PhysicsModel):
+    """Per geom: (static, world pos (3), rotation (9), box corners (8, 3),
+    plane frame (9)).  A geom is static where the plain version's forward
+    kinematics folds its whole pose into Python constants (a body with no
+    dofs in its chain); its corners and plane frame are then constants too,
+    computed here by the plain version's own functions, in double."""
+    fk = fused._fk(model, [torch.zeros(1, dtype=torch.float64)] * model.nq)
+    out = []
+    for g in range(model.geom_bodyid.shape[0]):
+        p, m = fk["geom_xpos"][g], fk["geom_xmat"][g]
+        flat = list(p) + [x for row in m for x in row]
+        if not all(fused._isf(x) for x in flat):
+            out.append((0, [0.0] * 3, [0.0] * 9, [[0.0] * 3] * 8, [0.0] * 9))
+            continue
+        corners, frame = [[0.0] * 3] * 8, [0.0] * 9
+        if int(model.geom_type[g]) == GEOM_BOX:
+            corners = [list(c) for c in fused._box_corners(p, m, model.geom_size[g])]
+        if int(model.geom_type[g]) == GEOM_PLANE:
+            frame = [x for v in fused._make_frame((m[0][2], m[1][2], m[2][2]), None)
+                     for x in v]
+        out.append((1, list(p), flat[3:], corners, frame))
+    return out
 
 
 def _bits(idx) -> int:
@@ -123,7 +163,11 @@ def pack_model(
     put(model.geom_bodyid, "i")
     put(model.geom_pos, "f")
     put(model.geom_quat, "f")
-    put(model.geom_size[:, 0], "f")
+    put(model.geom_size[:, :3], "f")
+    static = _static_geoms(model)
+    put([g[0] for g in static], "i")
+    for k in range(1, 5):
+        put([g[k] for g in static], "f")
     put(model.site_bodyid, "i", model.nsite)
     put(model.site_pos, "f", model.nsite, 3)
     put(model.actuator_dofadr, "i")
@@ -137,6 +181,8 @@ def pack_model(
     put(model.actuator_ctrlrange, "f")
     put(model.actuator_forcerange, "f")
     ns = len(slots)
+    put([KIND_CODES[s["kind"]] for s in slots], "i", ns)
+    put([s["sub"] for s in slots], "i", ns)
     for key in ("g1", "g2", "body1", "body2"):
         put([s[key] for s in slots], "i", ns)
     put([len(s["dofs"]) for s in slots], "i", ns)
@@ -186,6 +232,9 @@ class _Library:
         lib.fused_step_upload.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
         lib.fused_step_launch.restype = ctypes.c_int
         lib.fused_step_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+        if hasattr(lib, "fused_contacts"):  # host builds only
+            lib.fused_contacts.restype = ctypes.c_int
+            lib.fused_contacts.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         self.lib = lib
 
     def upload(self, blob: bytes):
@@ -202,6 +251,21 @@ class _Library:
     def launch(self, n_substeps, qpos, qvel, ws, ctrl, outs, stream: int) -> int:
         ptrs = [t.data_ptr() for t in (qpos, qvel, ws, ctrl, *outs)]
         return self.lib.fused_step_launch(qpos.shape[0], n_substeps, *ptrs, stream)
+
+    def contacts(self, qpos: torch.Tensor, nslot: int) -> torch.Tensor:
+        """Host builds only: every slot's contact geometry at each sample's
+        qpos (B, nq) float32 CPU -> (B, nslot, 13) = dist, pos, n, t1, t2."""
+        if qpos.device.type != "cpu" or qpos.dtype != torch.float32:
+            raise TypeError(f"qpos: expected a float32 CPU tensor, got {qpos.dtype} on {qpos.device}")
+        if qpos.dim() != 2 or not qpos.is_contiguous():
+            raise ValueError(f"qpos: expected a contiguous (B, nq) tensor, got {tuple(qpos.shape)}")
+        out = torch.empty((qpos.shape[0], nslot, 13), dtype=torch.float32)
+        err = self.lib.fused_contacts(qpos.shape[0], qpos.shape[1], nslot, qpos.data_ptr(),
+                                      out.data_ptr())
+        if err != 0:
+            raise ValueError(f"the library's model has other widths than nq={qpos.shape[1]}, "
+                             f"nslot={nslot}")
+        return out
 
 
 def build_library(model, meta, spec, host=False, out_dir=None):

@@ -1,14 +1,14 @@
-"""Unitree Go2 quadruped environment, the `go2_stand` subset (batched torch).
+"""Unitree Go2 quadruped environment (batched torch).
 
 Counterpart of `tpu_dialmpc/envs/go2.py`: the same config fields, action
-maps, reward stack, termination and observation.  The physics of every step
+maps, reward stack (with the crate tasks' terrain-aware targets),
+termination and observation.  The physics of every step
 runs through the fused substep (`envs/fused_rollout.py`), so the env has no
 single-sample `step` of its own: the executed step is `step_lean` and the
 planner's rollouts are `rollout_batch`, as on the JAX package's TPU path.
 
 Not ported yet (they raise NotImplementedError): `randomize_tasks`, position
-leg control, the crate options (`crate_top_z`, `crate_x`) and the "climb"
-joint-range table.
+leg control and the "climb" joint-range table.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from tpu_dialmpc_torch.envs.fused_rollout import FusedRolloutMixin
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 
 # compiled scenes (the JAX package's `compile_model` + `save_model` output)
-SCENES = {"go2_force": "go2_force.npz"}
+SCENES = {"go2_force": "go2_force.npz", "go2_force_crate": "go2_force_crate.npz"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +82,6 @@ class UnitreeGo2Env(FusedRolloutMixin):
             raise NotImplementedError("randomize_tasks is not ported yet")
         if config.leg_control != "torque":
             raise NotImplementedError("position leg control is not ported yet")
-        if config.crate_top_z > 0.0 or config.crate_x != 0.0:
-            raise NotImplementedError("the crate options are not ported yet")
         if config.joint_range_source not in ("upstream", "model", "model_eigen"):
             raise NotImplementedError(
                 f"joint_range_source={config.joint_range_source!r} is not ported"
@@ -95,6 +93,9 @@ class UnitreeGo2Env(FusedRolloutMixin):
             if config.scene not in SCENES:
                 raise NotImplementedError(f"scene {config.scene!r} is not ported yet")
             model = load_model(str(ASSETS / SCENES[config.scene]))
+        self._crate = None  # (cx, cy, hx, hy, top_z) when crate_top_z > 0
+        if config.crate_top_z > 0.0 or config.crate_x != 0.0:
+            model = self._place_crate(model, config)
         self.model: PhysicsModel = model.with_options(timestep=config.timestep)
         self._torso_idx = self.model.body_names.index(self.TORSO_BODY)
         self._feet_site_id = [self.model.site_names.index(s) for s in self.FEET_SITES]
@@ -137,6 +138,33 @@ class UnitreeGo2Env(FusedRolloutMixin):
         self.joint_torque_range = t(torque_range)
         self.termination_joint_range = t(termination)
         self._gait_phases = t(gait.GAIT_PHASES[gait_name])
+
+    def _place_crate(self, model: PhysicsModel, config) -> PhysicsModel:
+        """Move the mocap crate `box_body` as the JAX env does before
+        `compile_model`: its x to `crate_x`, and its z so the top face sits
+        at `crate_top_z`.  The compiled model reads the pose only from
+        `body_pos`, so patching that row equals compiling the moved scene."""
+        if "box_body" not in model.body_names:
+            raise ValueError(
+                f"crate_top_z/crate_x set but scene {config.scene!r} has no "
+                "'box_body' (use the go2_force_crate scene)"
+            )
+        bid = model.body_names.index("box_body")
+        gid = int(np.flatnonzero(np.asarray(model.geom_bodyid) == bid)[0])
+        body_pos = np.array(model.body_pos, copy=True)
+        if config.crate_x != 0.0:
+            body_pos[bid, 0] = config.crate_x
+        if config.crate_top_z > 0.0:
+            half_z = float(model.geom_size[gid, 2])
+            body_pos[bid, 2] = config.crate_top_z - half_z
+            self._crate = (
+                float(body_pos[bid, 0]),
+                float(body_pos[bid, 1]),
+                float(model.geom_size[gid, 0]),
+                float(model.geom_size[gid, 1]),
+                float(config.crate_top_z),
+            )
+        return model.with_options(body_pos=body_pos)
 
     # ------------------------------------------------------------------
     @property
@@ -236,6 +264,13 @@ class UnitreeGo2Env(FusedRolloutMixin):
             duty, cadence, amplitude, self._gait_phases, t[..., None]
         ).to(self._dtype)
 
+    def _support_z(self, x, y):
+        """Support-surface height under (x, y): the crate top inside the
+        box footprint, the ground elsewhere.  Elementwise over any shape."""
+        cx, cy, hx, hy, top = self._crate
+        inside = (torch.abs(x - cx) < hx) & (torch.abs(y - cy) < hy)
+        return inside.to(self._dtype) * top
+
     def _post_physics(
         self,
         qpos,
@@ -275,8 +310,13 @@ class UnitreeGo2Env(FusedRolloutMixin):
         )
 
         # rewards
-        z_feet = site_xpos[..., self._feet_site_id, 2]
+        feet = site_xpos[..., self._feet_site_id, :]
+        z_feet = feet[..., 2]
         z_feet_tar = self._foot_step_target(info.step)
+        if self._crate is not None:
+            # terrain-aware foot targets: the max of the ground-referenced
+            # swing profile and the support under each foot
+            z_feet_tar = torch.maximum(z_feet_tar, self._support_z(feet[..., 0], feet[..., 1]))
         reward_gaits = -torch.sum(((z_feet_tar - z_feet) / 0.05) ** 2, dim=-1)
 
         up_global = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=qpos.device)
@@ -300,7 +340,16 @@ class UnitreeGo2Env(FusedRolloutMixin):
         reward_ang_vel = -((ab[..., 2] - ang_vel_tar[..., 2]) ** 2)
 
         z_torso = torso_xpos[..., 2]
-        reward_height = -((z_torso - info.pos_tar[..., 2]) ** 2)
+        z_tar = info.pos_tar[..., 2]
+        if self._crate is not None:
+            # the torso target ramps onto the crate from 0.15 m before the
+            # front edge over crate_ramp
+            cx, _, hx, _, top = self._crate
+            frac = torch.clamp(
+                (torso_xpos[..., 0] - (cx - hx - 0.15)) / cfg.crate_ramp, 0.0, 1.0
+            )
+            z_tar = z_tar + top * frac
+        reward_height = -((z_torso - z_tar) ** 2)
 
         reward_energy = torch.zeros_like(reward_height)
         if cfg.energy_weight != 0.0:

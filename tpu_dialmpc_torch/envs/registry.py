@@ -1,7 +1,9 @@
 """Named task registry: env config + planner defaults per task.
 
-Counterpart of `tpu_dialmpc/envs/registry.py`, for the tasks the port runs
-(so far `go2_stand`, the reference benchmark workload).
+Counterpart of `tpu_dialmpc/envs/registry.py`, for the tasks the port runs:
+`go2_stand` (the reference benchmark workload) and the Go2 crate tasks
+`go2_crate`, `go2_crate_climb` and `go2_jump`, with the JAX package's exact
+config dicts (see that file for each setting's story).
 """
 
 from __future__ import annotations
@@ -67,4 +69,48 @@ def _register(name: str, factory, dial: dict):
 # kp=30, kd=0.65, torque mode)
 _register("go2_stand", _go2(
     dict(gait="stand", default_vx=0.8, kp=30.0, kd=0.65, leg_control="torque")
+), _GO2_DIAL)
+
+# the crate scene (the collision-capable robot and a static mocap crate):
+# press against the crate ...
+_register("go2_crate", _go2(
+    dict(
+        gait="trot",
+        default_vx=0.5,
+        kp=30.0,
+        kd=0.65,
+        leg_control="torque",
+        scene="go2_force_crate",
+        done_penalty=2.0,
+    )
+), _GO2_DIAL)
+# ... climb onto it, its top face moved to 0.30 m ...
+_register("go2_crate_climb", _go2(
+    dict(
+        gait="climb",
+        default_vx=0.5,
+        kp=30.0,
+        kd=0.65,
+        leg_control="torque",
+        scene="go2_force_crate",
+        crate_top_z=0.30,
+        goal_x=1.35,
+        termination_range_source="physical",
+        done_penalty=2.0,
+        y_anchor_weight=1.0,
+        vel_weight=2.5,
+    )
+), dict(_GO2_DIAL, Hsample=25, n_steps=600))
+# ... or pronk on flat ground with the crate parked down-range
+_register("go2_jump", _go2(
+    dict(
+        gait="pronk",
+        default_vx=0.5,
+        kp=30.0,
+        kd=0.65,
+        leg_control="torque",
+        scene="go2_force_crate",
+        crate_x=30.0,
+        done_penalty=2.0,
+    )
 ), _GO2_DIAL)
