@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the entry points a user calls
+Drives the port's three paths through the entry points a user calls
 (`get_env`, `MBDPI`, `make_control_step`), each at its task's full planner
 width with 8 substeps per control, after building that model's substep
 kernel from the sources in this checkout and holding it against its plain
@@ -12,7 +12,10 @@ PyTorch version on the card:
 - go2_stand on the Go2 stand-in scene (plane-sphere contacts), Nsample=2048,
   Hsample=20, Hnode=5: the reference benchmark workload;
 - go2_crate_climb on the crate stand-in scene (all six contact kinds),
-  Nsample=2048, Hsample=25, Hnode=5.
+  Nsample=2048, Hsample=25, Hnode=5;
+- h1_push_crate on the H1 humanoid stand-in with a crate on its own slide
+  joint (all six kinds, and contact rows that couple the robot's and the
+  crate's kinematic trees), Nsample=2048, Hsample=32, Hnode=8.
 
 Phases, for each path (each prints its lines; any failure exits non-zero
 with no result), after the card as nvidia-smi reports its name and power
@@ -20,11 +23,14 @@ limit:
   1. the kernel build (nvcc, sm_90a) for this model, with ptxas' register,
      stack and spill lines;
   2. kernel vs plain version on the same inputs, B=2049 and B=1, 8
-     substeps; on the crate model, inputs that touch every contact kind, and
-     the active contacts per kind are printed and checked;
+     substeps; on the crate models, inputs that touch every contact kind
+     (and on H1, slots that span both trees), counted, printed and checked;
+     the kernel's and the plain version's time per call at B=2049 (and on
+     H1 the kernel's at B=8192);
   3. the main path: reset, the reverse warm start, 3 control steps, with the
      kernel's launch count checked, plus a small reverse_once checked against
-     the plain substep chain, then timings.
+     the plain substep chain (on the crate tasks from a state at the crate),
+     then timings and the path's wall seconds.
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
@@ -35,16 +41,11 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 N_SUBSTEPS = 8
-# each path: (task, the model file its kernel is built for, its full width
-# (Nsample, Hsample, Hnode, n_substeps))
-PATHS = (
-    ("go2_stand", "go2_force", (2048, 20, 5, 8)),
-    ("go2_crate_climb", "go2_force_crate", (2048, 25, 5, 8)),
-)
-CRATE_FACE_X = 0.79  # the base 0.2 m before the crate's face at x = 1.3 - 0.31
+CRATE_FACE_X = 0.79  # Go2: the base 0.2 m before the crate's face at x = 1.3 - 0.31
 # The kernel follows the plain version's op order with the same rounding
 # (nvcc -fmad=false, the same CUDA math library), so the two agree to the last
 # bit on the card; 1e-6 of each output's scale leaves room for a last-bit
@@ -78,24 +79,69 @@ def near_home_inputs(model, B, seed, device):
             for a in (qpos, qvel, ws, ctrl)]
 
 
-def crate_inputs(model, B, seed, device):
-    """Crate-scene inputs that touch every contact kind (see
-    tests/torch_port_helpers.py:crate_states), zero warmstart, random torques
-    within the motors' range.  At B=1: the sample that leads with its torso
-    into the crate's face (plane-sphere, capsule-box and box-box contacts)."""
+def _inputs_from(states, model, B, seed, device, row, n_min):
+    """Rows of `states(model, rng, n)` as kernel inputs: zero warmstart,
+    random torques within the motors' range; at B=1 the row `row`."""
     import numpy as np
     import torch
 
-    from torch_port_helpers import crate_states
-
     rng = np.random.default_rng(seed)
-    n = max(B, 6)
-    qpos, qvel = crate_states(model, rng, n)
+    n = max(B, n_min)
+    qpos, qvel = states(model, rng, n)
     ws = np.zeros((n, model.nv))
     ctrl = rng.uniform(-10.0, 10.0, size=(n, model.nu))
-    rows = slice(1, 2) if B == 1 else slice(0, B)
+    rows = slice(row, row + 1) if B == 1 else slice(0, B)
     return [torch.as_tensor(a[rows], dtype=torch.float32, device=device).contiguous()
             for a in (qpos, qvel, ws, ctrl)]
+
+
+def crate_inputs(model, B, seed, device):
+    """Go2 crate-scene inputs that touch every contact kind (see
+    tests/torch_port_helpers.py:crate_states).  At B=1: the sample that
+    leads with its torso into the crate's face (plane-sphere, capsule-box
+    and box-box contacts)."""
+    from torch_port_helpers import crate_states
+
+    return _inputs_from(crate_states, model, B, seed, device, row=1, n_min=6)
+
+
+def h1_crate_inputs(model, B, seed, device):
+    """H1 push-crate inputs that touch every contact kind, most of them
+    between the robot and the crate (see
+    tests/torch_port_helpers.py:h1_crate_states).  At B=1: the first sample
+    that leans its torso's corners into the crate (box-box, both trees)."""
+    from torch_port_helpers import h1_crate_states
+
+    return _inputs_from(h1_crate_states, model, B, seed, device, row=4, n_min=10)
+
+
+def go2_at_crate(qpos):
+    qpos[0] = CRATE_FACE_X
+
+
+def h1_at_crate(qpos):
+    from torch_port_helpers import H1_CRATE_AT_HANDS
+
+    qpos[26] = H1_CRATE_AT_HANDS
+
+
+class SmokePath(NamedTuple):
+    task: str
+    scene: str  # the model file its kernel is built for
+    width: tuple  # its full width (Nsample, Hsample, Hnode, n_substeps)
+    inputs: Callable  # (model, B, seed, device) -> kernel inputs for the compare
+    at_crate: Optional[Callable]  # moves the reset qpos to the crate, in place
+    big_batch: Optional[int]  # a larger batch the kernel is also timed at
+
+
+PATHS = (
+    SmokePath("go2_stand", "go2_force", (2048, 20, 5, 8), near_home_inputs, None, None),
+    SmokePath("go2_crate_climb", "go2_force_crate", (2048, 25, 5, 8), crate_inputs,
+              go2_at_crate, None),
+    # the JAX package's bench timed h1_push_crate at N2048/H32 and N8192/H32
+    SmokePath("h1_push_crate", "h1_push_crate", (2048, 32, 8, 8), h1_crate_inputs,
+              h1_at_crate, 8192),
+)
 
 
 def cuda_ms(fn, reps):
@@ -133,31 +179,42 @@ def phase_build(env, device, tag):
     return secs
 
 
-def phase_compare(env, device, tag):
+def phase_compare(env, path, device, tag):
     """Kernel vs plain version on the card; returns (max abs err, kernel ms,
     plain ms) at B=2049.  On a model with more than plane-sphere contacts
     the inputs touch every contact kind, and at B=2049 every kind must have
-    active contacts."""
+    active contacts, and so must the slots that span two trees where the
+    model has any."""
     import torch
 
     from tpu_dialmpc_torch.dynamics import fused
 
     fs = env.fused_step
     crate = len(env.model.pairs) > 1
-    inputs = crate_inputs if crate else near_home_inputs
+    two_trees = any(fused.spans_two_trees(env.model, s) for s in fs.meta.contact_slots)
     names = ("qpos", "qvel", "warmstart", "derived")
     worst = 0.0
     for B, seed in ((2049, 0), (1, 1)):
-        args = inputs(env.model, B, seed, device)
+        args = path.inputs(env.model, B, seed, device)
         if crate:
             active = fused.active_contacts(env.model, args[0])
-            print(f"[compare {tag}] B={B} active contacts per kind: " + ", ".join(
-                f"{KIND_NAMES[k]} {n}" for k, n in active.items()))
+            line = ", ".join(f"{KIND_NAMES[k]} {n}" for k, n in active.items())
+            if two_trees:
+                crossing = fused.active_two_tree_contacts(env.model, args[0])
+                line += f"; in slots that span both trees {crossing}"
+            print(f"[compare {tag}] B={B} active contacts per kind: {line}")
             if B > 1:
                 check(all(n > 0 for n in active.values()),
                       f"B={B}: a contact kind has no active contact, the compare proves nothing")
+                check(not two_trees or crossing > 0,
+                      f"B={B}: no active contact couples two trees, the compare proves nothing")
         got = fs(*args)
         want = fs.plain(*args)
+        if B > 1:  # the plain version takes seconds per call: one call after this warm one
+            plain_ms = cuda_ms(lambda: fs.plain(*args), 1)
+            for _ in range(3):
+                fs(*args)
+            ms = cuda_ms(lambda: fs(*args), 20)
         torch.cuda.synchronize()
         for name, g, w in zip(names, got, want):
             check(g.shape == w.shape, f"B={B} {name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
@@ -168,15 +225,14 @@ def phase_compare(env, device, tag):
             print(f"[compare {tag}] B={B} n_substeps={N_SUBSTEPS} {name}: max abs diff "
                   f"{err:.3e} (tolerance {tol:.3e})")
             check(err <= tol, f"kernel disagrees with the plain version: B={B} {name}")
-    args = inputs(env.model, 2049, 2, device)
-    for _ in range(3):
-        fs(*args)
-    ms = cuda_ms(lambda: fs(*args), 20)
-    # the plain version takes seconds per call: one warm call, one timed
-    fs.plain(*args)
-    plain_ms = cuda_ms(lambda: fs.plain(*args), 1)
     print(f"[compare {tag}] B=2049 time per call: kernel {ms:.3f} ms, plain PyTorch "
           f"{plain_ms:.1f} ms")
+    if path.big_batch:
+        args = path.inputs(env.model, path.big_batch, 2, device)
+        for _ in range(2):
+            fs(*args)
+        big_ms = cuda_ms(lambda: fs(*args), 10)
+        print(f"[compare {tag}] B={path.big_batch} time per call: kernel {big_ms:.3f} ms")
     return worst, ms, plain_ms
 
 
@@ -259,10 +315,10 @@ def run_main_path(env, cfg, device, task, envs):
     return mbdpi, state, Y0, gen, step_rest, launches
 
 
-def check_small_against_plain(env, cfg, device, task):
+def check_small_against_plain(env, cfg, path, device):
     """One small reverse_once through the kernel and through the plain
-    substep chain, same card, same injected noise; on the crate task from a
-    state at the crate's face, so the rollouts meet the crate."""
+    substep chain, same card, same injected noise; on the crate tasks from
+    a state at the crate, so the rollouts meet it."""
     import dataclasses
 
     import torch
@@ -282,9 +338,9 @@ def check_small_against_plain(env, cfg, device, task):
         Y = torch.zeros((small.Hnode + 1, e.action_size), device=device)
         scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
         start = to_lean(e.reset())
-        if e.config.crate_top_z > 0.0:
+        if path.at_crate is not None:
             qpos = start.pipeline.qpos.clone()
-            qpos[0] = CRATE_FACE_X
+            path.at_crate(qpos)
             start = dataclasses.replace(
                 start, pipeline=dataclasses.replace(start.pipeline, qpos=qpos))
         out.append(mb.reverse_once(start, None, Y, scale, noise=noise))
@@ -293,7 +349,7 @@ def check_small_against_plain(env, cfg, device, task):
     for name, a, b in (("rews", kinfo.rews, pinfo.rews), ("Ybar", kY, pY)):
         err = (a - b).abs().max().item()
         tol = REL_TOL * max(1.0, b.abs().max().item())
-        print(f"[main {task}] small reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
+        print(f"[main {path.task}] small reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
               f"max abs diff {err:.3e} (tolerance {tol:.3e})")
         check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
 
@@ -341,16 +397,18 @@ def main():
     records, summary = [], []
     try:
         card = phase_card()
-        envs = [(task, scene) + make_env(task, scene, width, device)
-                for task, scene, width in PATHS]
-        all_envs = [env for _, _, env, _ in envs]
-        for task, scene, env, cfg in envs:
+        envs = [(path,) + make_env(path.task, path.scene, path.width, device) for path in PATHS]
+        all_envs = [env for _, env, _ in envs]
+        for path, env, cfg in envs:
+            t0 = time.perf_counter()
+            task, scene = path.task, path.scene
             phase_build(env, device, scene)
-            max_err, ms, plain_ms = phase_compare(env, device, scene)
+            max_err, ms, plain_ms = phase_compare(env, path, device, scene)
             mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
                 env, cfg, device, task, all_envs)
-            check_small_against_plain(env, cfg, device, task)
+            check_small_against_plain(env, cfg, path, device)
             ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task)
+            print(f"[time {task}] path wall {time.perf_counter() - t0:.1f} s")
             summary.append(f"{task} reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
                            f"fused_step[{scene}] {ms:.3f} ms vs plain {plain_ms:.1f} ms")
             records.append({

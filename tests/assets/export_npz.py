@@ -1,0 +1,79 @@
+"""Compile the stand-in scenes into the .npz model files the torch port loads.
+
+The port reads models with numpy alone (no mujoco at run time), so the scenes
+are compiled here, once, by the JAX package's own `compile_model` and written
+with its `save_model`:
+
+    PYTHONPATH=. python tests/assets/export_npz.py
+
+writes `tpu_dialmpc_torch/assets/<scene>.npz` for every scene in SCENES: the
+Go2 flat-ground scene, the Go2 crate scene (crate at its XML pose) and the
+H1 push-crate scene.  Each file also carries the joint names (entry
+`jnt_names`, "" for an unnamed joint), which `save_model` does not write and
+the H1 env reads to size its arm actions.  `tests/test_torch_model.py` and
+`tests/test_torch_h1_model.py` check that each committed file equals a fresh
+compile of its scene.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+ASSETS = Path(__file__).resolve().parent
+OUT_DIR = ASSETS.parent.parent / "tpu_dialmpc_torch" / "assets"
+SCENES = ("go2_force", "go2_force_crate", "h1_push_crate")
+TIMESTEP = 0.0025  # the envs' default timestep (envs/go2.py, envs/h1.py config)
+
+
+def out_path(scene: str) -> Path:
+    return OUT_DIR / f"{scene}.npz"
+
+
+def load_standin(scene: str):
+    """The stand-in scene's MjModel, at TIMESTEP."""
+    from tpu_dialmpc.dynamics import assets
+
+    mj = assets.load_mj_model(str(ASSETS / assets.SCENES[scene]))
+    mj.opt.timestep = TIMESTEP
+    return mj
+
+
+def compile_standin(scene: str = "go2_force"):
+    """A stand-in scene compiled exactly as the JAX envs' `__init__` does
+    (with no crate option set)."""
+    from tpu_dialmpc.dynamics.model import compile_model
+
+    return compile_model(load_standin(scene)).with_options(timestep=TIMESTEP)
+
+
+def joint_names(mj) -> tuple:
+    """Every joint's name in joint order ("" where the MJCF gives none)."""
+    import mujoco
+
+    return tuple(mujoco.mj_id2name(mj, mujoco.mjtObj.mjOBJ_JOINT, j) or ""
+                 for j in range(mj.njnt))
+
+
+def export(scene: str) -> Path:
+    """save_model's file for the scene, plus its `jnt_names` entry."""
+    from tpu_dialmpc.dynamics.model import save_model
+
+    path = out_path(scene)
+    save_model(compile_standin(scene), str(path))
+    with np.load(path, allow_pickle=False) as data:
+        entries = {k: data[k] for k in data.files}
+    entries["jnt_names"] = np.array(joint_names(load_standin(scene)), dtype=str)
+    np.savez(path, **entries)
+    return path
+
+
+def main():
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    for scene in SCENES:
+        print(f"wrote {export(scene)}")
+
+
+if __name__ == "__main__":
+    main()

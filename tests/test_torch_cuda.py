@@ -1,6 +1,8 @@
 """torch port, the fused substep kernel on the card, for the Go2 stand-in
-(plane-sphere contacts) and the crate stand-in (all six contact kinds):
-marked `cuda`, and each test skips without a CUDA device.
+(plane-sphere contacts), the crate stand-in (all six contact kinds) and the
+H1 push-crate stand-in (all six kinds, and contact rows that couple the
+robot's and the crate's kinematic trees): marked `cuda`, and each test
+skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -18,7 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import CRATE_NPZ, PORT_NPZ, crate_states, near_home_states
+from torch_port_helpers import (
+    CRATE_NPZ,
+    H1_NPZ,
+    PORT_NPZ,
+    crate_states,
+    h1_crate_states,
+    near_home_states,
+)
 from tpu_dialmpc_torch.dynamics import fused, fused_cuda
 from tpu_dialmpc_torch.dynamics.model import load_model
 
@@ -42,6 +51,11 @@ def model():
 @pytest.fixture(scope="module")
 def crate_model():
     return load_model(str(CRATE_NPZ))
+
+
+@pytest.fixture(scope="module")
+def h1_model():
+    return load_model(str(H1_NPZ))
 
 
 def _inputs(model, B, seed, device):
@@ -101,6 +115,32 @@ def test_crate_kernel_matches_plain_on_card(card, crate_model, B):
     active = fused.active_contacts(m, args[0])
     assert len(active) == 6 and all(n > 0 for n in active.values()), active
     fs = fused_cuda.FusedStep(m, 8, SPEC)
+    out = fs(*args)
+    ref = fs.plain(*args)
+    torch.cuda.synchronize()
+    assert fs.launches == 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and bool(torch.isfinite(o).all())
+        assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("B", [1, 2049])
+def test_h1_kernel_matches_plain_on_card(card, h1_model, B):
+    """The H1 push-crate build (nv=26, cross-tree cliques and fill-in in the
+    Newton Hessian, the crate's slide joint): 8 substeps, with contacts
+    that couple the two trees active; at B=2049 every kind too, at B=1 the
+    sample that leans its torso's corners into the crate."""
+    m = h1_model
+    rng = np.random.default_rng(B)
+    qpos, qvel = h1_crate_states(m, rng, max(B, 10))
+    rows = slice(4, 5) if B == 1 else slice(0, B)
+    arrays = (qpos[rows], qvel[rows], np.zeros((B, m.nv)), rng.uniform(-10, 10, (B, m.nu)))
+    args = [torch.as_tensor(a, dtype=torch.float32, device=card).contiguous() for a in arrays]
+    assert fused.active_two_tree_contacts(m, args[0]) > 0
+    if B > 1:
+        active = fused.active_contacts(m, args[0])
+        assert len(active) == 6 and all(n > 0 for n in active.values()), active
+    fs = fused_cuda.FusedStep(m, 8, fused.DerivedSpec(torso_body=m.body_names.index("pelvis")))
     out = fs(*args)
     ref = fs.plain(*args)
     torch.cuda.synchronize()

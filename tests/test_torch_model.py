@@ -6,37 +6,23 @@ Exact comparisons: both sides hold the same numpy values."""
 
 import dataclasses
 
-import numpy as np
 import pytest
 
 from torch_port_helpers import (
     CRATE_NPZ,
     PORT_NPZ,
+    assert_same as _assert_same,
+    assert_same_model,
     jax_standin_model,
     port_model_from,
+    standin_joint_names,
     use_standin_assets,
 )
 from tpu_dialmpc.dynamics import collision as jcollision
 from tpu_dialmpc.dynamics import fused as jfused
 from tpu_dialmpc_torch.dynamics import collision as tcollision
 from tpu_dialmpc_torch.dynamics import fused as tfused
-from tpu_dialmpc_torch.dynamics.model import PhysicsModel, load_model
-
-
-def _assert_same(a, b, where):
-    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
-        a, b = np.asarray(a), np.asarray(b)
-        assert a.shape == b.shape and a.dtype == b.dtype, where
-        np.testing.assert_array_equal(a, b, err_msg=where)
-    elif isinstance(a, dict):
-        assert sorted(a) == sorted(b), where
-        for k in a:
-            _assert_same(a[k], b[k], f"{where}[{k}]")
-    elif dataclasses.is_dataclass(a):
-        for f in dataclasses.fields(a):
-            _assert_same(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
-    else:
-        assert a == b, where
+from tpu_dialmpc_torch.dynamics.model import load_model
 
 
 @pytest.fixture
@@ -44,17 +30,17 @@ def jax_model(monkeypatch):
     return jax_standin_model(monkeypatch)
 
 
-def test_committed_npz_equals_fresh_compile(jax_model):
+def test_committed_npz_equals_fresh_compile(jax_model, monkeypatch):
     port = load_model(str(PORT_NPZ))
-    for f in dataclasses.fields(PhysicsModel):
-        _assert_same(getattr(port, f.name), getattr(jax_model, f.name), f.name)
+    assert_same_model(port, jax_model)
+    assert port.jnt_names == standin_joint_names(monkeypatch, "go2_force")
 
 
 def test_committed_crate_npz_equals_fresh_compile(monkeypatch):
     jax_crate = jax_standin_model(monkeypatch, "go2_force_crate")
     port = load_model(str(CRATE_NPZ))
-    for f in dataclasses.fields(PhysicsModel):
-        _assert_same(getattr(port, f.name), getattr(jax_crate, f.name), f.name)
+    assert_same_model(port, jax_crate)
+    assert port.jnt_names == standin_joint_names(monkeypatch, "go2_force_crate")
 
 
 @pytest.mark.parametrize("task", ["go2_crate", "go2_crate_climb", "go2_jump"])
@@ -67,8 +53,7 @@ def test_crate_task_model_equals_jax_compile(monkeypatch, task):
 
     use_standin_assets(monkeypatch)
     jenv, tenv = jget_env(task), get_env(task)
-    for f in dataclasses.fields(PhysicsModel):
-        _assert_same(getattr(tenv.model, f.name), getattr(jenv.model, f.name), f.name)
+    assert_same_model(tenv.model, jenv.model)
     assert tenv._crate == jenv._crate
     crate = tenv.model.body_names.index("box_body")
     assert tuple(tenv.model.body_pos[crate]) == {
@@ -77,7 +62,10 @@ def test_crate_task_model_equals_jax_compile(monkeypatch, task):
 
 
 def test_from_numpy_fields_equals_load_model(jax_model):
-    _assert_same(port_model_from(jax_model), load_model(str(PORT_NPZ)), "model")
+    """Equal but for the joint names, which only the model file carries."""
+    loaded = load_model(str(PORT_NPZ))
+    assert loaded.jnt_names and port_model_from(jax_model).jnt_names == ()
+    _assert_same(port_model_from(jax_model), dataclasses.replace(loaded, jnt_names=()), "model")
 
 
 def test_standin_has_the_go2_widths(jax_model):

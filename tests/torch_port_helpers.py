@@ -1,8 +1,9 @@
 """Shared helpers for the torch port's parity tests (tests/test_torch_*.py).
 
-The Go2 stand-in scene lives in tests/assets; the JAX package reaches it
+The Go2 and H1 stand-in scenes live in tests/assets; the JAX package reaches them
 through TPU_DIALMPC_ASSETS, which `models_root()` reads at call time, so the
-tests set it with monkeypatch and other test files are not affected.
+tests set it with monkeypatch and other test files are not affected.  Nothing
+here imports jax at module level: tests/test_torch_cuda.py runs without it.
 """
 
 import dataclasses
@@ -13,6 +14,7 @@ import numpy as np
 ASSETS = Path(__file__).resolve().parent / "assets"
 PORT_NPZ = ASSETS.parents[1] / "tpu_dialmpc_torch" / "assets" / "go2_force.npz"
 CRATE_NPZ = PORT_NPZ.with_name("go2_force_crate.npz")
+H1_NPZ = PORT_NPZ.with_name("h1_push_crate.npz")
 TIMESTEP = 0.0025
 
 
@@ -39,6 +41,43 @@ def port_model_from(jax_model):
     return from_numpy_fields(
         {f.name: getattr(jax_model, f.name) for f in dataclasses.fields(jax_model)}
     )
+
+
+def standin_joint_names(monkeypatch, scene):
+    """The stand-in scene's joint names in joint order ("" where unnamed),
+    read by mujoco: what the exported model file must carry."""
+    import mujoco
+
+    from tpu_dialmpc.dynamics import assets
+
+    use_standin_assets(monkeypatch)
+    mj = assets.load_mj_model(scene)
+    return tuple(mujoco.mj_id2name(mj, mujoco.mjtObj.mjOBJ_JOINT, j) or ""
+                 for j in range(mj.njnt))
+
+
+def assert_same(a, b, where):
+    """Exact equality of numpy fields, dicts, dataclasses and plain values."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b), where
+        for k in a:
+            assert_same(a[k], b[k], f"{where}[{k}]")
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            assert_same(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
+    else:
+        assert a == b, where
+
+
+def assert_same_model(port, jax_model):
+    """The port's model equals the JAX package's in every field the JAX model
+    has (the port's own `jnt_names` is checked on its own)."""
+    for f in dataclasses.fields(jax_model):
+        assert_same(getattr(port, f.name), getattr(jax_model, f.name), f.name)
 
 
 def near_home_states(model, rng, n, scale_q=0.1, scale_v=0.5):
@@ -92,6 +131,87 @@ def crate_states(model, rng, n):
     qpos[splay, 7::3] += 0.75 * np.array([1.0, -1.0, 1.0, -1.0])  # hips out
     qpos[splay, 8::3] += 0.6  # thighs up
     qpos[splay, 9::3] -= 0.9  # calves folded
+    qvel = rng.normal(scale=0.2, size=(n, model.nv))
+    return qpos, qvel
+
+
+H1_CRATE_AT_HANDS = -0.095  # the H1 crate's slide qpos that puts its face 3 mm into the hands
+
+
+def h1_crate_states(model, rng, n):
+    """States on the H1 push-crate scene where every contact kind is active,
+    and most of them between the robot and the crate, whose slots carry the
+    dofs of both kinematic trees.
+
+    The robot stands at home (joints perturbed); the crate slides along x
+    (its qpos, index 26) so that its near face sits a few mm into what
+    leads, found by the plain forward kinematics of each sample:
+    - the first fifth: the hands (sphere-box, both trees);
+    - the second: the knees' capsules, the arms swung back out of the way
+      (capsule-box, both trees);
+    - the third: the torso box's lower front corners, the pelvis leaning
+      forward, thighs vertical, arms back (box-box, both trees);
+    - the fourth lies face down with its hands on the floor, the crate out of
+      reach (plane-sphere);
+    - the rest stands, the crate just out of reach.
+    The lower foot (face down: hand) is a few mm in the floor (plane-capsule;
+    the leaning torso's feet hang just above it), and the crate rests 1 mm
+    in it (plane-box).  Returns (qpos, qvel), zero-mean
+    velocities of scale 0.2."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import fused
+
+    geom = {name: i for i, name in enumerate(
+        ("floor", "l_knee", "l_shin", "l_foot", "r_knee", "r_shin", "r_foot",
+         "torso", "l_hand", "r_hand", "crate"))}
+    assert [int(t) for t in model.geom_type] == [0] + [3] * 6 + [6, 2, 2, 6], "not the H1 stand-in"
+    crate_qadr, half_x = 26, float(model.geom_size[geom["crate"], 0])
+    face0 = float(model.body_pos[model.body_names.index("crate"), 0]) - half_x
+    top = float(model.body_pos[model.body_names.index("crate"), 2]
+                + model.geom_size[geom["crate"], 2])
+    qpos = np.tile(np.asarray(model.key_qpos["home"], np.float64), (n, 1))
+    qpos[:, 7:crate_qadr] += rng.normal(scale=0.03, size=(n, crate_qadr - 7))
+    g = np.arange(n) * 5 // n  # the group of each sample
+    arms_back = (g == 1) | (g == 2)
+    for adr in (18, 22):  # shoulder pitch: the arms swing back
+        qpos[arms_back, adr] += rng.uniform(1.0, 1.4, int(arms_back.sum()))
+    lean = np.where(g == 2, rng.uniform(0.5, 0.6, n), 0.0)
+    down = np.where(g == 3, np.pi / 2 + rng.uniform(-0.1, 0.1, n), 0.0)
+    qpos[:, 3:7] = _quat_rp(np.zeros(n), lean + down)
+    for adr in (9, 14):  # hip pitch: the leaning torso's thighs stay vertical
+        qpos[g == 2, adr] += 0.4 - lean[g == 2]
+
+    # each group's leading point, from the plain forward kinematics
+    fk = fused._fk(model, list(torch.as_tensor(qpos).unbind(-1)))
+
+    def world(i, local):
+        """(n, 3) world position of a point given in geom i's frame."""
+        p, m = fk["geom_xpos"][i], fk["geom_xmat"][i]
+        return np.stack([np.broadcast_to(np.asarray(
+            p[r] + sum(m[r][c] * local[c] for c in range(3)), np.float64), (n,))
+            for r in range(3)], -1)
+
+    hands = [world(geom[k], (0.0, 0.0, 0.0)) for k in ("l_hand", "r_hand")]
+    hand_front = np.max([h[:, 0] for h in hands], axis=0) + 0.04
+    knee_front = np.max([world(geom[k], (0.0, 0.0, sz * 0.05))[:, 0]
+                         for k in ("l_knee", "r_knee") for sz in (-1.0, 1.0)], axis=0) + 0.05
+    hx, hy, hz = (float(x) for x in model.geom_size[geom["torso"]])
+    corners = [world(geom["torso"], (hx, sy * hy, -hz)) for sy in (-1.0, 1.0)]
+    assert np.all(np.max([c[:, 2] for c in corners], axis=0)[g == 2] < top - 0.01)
+    torso_front = np.max([c[:, 0] for c in corners], axis=0)
+    depth = rng.uniform(0.002, 0.008, n)
+    face = np.select([g == 0, g == 1, g == 2], [hand_front, knee_front, torso_front],
+                     face0 + rng.uniform(0.01, 0.05, n)) - np.where(g < 3, depth, 0.0)
+    face[g == 3] = face0 + 1.0
+    qpos[:, crate_qadr] = face - face0
+    # the pelvis's height: the lower foot, or face down the lower hand, a few
+    # mm in the floor
+    foot_low = np.min([world(geom[k], (0.0, 0.0, sz * 0.1))[:, 2]
+                       for k in ("l_foot", "r_foot") for sz in (-1.0, 1.0)], axis=0) - 0.02
+    hand_low = np.min([h[:, 2] for h in hands], axis=0) - 0.04
+    low = np.where(g == 3, hand_low, foot_low)
+    qpos[g != 2, 2] -= (low + depth)[g != 2]
     qvel = rng.normal(scale=0.2, size=(n, model.nv))
     return qpos, qvel
 

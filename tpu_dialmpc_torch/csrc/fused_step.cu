@@ -25,9 +25,18 @@
 // graph) against 80 + 19 + 18 + 18 + 12 floats of input and output per
 // sample.  Bytes to and from device memory are negligible; the working set
 // (mass matrix, Hessian, constraint rows, tree quantities: a few KB per
-// sample) is not.  It grows with the contact rows: 52 rows and an 11.6 KB
-// stack frame on the flat Go2 scene (4 slots), 244 rows and a 29.2 KB frame
-// on the crate scene (52 slots of six kinds), at 255 registers both.
+// sample) is not.  It grows with the contact rows and the dofs: 52 rows and
+// an 11.6 KB stack frame on the flat Go2 scene (4 slots), 244 rows and a
+// 29.2 KB frame on the Go2 crate scene (52 slots of six kinds), 234 rows
+// and a 37.4 KB frame on the H1 push-crate scene (44 slots, nv=26), at 255
+// registers each.
+//
+// A slot's two bodies may both carry dofs, of different kinematic trees (a
+// robot and a crate on its own slide joint): each side's point Jacobian is
+// taken about its own root's subtree CoM under its own dof mask, and the
+// rows' cliques join the two trees' dofs in the Newton Hessian, whose
+// pattern (anc_solver) then holds LDL fill-in outside the mass matrix's;
+// those entries start at 0.
 //
 // Contact slots run one after another in a loop with a branch per kind;
 // capsule-box's slot 1 repeats slot 0's four projection sweeps (the JAX

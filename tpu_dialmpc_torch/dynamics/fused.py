@@ -173,7 +173,10 @@ def sabs(a):
 
 def swhere(c, a, b, like=None):
     """where(c, a, b) over the batch; `like` gives the dtype when both
-    branches are constants (c is always a bool tensor here)."""
+    branches are constants.  A constant condition (a Python bool, where both
+    sides of a comparison folded) picks its branch at graph-build time."""
+    if isinstance(c, bool):
+        return a if c else b
     if _isf(a) and _isf(b):
         a = torch.full_like(like, float(a))
     return torch.where(c, a, b)
@@ -523,7 +526,11 @@ def _fk(model: PhysicsModel, q):
                 axis_w = qrotate(ax, quat)
                 xanchor[j] = v3add(pos, qrotate(jp, quat))
                 trans = ssub(q[qadr], float(model.qpos0[qadr]))
-                pos = v3add(pos, v3scale(axis_w, trans))
+                # every component moves per sample, also where the axis's is
+                # 0: the JAX graph folds those into double constants, the
+                # kernel adds 0 * trans in float32; the two agree to float32
+                # rounding, and this is the kernel's arithmetic
+                pos = tuple(p_ + a_ * trans for p_, a_ in zip(pos, axis_w))
                 xaxis[j] = axis_w
             elif jt == JNT_HINGE:
                 anchor = v3add(pos, qrotate(jp, quat))
@@ -1055,18 +1062,37 @@ def _contact_geometry(model, fk, slot, like):
     raise NotImplementedError(f"contact kind {kind} is not a fused kind")
 
 
-def active_contacts(model: PhysicsModel, qpos: torch.Tensor) -> Dict[tuple, int]:
-    """Per contact kind, how many (sample, slot) contacts are active
-    (dist < margin) at the poses qpos (B, nq): the plain forward kinematics
-    and contact geometry, in qpos's dtype and on its device."""
+def spans_two_trees(model: PhysicsModel, slot) -> bool:
+    """Whether both of a contact slot's bodies carry dofs, so that its rows
+    couple two kinematic trees (a robot and a crate on its own joint)."""
+    return all(bool((model.body_dof_mask[slot[k]] > 0.5).any()) for k in ("body1", "body2"))
+
+
+def _active_per_slot(model: PhysicsModel, qpos: torch.Tensor):
+    """(slot, number of samples where it is active (dist < margin)) at the
+    poses qpos (B, nq): the plain forward kinematics and contact geometry,
+    in qpos's dtype and on its device."""
     q = list(qpos.unbind(-1))
     fk = _fk(model, q)
-    counts = {kind: 0 for kind in sorted(model.pairs)}
     for slot in _meta(model).contact_slots:
         dist, _, _ = _contact_geometry(model, fk, slot, q[0])
-        active = torch.as_tensor(dist < slot["includemargin"])
-        counts[slot["kind"]] += int(active.sum())
+        active = torch.as_tensor(dist < slot["includemargin"]).expand(qpos.shape[:-1])
+        yield slot, int(active.sum())
+
+
+def active_contacts(model: PhysicsModel, qpos: torch.Tensor) -> Dict[tuple, int]:
+    """Per contact kind, how many (sample, slot) contacts are active at the
+    poses qpos (B, nq)."""
+    counts = {kind: 0 for kind in sorted(model.pairs)}
+    for slot, n in _active_per_slot(model, qpos):
+        counts[slot["kind"]] += n
     return counts
+
+
+def active_two_tree_contacts(model: PhysicsModel, qpos: torch.Tensor) -> int:
+    """How many (sample, slot) contacts are active at the poses qpos (B, nq)
+    in slots whose rows couple two kinematic trees."""
+    return sum(n for slot, n in _active_per_slot(model, qpos) if spans_two_trees(model, slot))
 
 
 def _point_jac(model, fk, point, body, dofs):

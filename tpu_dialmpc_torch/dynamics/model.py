@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -141,6 +142,8 @@ class PhysicsModel:
     body_dof_mask: np.ndarray  # (nbody, nv) 1.0 if dof d is in body b's ancestor chain
     # ---- collision pair tables, keyed by (type1, type2) with type1 <= type2 ----
     pairs: Dict[Tuple[int, int], CollisionPairs]
+    # ---- the port's own: joint names ("" if unnamed), where the file has them ----
+    jnt_names: Tuple[str, ...] = ()
 
     def with_options(self, **kw) -> "PhysicsModel":
         return dataclasses.replace(self, **kw)
@@ -150,8 +153,26 @@ class PhysicsModel:
         return sum(p.geom1.shape[0] * p.ncon for p in self.pairs.values())
 
 
+ASSETS = Path(__file__).resolve().parents[1] / "assets"
+
+# the compiled scenes the port ships (tests/assets/export_npz.py)
+SCENES = {
+    "go2_force": "go2_force.npz",
+    "go2_force_crate": "go2_force_crate.npz",
+    "h1_push_crate": "h1_push_crate.npz",
+}
+
+
+def load_scene(name: str) -> PhysicsModel:
+    """The compiled model of a scene the port ships, by its JAX scene name."""
+    if name not in SCENES:
+        raise NotImplementedError(f"scene {name!r} is not ported yet")
+    return load_model(str(ASSETS / SCENES[name]))
+
+
 def load_model(path: str) -> PhysicsModel:
-    """Load a PhysicsModel serialized by the JAX package's `save_model`."""
+    """Load a PhysicsModel serialized by the JAX package's `save_model`, with
+    the joint names of an optional `jnt_names` entry."""
     with np.load(path, allow_pickle=False) as data:
         return _from_npz(data)
 
@@ -163,10 +184,12 @@ def _from_npz(data) -> PhysicsModel:
         f.name
         for f in dataclasses.fields(PhysicsModel)
         if f.name not in kwargs
-        and f.name not in ("site_names", "body_names", "key_qpos", "pairs")
+        and f.name not in ("site_names", "body_names", "key_qpos", "pairs", "jnt_names")
     }
     for name in array_fields:
         kwargs[name] = data[name]
+    if "jnt_names" in data.files:
+        kwargs["jnt_names"] = tuple(str(x) for x in data["jnt_names"])
     kwargs["site_names"] = tuple(meta["site_names"])
     kwargs["body_names"] = tuple(meta["body_names"])
     kwargs["key_qpos"] = {
@@ -198,7 +221,8 @@ def from_numpy_fields(fields: Mapping[str, object]) -> PhysicsModel:
     `fields` maps every `PhysicsModel` field name to its value, as
     `{f.name: getattr(m, f.name) for f in dataclasses.fields(m)}` gives for
     the JAX package's model; `fields["pairs"]` maps each pair kind to an
-    object (or mapping) with the `CollisionPairs` fields.  Arrays are copied.
+    object (or mapping) with the `CollisionPairs` fields.  `jnt_names`, which
+    the JAX model lacks, may be left out.  Arrays are copied.
     """
 
     def get(obj, name):
@@ -206,6 +230,8 @@ def from_numpy_fields(fields: Mapping[str, object]) -> PhysicsModel:
 
     kwargs = {}
     for f in dataclasses.fields(PhysicsModel):
+        if f.name == "jnt_names" and f.name not in fields:
+            continue
         v = fields[f.name]
         if f.name == "pairs":
             v = {

@@ -1,5 +1,6 @@
 from tpu_dialmpc_torch.envs.base import EnvState, LeanEnvState, StateInfo
 from tpu_dialmpc_torch.envs.go2 import UnitreeGo2Env, UnitreeGo2EnvConfig
+from tpu_dialmpc_torch.envs.h1 import UnitreeH1Env, UnitreeH1EnvConfig
 from tpu_dialmpc_torch.envs.registry import dial_defaults, get_env
 
 __all__ = [
@@ -8,6 +9,8 @@ __all__ = [
     "StateInfo",
     "UnitreeGo2Env",
     "UnitreeGo2EnvConfig",
+    "UnitreeH1Env",
+    "UnitreeH1EnvConfig",
     "dial_defaults",
     "get_env",
 ]

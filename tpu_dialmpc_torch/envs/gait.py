@@ -32,6 +32,19 @@ GAIT_PARAMS = {
     "climb": (0.55, 1.0, 0.35),
 }
 
+# biped gaits for H1: phases per foot (left_foot, right_foot), and
+# (duty_ratio, cadence, amplitude)
+BIPED_GAIT_PHASES = {
+    "stand": (0.0, 0.0),
+    "walk": (0.0, 0.5),
+    "jog": (0.0, 0.5),
+}
+BIPED_GAIT_PARAMS = {
+    "stand": (1.0, 1.0, 0.0),
+    "walk": (0.5, 1.0, 0.1),
+    "jog": (0.3, 2.0, 0.1),
+}
+
 
 def step_height(t, footphase, duty_ratio):
     """Swing height profile, branch-free."""

@@ -14,23 +14,15 @@ leg control and the "climb" joint-range table.
 from __future__ import annotations
 
 import dataclasses
-import math
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from tpu_dialmpc_torch.core import rotations as rot
-from tpu_dialmpc_torch.dynamics import fused
-from tpu_dialmpc_torch.dynamics.model import JNT_HINGE, PhysicsModel, load_model
+from tpu_dialmpc_torch.dynamics.model import JNT_HINGE, PhysicsModel, load_scene
 from tpu_dialmpc_torch.envs import gait
-from tpu_dialmpc_torch.envs.base import EnvState, PipelineState, StateInfo
-from tpu_dialmpc_torch.envs.fused_rollout import FusedRolloutMixin
-
-ASSETS = Path(__file__).resolve().parents[1] / "assets"
-
-# compiled scenes (the JAX package's `compile_model` + `save_model` output)
-SCENES = {"go2_force": "go2_force.npz", "go2_force_crate": "go2_force_crate.npz"}
+from tpu_dialmpc_torch.envs.base import EnvState, StateInfo
+from tpu_dialmpc_torch.envs.legged import LeggedEnv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +58,7 @@ class UnitreeGo2EnvConfig:
     done_penalty: float = 0.0
 
 
-class UnitreeGo2Env(FusedRolloutMixin):
+class UnitreeGo2Env(LeggedEnv):
     """Go2 env on one device; its methods take batched tensors."""
 
     FEET_SITES = ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
@@ -90,9 +82,7 @@ class UnitreeGo2Env(FusedRolloutMixin):
         self.device = torch.device(device)
         self._dtype = {"float32": torch.float32, "float64": torch.float64}[config.dtype]
         if model is None:
-            if config.scene not in SCENES:
-                raise NotImplementedError(f"scene {config.scene!r} is not ported yet")
-            model = load_model(str(ASSETS / SCENES[config.scene]))
+            model = load_scene(config.scene)
         self._crate = None  # (cx, cy, hx, hy, top_z) when crate_top_z > 0
         if config.crate_top_z > 0.0 or config.crate_x != 0.0:
             model = self._place_crate(model, config)
@@ -130,14 +120,11 @@ class UnitreeGo2Env(FusedRolloutMixin):
         gait_name = config.gait if config.gait in gait.GAIT_PHASES else "trot"
         self._gait_params = tuple(float(x) for x in gait.GAIT_PARAMS[gait_name])
 
-        def t(x):
-            return torch.as_tensor(np.asarray(x), dtype=self._dtype, device=self.device)
-
-        self.joint_range = t(joint_range)
-        self.physical_joint_range = t(physical)
-        self.joint_torque_range = t(torque_range)
-        self.termination_joint_range = t(termination)
-        self._gait_phases = t(gait.GAIT_PHASES[gait_name])
+        self.joint_range = self._tensor(joint_range)
+        self.physical_joint_range = self._tensor(physical)
+        self.joint_torque_range = self._tensor(torque_range)
+        self.termination_joint_range = self._tensor(termination)
+        self._gait_phases = self._tensor(gait.GAIT_PHASES[gait_name])
 
     def _place_crate(self, model: PhysicsModel, config) -> PhysicsModel:
         """Move the mocap crate `box_body` as the JAX env does before
@@ -167,89 +154,9 @@ class UnitreeGo2Env(FusedRolloutMixin):
         return model.with_options(body_pos=body_pos)
 
     # ------------------------------------------------------------------
-    @property
-    def action_size(self) -> int:
-        return self.model.nu
-
-    @property
-    def dt(self) -> float:
-        """Env step duration (= timestep when n_substeps=1)."""
-        return self.config.timestep * self.config.n_substeps
-
-    @property
-    def observation_size(self) -> int:
-        return 6 + self.model.nu + self.model.nq + 6 + (self.model.nv - 6)
-
-    def _zeros(self, *shape, dtype=None):
-        return torch.zeros(shape, dtype=dtype or self._dtype, device=self.device)
-
-    # ------------------------------------------------------------------
     def reset(self) -> EnvState:
-        """Keyframe "home" at rest.  The derived fields come from the plain
-        forward stages of the fused substep (FK, CoM velocities, actuation at
-        zero ctrl), the port's counterpart of `pipeline.init`; the warmstart is
-        zero, as after mj_resetData."""
-        m = self.model
-        qpos = torch.as_tensor(self._init_q, dtype=self._dtype, device=self.device)
-        qvel = self._zeros(m.nv)
-        q = list(qpos[None].unbind(-1))
-        v = list(qvel[None].unbind(-1))
-        like = q[0]
-        fk = fused._fk(m, q)
-        cvel, _ = fused._com_vel(m, fk, v)
-        qfrc_act = fused._actuator_force(m, [torch.zeros_like(like)] * m.nu, q, v)
-
-        def stack(rows):  # list of per-body scalar tuples -> (n, k)
-            return torch.stack([fused._stack(r, like)[0] for r in rows])
-
-        ps = PipelineState(
-            qpos=qpos,
-            qvel=qvel,
-            qacc_warmstart=self._zeros(m.nv),
-            xpos=stack(fk["xpos"]),
-            xquat=stack(fk["xquat"]),
-            site_xpos=stack(fk["site_xpos"]),
-            subtree_com=stack(fk["subtree_com"]),
-            cvel=stack(cvel),
-            qfrc_actuator=fused._stack(qfrc_act, like)[0],
-        )
-        n_feet = len(self.FEET_SITES)
-        info = StateInfo(
-            pos_tar=torch.tensor([0.282, 0.0, 0.3], dtype=self._dtype, device=self.device),
-            vel_tar=self._zeros(3),
-            ang_vel_tar=self._zeros(3),
-            yaw_tar=self._zeros(),
-            step=self._zeros(dtype=torch.int32),
-            z_feet=self._zeros(n_feet),
-            z_feet_tar=self._zeros(n_feet),
-            last_contact=self._zeros(n_feet, dtype=torch.bool),
-            feet_air_time=self._zeros(n_feet),
-        )
-        b = self._torso_idx
-        root = int(m.body_rootid[b])
-        obs = self._get_obs(
-            ps.qpos, ps.qvel, ps.xpos[b], ps.xquat[b], ps.cvel[b], ps.subtree_com[root],
-            info, self._zeros(m.nu),
-        )
-        return EnvState(
-            pipeline=ps, obs=obs, reward=self._zeros(),
-            done=self._zeros(dtype=torch.bool), info=info,
-        )
-
-    # ------------------------------------------------------------------
-    def act2joint(self, act: torch.Tensor) -> torch.Tensor:
-        """Normalized action (..., nu) in [-1, 1] -> joint targets."""
-        jr, pr = self.joint_range, self.physical_joint_range
-        act_normalized = (act * self.config.action_scale + 1.0) / 2.0
-        targets = jr[:, 0] + act_normalized * (jr[:, 1] - jr[:, 0])
-        return torch.minimum(torch.maximum(targets, pr[:, 0]), pr[:, 1])
-
-    def _act2tau_qv(self, act, q, qd):
-        """PD torque map toward the action's joint targets."""
-        target = self.act2joint(act)
-        tau = self.config.kp * (target - q) - self.config.kd * qd
-        tr = self.joint_torque_range
-        return torch.minimum(torch.maximum(tau, tr[:, 0]), tr[:, 1])
+        """Keyframe "home" at rest (`LeggedEnv._reset_state`)."""
+        return self._reset_state([0.282, 0.0, 0.3])
 
     def _ctrl_batch(self, action, qpos, qvel):
         """Batched action (..., nu) -> ctrl (..., nu) (the PD torque map)."""
@@ -396,21 +303,3 @@ class UnitreeGo2Env(FusedRolloutMixin):
             feet_air_time=feet_air_time,
         )
         return reward, done, new_info
-
-    # ------------------------------------------------------------------
-    def _body_velocities(self, torso_xpos, torso_xquat, torso_cvel, root_com):
-        """Torso body-frame linear/angular velocity."""
-        offset = torso_xpos - root_com
-        cvel_ang = torso_cvel[..., :3]
-        cvel_lin = torso_cvel[..., 3:]
-        vel_lin = cvel_lin - torch.linalg.cross(offset, cvel_ang, dim=-1)
-        vb = rot.global_to_body_velocity(vel_lin, torso_xquat)
-        ab = rot.global_to_body_velocity(cvel_ang, torso_xquat)
-        return vb, ab
-
-    def _get_obs(self, qpos, qvel, torso_xpos, torso_xquat, torso_cvel, root_com, info, ctrl):
-        """55-dim observation: [vel_tar, ang_vel_tar, ctrl, qpos, vb, ab, qvel[6:]]."""
-        vb, ab = self._body_velocities(torso_xpos, torso_xquat, torso_cvel, root_com)
-        return torch.cat(
-            [info.vel_tar, info.ang_vel_tar, ctrl, qpos, vb, ab, qvel[..., 6:]], dim=-1
-        )

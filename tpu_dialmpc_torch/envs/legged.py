@@ -1,0 +1,124 @@
+"""What the Go2 and H1 envs share: the reset state from the plain forward
+stages, the PD torque map, the torso's body-frame velocities and the
+observation.  The JAX package writes these out in each env
+(`tpu_dialmpc/envs/go2.py`, `h1.py`) with the same formulas."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_dialmpc_torch.core import rotations as rot
+from tpu_dialmpc_torch.dynamics import fused
+from tpu_dialmpc_torch.envs.base import EnvState, PipelineState, StateInfo
+from tpu_dialmpc_torch.envs.fused_rollout import FusedRolloutMixin
+
+
+class LeggedEnv(FusedRolloutMixin):
+    """Needs from the subclass: model, config (kp, kd, action_scale,
+    timestep, n_substeps), device, _dtype, _torso_idx, _init_q, FEET_SITES,
+    and the tensors joint_range, physical_joint_range, joint_torque_range."""
+
+    @property
+    def action_size(self) -> int:
+        return self.model.nu
+
+    @property
+    def dt(self) -> float:
+        """Env step duration (= timestep when n_substeps=1)."""
+        return self.config.timestep * self.config.n_substeps
+
+    @property
+    def observation_size(self) -> int:
+        # [vel_tar(3), ang_vel_tar(3), ctrl(nu), qpos(nq), vb(3), ab(3), qvel[6:]]
+        return 6 + self.model.nu + self.model.nq + 6 + (self.model.nv - 6)
+
+    def _zeros(self, *shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or self._dtype, device=self.device)
+
+    def _tensor(self, x, dtype=None):
+        """A constant on the env's device, made once (in __init__)."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype or self._dtype, device=self.device)
+
+    def _reset_state(self, pos_tar) -> EnvState:
+        """Keyframe "home" at rest.  The derived fields come from the plain
+        forward stages of the fused substep (FK, CoM velocities, actuation at
+        zero ctrl), the port's counterpart of `pipeline.init`; the warmstart is
+        zero, as after mj_resetData."""
+        m = self.model
+        qpos = torch.as_tensor(self._init_q, dtype=self._dtype, device=self.device)
+        qvel = self._zeros(m.nv)
+        q = list(qpos[None].unbind(-1))
+        v = list(qvel[None].unbind(-1))
+        like = q[0]
+        fk = fused._fk(m, q)
+        cvel, _ = fused._com_vel(m, fk, v)
+        qfrc_act = fused._actuator_force(m, [torch.zeros_like(like)] * m.nu, q, v)
+
+        def stack(rows):  # list of per-body scalar tuples -> (n, k)
+            return torch.stack([fused._stack(r, like)[0] for r in rows])
+
+        ps = PipelineState(
+            qpos=qpos,
+            qvel=qvel,
+            qacc_warmstart=self._zeros(m.nv),
+            xpos=stack(fk["xpos"]),
+            xquat=stack(fk["xquat"]),
+            site_xpos=stack(fk["site_xpos"]),
+            subtree_com=stack(fk["subtree_com"]),
+            cvel=stack(cvel),
+            qfrc_actuator=fused._stack(qfrc_act, like)[0],
+        )
+        n_feet = len(self.FEET_SITES)
+        info = StateInfo(
+            pos_tar=torch.tensor(pos_tar, dtype=self._dtype, device=self.device),
+            vel_tar=self._zeros(3),
+            ang_vel_tar=self._zeros(3),
+            yaw_tar=self._zeros(),
+            step=self._zeros(dtype=torch.int32),
+            z_feet=self._zeros(n_feet),
+            z_feet_tar=self._zeros(n_feet),
+            last_contact=self._zeros(n_feet, dtype=torch.bool),
+            feet_air_time=self._zeros(n_feet),
+        )
+        b = self._torso_idx
+        root = int(m.body_rootid[b])
+        obs = self._get_obs(
+            ps.qpos, ps.qvel, ps.xpos[b], ps.xquat[b], ps.cvel[b], ps.subtree_com[root],
+            info, self._zeros(m.nu),
+        )
+        return EnvState(
+            pipeline=ps, obs=obs, reward=self._zeros(),
+            done=self._zeros(dtype=torch.bool), info=info,
+        )
+
+    def act2joint(self, act: torch.Tensor) -> torch.Tensor:
+        """Normalized action (..., nu) in [-1, 1] -> joint targets."""
+        jr, pr = self.joint_range, self.physical_joint_range
+        act_normalized = (act * self.config.action_scale + 1.0) / 2.0
+        targets = jr[:, 0] + act_normalized * (jr[:, 1] - jr[:, 0])
+        return torch.minimum(torch.maximum(targets, pr[:, 0]), pr[:, 1])
+
+    def _act2tau_qv(self, act, q, qd):
+        """PD torque map toward the action's joint targets."""
+        target = self.act2joint(act)
+        tau = self.config.kp * (target - q) - self.config.kd * qd
+        tr = self.joint_torque_range
+        return torch.minimum(torch.maximum(tau, tr[:, 0]), tr[:, 1])
+
+    def _body_velocities(self, torso_xpos, torso_xquat, torso_cvel, root_com):
+        """Torso body-frame linear/angular velocity."""
+        offset = torso_xpos - root_com
+        cvel_ang = torso_cvel[..., :3]
+        cvel_lin = torso_cvel[..., 3:]
+        vel_lin = cvel_lin - torch.linalg.cross(offset, cvel_ang, dim=-1)
+        vb = rot.global_to_body_velocity(vel_lin, torso_xquat)
+        ab = rot.global_to_body_velocity(cvel_ang, torso_xquat)
+        return vb, ab
+
+    def _get_obs(self, qpos, qvel, torso_xpos, torso_xquat, torso_cvel, root_com, info, ctrl):
+        """[vel_tar, ang_vel_tar, ctrl, qpos, vb, ab, qvel[6:]]."""
+        vb, ab = self._body_velocities(torso_xpos, torso_xquat, torso_cvel, root_com)
+        return torch.cat(
+            [info.vel_tar, info.ang_vel_tar, ctrl, qpos, vb, ab, qvel[..., 6:]], dim=-1
+        )

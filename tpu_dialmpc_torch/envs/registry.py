@@ -1,9 +1,10 @@
 """Named task registry: env config + planner defaults per task.
 
 Counterpart of `tpu_dialmpc/envs/registry.py`, for the tasks the port runs:
-`go2_stand` (the reference benchmark workload) and the Go2 crate tasks
-`go2_crate`, `go2_crate_climb` and `go2_jump`, with the JAX package's exact
-config dicts (see that file for each setting's story).
+`go2_stand` (the reference benchmark workload), the Go2 crate tasks
+`go2_crate`, `go2_crate_climb` and `go2_jump`, and the H1 humanoid's
+`h1_push_crate`, with the JAX package's exact config dicts (see that file
+for each setting's story).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ _DIAL_COMMON = dict(
     n_steps=400,
 )
 _GO2_DIAL = dict(_DIAL_COMMON, Hsample=20, Hnode=5)
+# the biped needs a longer lookahead (0.64 s)
+_H1_DIAL = dict(_DIAL_COMMON, Hsample=32, Hnode=8)
 
 
 def get_env(name: str, device="cpu", **overrides):
@@ -56,6 +59,18 @@ def _go2(defaults):
     def factory(device="cpu", **overrides):
         cfg = dataclasses.replace(UnitreeGo2EnvConfig(**defaults), **overrides)
         return UnitreeGo2Env(cfg, device=device)
+
+    return factory
+
+
+def _h1(defaults):
+    from tpu_dialmpc_torch.envs.h1 import UnitreeH1Env, UnitreeH1EnvConfig
+
+    defaults.setdefault("n_substeps", 8)  # see _go2
+
+    def factory(device="cpu", **overrides):
+        cfg = dataclasses.replace(UnitreeH1EnvConfig(**defaults), **overrides)
+        return UnitreeH1Env(cfg, device=device)
 
     return factory
 
@@ -114,3 +129,17 @@ _register("go2_jump", _go2(
         done_penalty=2.0,
     )
 ), _GO2_DIAL)
+
+# push the 30 kg crate on its slide joint: the anchor leash bounds the
+# blocked-progress penalty, the capped crate-velocity reward makes steady
+# pushing pay, and done_penalty prices falling in the sampler
+_register("h1_push_crate", _h1(
+    dict(
+        gait="walk",
+        default_vx=0.3,
+        scene="h1_push_crate",
+        pos_anchor_leash=0.4,
+        crate_vel_weight=6.0,
+        done_penalty=2.0,
+    )
+), _H1_DIAL)
