@@ -21,12 +21,16 @@ Phases, for each path (each prints its lines; any failure exits non-zero
 with no result), after the card as nvidia-smi reports its name and power
 limit:
   1. the kernel build (nvcc, sm_90a) for this model, with ptxas' register,
-     stack and spill lines;
+     stack and spill lines and the launch shape (bytes of shared memory per
+     sample, samples per block, resident blocks per SM);
   2. kernel vs plain version on the same inputs, B=2049 and B=1, 8
      substeps; on the crate models, inputs that touch every contact kind
      (and on H1, slots that span both trees), counted, printed and checked;
-     the kernel's and the plain version's time per call at B=2049 (and on
-     H1 the kernel's at B=8192);
+     the kernel's time per call at B=2049 and B=1 and the plain version's
+     at B=2049, and the kernel's at B=8192 (the JAX package's bench timed
+     h1_push_crate at N8192); the kernel's bound (the
+     plain substep's fp32 operations, fused.count_ops, at 67 TFLOP/s) and
+     its share of the measured time;
   3. the main path: reset, the reverse warm start, 3 control steps, with the
      kernel's launch count checked, plus a small reverse_once checked against
      the plain substep chain (on the crate tasks from a state at the crate),
@@ -52,6 +56,9 @@ CRATE_FACE_X = 0.79  # Go2: the base 0.2 m before the crate's face at x = 1.3 - 
 # difference in a library function and is far below the >=1e-3 error a wrong
 # formula gives.
 REL_TOL = 1e-6
+# the H100 SXM's fp32 rate outside the tensor cores, at its 700 W limit
+# (NVIDIA's data sheet): the kernel's arithmetic bounds it, not its bytes
+FP32_FLOPS = 67e12
 
 
 class SmokeError(RuntimeError):
@@ -135,9 +142,9 @@ class SmokePath(NamedTuple):
 
 
 PATHS = (
-    SmokePath("go2_stand", "go2_force", (2048, 20, 5, 8), near_home_inputs, None, None),
+    SmokePath("go2_stand", "go2_force", (2048, 20, 5, 8), near_home_inputs, None, 8192),
     SmokePath("go2_crate_climb", "go2_force_crate", (2048, 25, 5, 8), crate_inputs,
-              go2_at_crate, None),
+              go2_at_crate, 8192),
     # the JAX package's bench timed h1_push_crate at N2048/H32 and N8192/H32
     SmokePath("h1_push_crate", "h1_push_crate", (2048, 32, 8, 8), h1_crate_inputs,
               h1_at_crate, 8192),
@@ -170,21 +177,32 @@ def phase_card():
 
 def phase_build(env, device, tag):
     t0 = time.perf_counter()
-    env.fused_step.library(device)
+    lib = env.fused_step.library(device)
     secs = time.perf_counter() - t0
     print(f"[build {tag}] fused_step.cu for sm_90a: {secs:.2f} s (nvcc + load + model upload)")
     for line in (env.fused_step.build_log or "").splitlines():
         if any(k in line for k in ("registers", "spill", "stack frame")):
             print(f"[build {tag}] {line.strip()}")
+    info = lib.launch_info()
+    print(f"[build {tag}] one warp per sample: {info['bytes_per_sample']} bytes of shared memory "
+          f"per sample, {info['samples_per_block']} samples per block, "
+          f"{info['blocks_per_sm']} blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    check(info["blocks_per_sm"] > 0, "the kernel's block does not fit an SM")
     return secs
 
 
+def bound_ms(B, ops):
+    """The least time for B samples x N_SUBSTEPS substeps of `ops` fp32
+    operations each, at the card's fp32 rate."""
+    return B * N_SUBSTEPS * ops / FP32_FLOPS * 1e3
+
+
 def phase_compare(env, path, device, tag):
-    """Kernel vs plain version on the card; returns (max abs err, kernel ms,
-    plain ms) at B=2049.  On a model with more than plane-sphere contacts
-    the inputs touch every contact kind, and at B=2049 every kind must have
-    active contacts, and so must the slots that span two trees where the
-    model has any."""
+    """Kernel vs plain version on the card; returns (max abs err, kernel ms
+    per batch size timed, plain ms at B=2049).  On a model with more than
+    plane-sphere contacts the inputs touch every contact kind, and at
+    B=2049 every kind must have active contacts, and so must the slots that
+    span two trees where the model has any."""
     import torch
 
     from tpu_dialmpc_torch.dynamics import fused
@@ -193,7 +211,7 @@ def phase_compare(env, path, device, tag):
     crate = len(env.model.pairs) > 1
     two_trees = any(fused.spans_two_trees(env.model, s) for s in fs.meta.contact_slots)
     names = ("qpos", "qvel", "warmstart", "derived")
-    worst = 0.0
+    worst, ms = 0.0, {}
     for B, seed in ((2049, 0), (1, 1)):
         args = path.inputs(env.model, B, seed, device)
         if crate:
@@ -212,9 +230,9 @@ def phase_compare(env, path, device, tag):
         want = fs.plain(*args)
         if B > 1:  # the plain version takes seconds per call: one call after this warm one
             plain_ms = cuda_ms(lambda: fs.plain(*args), 1)
-            for _ in range(3):
-                fs(*args)
-            ms = cuda_ms(lambda: fs(*args), 20)
+        for _ in range(3):
+            fs(*args)
+        ms[B] = cuda_ms(lambda: fs(*args), 20)
         torch.cuda.synchronize()
         for name, g, w in zip(names, got, want):
             check(g.shape == w.shape, f"B={B} {name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
@@ -225,15 +243,31 @@ def phase_compare(env, path, device, tag):
             print(f"[compare {tag}] B={B} n_substeps={N_SUBSTEPS} {name}: max abs diff "
                   f"{err:.3e} (tolerance {tol:.3e})")
             check(err <= tol, f"kernel disagrees with the plain version: B={B} {name}")
-    print(f"[compare {tag}] B=2049 time per call: kernel {ms:.3f} ms, plain PyTorch "
-          f"{plain_ms:.1f} ms")
+    print(f"[compare {tag}] time per call: kernel {ms[2049]:.3f} ms at B=2049 "
+          f"({ms[1]:.3f} ms at B=1), plain PyTorch {plain_ms:.1f} ms at B=2049")
     if path.big_batch:
         args = path.inputs(env.model, path.big_batch, 2, device)
         for _ in range(2):
             fs(*args)
-        big_ms = cuda_ms(lambda: fs(*args), 10)
-        print(f"[compare {tag}] B={path.big_batch} time per call: kernel {big_ms:.3f} ms")
+        ms[path.big_batch] = cuda_ms(lambda: fs(*args), 10)
+        print(f"[compare {tag}] B={path.big_batch} time per call: kernel "
+              f"{ms[path.big_batch]:.3f} ms")
     return worst, ms, plain_ms
+
+
+def phase_bound(env, ms, tag):
+    """The kernel's bound from the plain substep's arithmetic
+    (fused.count_ops), and its share of the measured time, per batch timed;
+    returns (ops per substep, bound ms at B=2049)."""
+    from tpu_dialmpc_torch.dynamics import fused
+
+    ops = fused.count_ops(env.model, env.fused_step.spec)
+    for B in sorted(b for b in ms if b > 1):
+        bound = bound_ms(B, ops)
+        print(f"[bound {tag}] B={B}: {ops} fp32 ops per sample and substep x {B} x "
+              f"{N_SUBSTEPS} / {FP32_FLOPS / 1e12:.0f} TFLOP/s = bound_ms {bound:.4f}; "
+              f"kernel {ms[B]:.3f} ms, share {bound / ms[B]:.5f}")
+    return ops, bound_ms(2049, ops)
 
 
 class _PlainSubsteps:
@@ -404,13 +438,15 @@ def main():
             task, scene = path.task, path.scene
             phase_build(env, device, scene)
             max_err, ms, plain_ms = phase_compare(env, path, device, scene)
+            ops, bound = phase_bound(env, ms, scene)
             mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
                 env, cfg, device, task, all_envs)
             check_small_against_plain(env, cfg, path, device)
             ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task)
             print(f"[time {task}] path wall {time.perf_counter() - t0:.1f} s")
             summary.append(f"{task} reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
-                           f"fused_step[{scene}] {ms:.3f} ms vs plain {plain_ms:.1f} ms")
+                           f"fused_step[{scene}] {ms[2049]:.3f} ms vs plain {plain_ms:.1f} ms, "
+                           f"bound {bound:.4f} ms")
             records.append({
                 "name": f"fused_step[{scene}]",
                 "route": "cuda",
@@ -418,8 +454,13 @@ def main():
                 "replaces": "tpu_dialmpc/dynamics/fused.py:1440",
                 "launches": launches,
                 "max_abs_err": max_err,
-                "ms": ms,
+                "ms": ms[2049],
                 "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "operations",
+                "share": bound / ms[2049],
+                "library_ms": None,  # no PyTorch call computes this function
+                "ops_per_substep": ops,
             })
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

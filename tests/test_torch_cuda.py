@@ -148,3 +148,49 @@ def test_h1_kernel_matches_plain_on_card(card, h1_model, B):
     for o, r in zip(out, ref):
         assert o.shape == r.shape and bool(torch.isfinite(o).all())
         assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())
+
+
+def _scene_inputs(m, scene, B, seed, device):
+    """Inputs for the launch-shape compares: near home on go2_force; on the
+    crate models the states that touch every contact kind (and on H1 the
+    slots that span both trees); at B=1 a state in contact."""
+    rng = np.random.default_rng(seed)
+    if scene == "go2_force":
+        return _inputs(m, B, seed, device)
+    states, row, n_min = ((crate_states, 1, 6) if scene == "go2_force_crate"
+                          else (h1_crate_states, 4, 10))
+    qpos, qvel = states(m, rng, max(B, n_min))
+    rows = slice(row, row + 1) if B == 1 else slice(0, B)
+    arrays = (qpos[rows], qvel[rows], np.zeros((B, m.nv)), rng.uniform(-10, 10, (B, m.nu)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous() for a in arrays]
+
+
+@pytest.mark.parametrize("scene,batch", [
+    ("go2_force", "one"), ("go2_force", "partial"),
+    ("go2_force_crate", "one"), ("go2_force_crate", "partial"),
+    ("h1_push_crate", "one"), ("h1_push_crate", "partial"), ("h1_push_crate", 8192),
+])
+def test_launch_shapes_match_plain_on_card(card, scene, batch):
+    """The warp-per-sample launch: one sample (one warp of one block), a
+    batch of 2049 or more that leaves the last block partly filled, and on
+    H1 8192 samples, several waves of blocks; 8 substeps each."""
+    m = load_model(str(PORT_NPZ.with_name(f"{scene}.npz")))
+    spec = fused.DerivedSpec(torso_body=m.body_names.index("pelvis" if scene.startswith("h1")
+                                                           else "base"))
+    fs = fused_cuda.FusedStep(m, 8, spec)
+    spb = fused_cuda.launch_config(fused_cuda.pack_model(m, fs.meta, spec)[0])[1]
+    if batch == "one":
+        B = 1
+    elif batch == "partial":
+        B = next(b for b in range(2049, 2049 + 8) if b % spb)
+        assert spb > 1, "with one sample per block no block is partly filled"
+    else:
+        B = batch
+    args = _scene_inputs(m, scene, B, B, card)
+    out = fs(*args)
+    ref = fs.plain(*args)
+    torch.cuda.synchronize()
+    assert fs.launches == 1
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and bool(torch.isfinite(o).all())
+        assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())

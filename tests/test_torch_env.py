@@ -46,7 +46,7 @@ VARIANTS = {
 def _envs(monkeypatch, overrides):
     use_standin_assets(monkeypatch)
     kw = dict(dtype="float64", **overrides)
-    return jget_env("go2_stand", **kw), get_env("go2_stand", **kw)
+    return jget_env("go2_stand", **kw), get_env("go2_stand", device="cpu", **kw)
 
 
 def _inputs(env, seed):
@@ -163,11 +163,11 @@ def test_unported_options_raise():
     for kw in (dict(randomize_tasks=True), dict(leg_control="position"),
                dict(joint_range_source="climb")):
         with pytest.raises(NotImplementedError):
-            get_env("go2_stand", **kw)
+            get_env("go2_stand", device="cpu", **kw)
 
 
 def test_crate_options_need_the_crate_scene():
     """As in the JAX env: the crate options on a scene without `box_body`."""
     for kw in (dict(crate_top_z=0.3), dict(crate_x=30.0)):
         with pytest.raises(ValueError):
-            get_env("go2_stand", **kw)
+            get_env("go2_stand", device="cpu", **kw)

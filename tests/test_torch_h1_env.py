@@ -46,7 +46,7 @@ VARIANTS = {
 def _envs(monkeypatch, overrides):
     use_standin_assets(monkeypatch)
     kw = dict(dtype="float64", **overrides)
-    return jget_env(TASK, **kw), get_env(TASK, **kw)
+    return jget_env(TASK, **kw), get_env(TASK, device="cpu", **kw)
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -196,4 +196,4 @@ def test_unported_h1_options_raise():
     for kw in (dict(randomize_tasks=True), dict(leg_control="position"),
                dict(fused="off"), dict(joint_range_source="other")):
         with pytest.raises(NotImplementedError):
-            get_env(TASK, **kw)
+            get_env(TASK, device="cpu", **kw)

@@ -62,7 +62,7 @@ def slice_():
         mp.undo()
     kw = dict(dial_defaults(TASK), **SIZE)
     jmb = jdial.MBDPI(jdial.DialConfig(**kw), jenv)
-    tenv = get_env(TASK, n_substeps=N_SUB, dtype="float64")
+    tenv = get_env(TASK, device="cpu", n_substeps=N_SUB, dtype="float64")
     tmb = tdial.MBDPI(tdial.DialConfig(**kw), tenv)
     jstate = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     tstate = tenv.reset()

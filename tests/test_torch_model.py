@@ -52,7 +52,7 @@ def test_crate_task_model_equals_jax_compile(monkeypatch, task):
     from tpu_dialmpc_torch.envs import get_env
 
     use_standin_assets(monkeypatch)
-    jenv, tenv = jget_env(task), get_env(task)
+    jenv, tenv = jget_env(task), get_env(task, device="cpu")
     assert_same_model(tenv.model, jenv.model)
     assert tenv._crate == jenv._crate
     crate = tenv.model.body_names.index("box_body")

@@ -56,7 +56,7 @@ def slice_():
     assert jdial_defaults("go2_stand") == dial_defaults("go2_stand")
     kw = dict(dial_defaults("go2_stand"), **SIZE)
     jmb = jdial.MBDPI(jdial.DialConfig(**kw), jenv)
-    tenv = get_env("go2_stand", n_substeps=N_SUB, dtype="float64")
+    tenv = get_env("go2_stand", device="cpu", n_substeps=N_SUB, dtype="float64")
     tmb = tdial.MBDPI(tdial.DialConfig(**kw), tenv)
     jstate = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     return dict(
@@ -173,7 +173,7 @@ def crate_slice():
     assert jdial_defaults("go2_crate_climb") == dial_defaults("go2_crate_climb")
     kw = dict(dial_defaults("go2_crate_climb"), **CRATE_SIZE)
     jmb = jdial.MBDPI(jdial.DialConfig(**kw), jenv)
-    tenv = get_env("go2_crate_climb", n_substeps=N_SUB, dtype="float64")
+    tenv = get_env("go2_crate_climb", device="cpu", n_substeps=N_SUB, dtype="float64")
     tmb = tdial.MBDPI(tdial.DialConfig(**kw), tenv)
     jstate = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     tstate = tenv.reset()
@@ -286,7 +286,7 @@ def test_port_imports_neither_jax_nor_mujoco():
         "import sys\n"
         "import tpu_dialmpc_torch, tpu_dialmpc_torch.envs, tpu_dialmpc_torch.planner.runner\n"
         "import tpu_dialmpc_torch.dynamics.fused_cuda, tpu_dialmpc_torch.envs.h1\n"
-        "tpu_dialmpc_torch.envs.get_env('h1_push_crate')  # its __init__ reads no mujoco\n"
+        "tpu_dialmpc_torch.envs.get_env('h1_push_crate', device='cpu')  # reads no mujoco\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mujoco', 'tpu_dialmpc'))\n"
         "print(bad)\n"

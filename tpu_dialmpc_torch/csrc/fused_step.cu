@@ -1,10 +1,12 @@
 // fused_step.cu — the physics substep chain of DIAL-MPC's rollouts, as one
-// CUDA kernel for Hopper (sm_90a).
+// CUDA kernel for Hopper (sm_90a): one warp per sample, the sample's working
+// set in shared memory.
 //
-// Replaces: tpu_dialmpc/dynamics/fused.py:build_fused_step (its inner Pallas
-// `kernel`), the JAX package's only TPU kernel.  The plain PyTorch version of
-// the same function is tpu_dialmpc_torch/dynamics/fused.py; the wrapper that
-// builds, uploads and launches this file is dynamics/fused_cuda.py.
+// Replaces: tpu_dialmpc/dynamics/fused.py:build_fused_step (def at :1440,
+// its inner Pallas `kernel` at :1465, the `pallas_call` at :1576), the JAX
+// package's only TPU kernel.  The plain PyTorch version of the same
+// function is tpu_dialmpc_torch/dynamics/fused.py; the wrapper that builds,
+// uploads and launches this file is dynamics/fused_cuda.py.
 //
 // What it computes, per sample: n_substeps x (forward kinematics, CoM
 // frames, CRB mass matrix, RNE bias, actuation, LDL^T smooth acceleration,
@@ -14,80 +16,111 @@
 // 1-D Newton line search, optional implicit joint damping, semi-implicit
 // Euler with quaternion integration), then writes (qpos', qvel',
 // warmstart' = the solver's qacc, derived reward inputs).  Geoms on bodies
-// without dofs (the floor, a mocap crate) have a constant pose: the plain
-// version folds their math into constants in double precision, so the
-// host packs those values (pose, a box's corners, a plane's contact frame)
-// precomputed in double and rounded once, and the kernel reads them.
+// without dofs (the floor, a mocap crate) have a constant pose: the host
+// packs their pose, a box's corners and a plane's frame, computed by the
+// plain version in double and rounded once.  A slot's two bodies may carry
+// dofs of two kinematic trees (a robot and a crate on its own slide joint):
+// each side's point Jacobian is taken about its own root's subtree CoM
+// under its own dof mask, and the Newton Hessian's pattern (anc_solver)
+// holds the LDL fill-in; those entries start at 0.
 //
-// What bounds it on this card: arithmetic per sample and the per-thread
-// registers and local memory that hold its state — about 31k scalar ops per
-// substep on Go2 (README: 31,173 arithmetic eqns per substep in the JAX
-// graph) against 80 + 19 + 18 + 18 + 12 floats of input and output per
-// sample.  Bytes to and from device memory are negligible; the working set
-// (mass matrix, Hessian, constraint rows, tree quantities: a few KB per
-// sample) is not.  It grows with the contact rows and the dofs: 52 rows and
-// an 11.6 KB stack frame on the flat Go2 scene (4 slots), 244 rows and a
-// 29.2 KB frame on the Go2 crate scene (52 slots of six kinds), 234 rows
-// and a 37.4 KB frame on the H1 push-crate scene (44 slots, nv=26), at 255
-// registers each.
+// What bounds it: arithmetic.  One substep is about 36k arithmetic ops per
+// sample on the flat Go2 scene (4 slots, 52 rows), 170k on the Go2 crate
+// scene (52 slots, 244 rows) and 192k on the H1 push-crate scene (44 slots,
+// 234 rows, nv=26) (fused.py count_ops), against 67 TFLOP/s of fp32 outside
+// the tensor cores: 2049 samples x 8 substeps take at least 9, 42 and 47 us.
+// Bytes do not bound it: under 1 KB in and out per sample.  What kept the
+// one-thread-per-sample version three orders of magnitude from that bound
+// was latency: a 12-37 KB per-thread stack at 255 registers (local memory
+// traffic), one warp on half the SMs at B=2049, and a warp running the
+// slowest of its 32 samples' Newton iterations.  Nearly all its time went
+// to the Newton solve's sums over rows (the cost evaluations, the gradient,
+// the Hessian assembly, the line search).
 //
-// A slot's two bodies may both carry dofs, of different kinematic trees (a
-// robot and a crate on its own slide joint): each side's point Jacobian is
-// taken about its own root's subtree CoM under its own dof mask, and the
-// rows' cliques join the two trees' dofs in the Newton Hessian, whose
-// pattern (anc_solver) then holds LDL fill-in outside the mass matrix's;
-// those entries start at 0.
+// What the design does about it:
+// - one warp per sample, FS_SPB samples per block; the sample's working set
+//   (struct Work: M, H and its factor, the rows' J, aref, D and per-row
+//   terms, the body quantities) lives in dynamic shared memory, so nothing
+//   spills and several samples share an SM;
+// - lanes take independent outputs, each with the exact operation sequence
+//   of the sequential version (and so of the plain version and the JAX
+//   graph): bodies of one tree level, components of a sum up the tree,
+//   joints, geoms, contact slots (grouped by kind, so a warp diverges
+//   little), rows, dofs, entries of M and H, and within one column step of
+//   the LDL^T factor the pairs it updates.  An entry of H sums the rows that
+//   hold both its dofs, in row order, from a host-built term list (longest
+//   list first, so the warp's rounds are balanced; stored so that a round's
+//   32 lanes read one line per step); a dof's gradient likewise;
+// - sums over all rows or dofs to a scalar (the costs, the line search's
+//   derivatives, d'Md, d'M(a - qsm), |grad|) are not reduced as a tree:
+//   every lane adds the terms in row order from shared memory, so the
+//   result is the sequential one, bit for bit, and warp-uniform;
+// - done, any_active and the iteration count are one sample's, so the warp
+//   never waits on another sample's iterations;
+// - model values that lanes read alike live in __constant__ memory; tables
+//   that lanes index (slots, bodies, the term and LDL pair lists) are read
+//   from global memory (a copy of the model, and FusedTables); the few the
+//   row and matvec loops read over and over (dof patterns, each contact
+//   row's slot and dofs) are copied into the sample's Work once, since the
+//   shared memory leaves the SM little L1 and a global read is then an L2
+//   round trip;
+// - sizes are compile-time (-D FS_*), one build per model;
+// - -fmad=false: each product and sum rounds on its own, like the plain
+//   version's separate elementwise ops, so the check on the card holds the
+//   two equal to the last bit.  FMA contraction is a later, measured change.
 //
-// Contact slots run one after another in a loop with a branch per kind;
-// capsule-box's slot 1 repeats slot 0's four projection sweeps (the JAX
-// graph's CSE merges them; here each slot computes its own, the same
-// values).
+// What it left: a sample's substep is a few hundred short lane sections
+// (the LDL^T column steps, the row passes, the serial sums), each a chain of
+// shared-memory round trips, so the warp's latency, not the SM's issue
+// rate, sets the time: PERF.md section 5 has the stage split (-D
+// FS_STAGE_CLOCK=1 builds, tpu_dialmpc_torch/tools/kernel_stages.py).
 //
-// What the design does about it (a first, simple version):
-// - one thread per sample, the n_substeps loop inside the thread, so a
-//   sample's state never leaves the thread between substeps;
-// - model constants (tree, joint axes, inertias, contact-slot and row
-//   parameters, ancestor patterns as bitmasks) live in one __constant__
-//   struct uploaded once: every thread of a warp reads the same address, so
-//   constant-cache reads broadcast;
-// - sizes are compile-time (-D FS_*), so loops over dofs have fixed bounds;
-// - M and the Newton Hessian H are dense lower triangles (171 floats at
-//   nv=18), factored in the tree-sparse elimination order with the pattern
-//   masks, so their values equal the sparse factor's;
-// - 32 threads per block, so the 2049 samples of a rollout spread over 65
-//   SMs: at this batch the card is latency-bound, not occupancy-bound;
-// - the build passes -fmad=false: each product and sum rounds on its own,
-//   like the plain version's separate elementwise ops, so the check on the
-//   card can hold the two close.  Letting nvcc contract to FMA is a later,
-//   measured change.
-// The operation order follows the plain version (and the JAX graph) step by
-// step; the comments name the Python function each block mirrors.
-//
-// The same source builds as plain C++ for the host (g++ -x c++), where
-// fused_step_launch loops over the samples: the CPU tests use that build to
-// check this file's arithmetic against the plain version without a card.
+// The same source builds as plain C++ for the host (g++ -x c++): there one
+// lane takes every index of a lane section in order, and fused_step_launch
+// runs the samples one after another; the CPU tests use that build to check
+// this file's arithmetic against the plain version without a card.
 
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
+// Lanes.  On the card a warp computes one sample: FS_FOR(i, n) gives lane
+// l the indices l, l+32, ... of a lane-parallel section, and FS_SYNC()
+// (__syncwarp) ends the section.  In the host build one "lane" takes every
+// index in order and FS_SYNC() is empty, so the g++ build runs the same
+// sections one after another.  Within a section no lane reads what another
+// lane writes in it; a value every lane needs (a sum over rows, a pivot) is
+// computed by every lane alike from shared memory, in the plain order.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define FS_DEVICE __device__ __forceinline__
 #define FS_CONSTANT __constant__
+#define FS_GLOBAL __device__
+#define FS_LANE ((int)(threadIdx.x & 31u))
+#define FS_FOR(i, n) for (int i = FS_LANE; i < (n); i += 32)
+#define FS_SYNC() __syncwarp()
+#define FS_ANY(p) __any_sync(0xffffffffu, (p))
 #else
 #define FS_DEVICE static inline
 #define FS_CONSTANT static
+#define FS_GLOBAL static
+#define FS_LANE 0
+#define FS_FOR(i, n) for (int i = 0; i < (n); ++i)
+#define FS_SYNC() ((void)0)
+#define FS_ANY(p) (p)
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #endif
 
-// ---- sizes, from the model (see fused_cuda.py: kernel_defines) ----
+// ---- sizes, from the model (see fused_cuda.py: pack_model) ----
 #if !defined(FS_NQ) || !defined(FS_NV) || !defined(FS_NU) || !defined(FS_NBODY) || \
     !defined(FS_NJNT) || !defined(FS_NGEOM) || !defined(FS_NSITE) ||               \
     !defined(FS_NSLOT) || !defined(FS_NCROW) || !defined(FS_NLIM) ||               \
     !defined(FS_NFL) || !defined(FS_MAXD) || !defined(FS_ND) ||                    \
-    !defined(FS_IMPLICIT) || !defined(FS_WANT_SITES) || !defined(FS_WANT_QFRC)
+    !defined(FS_IMPLICIT) || !defined(FS_WANT_SITES) || !defined(FS_WANT_QFRC) ||  \
+    !defined(FS_NLEVEL) || !defined(FS_NLDLPAIR) || !defined(FS_NHTERM) ||         \
+    !defined(FS_NGTERM) || !defined(FS_SPB)
 #error "fused_step.cu needs the FS_* size definitions"
 #endif
 
@@ -95,6 +128,12 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #define FS_NROW (FS_NFL + FS_NLIM + FS_NCROW)
 #define FS_TRI(n) ((n) * ((n) + 1) / 2)
 #define FS_IDX(i, j) ((i) * ((i) + 1) / 2 + (j))  // lower triangle, j <= i
+// row stride of the contact rows' J: odd, so lanes over rows hit distinct
+// shared-memory banks
+#define FS_JS (FS_DIM(FS_MAXD) | 1)
+#define FS_JC(c, k) (FS_NFL + FS_NLIM + (c) * FS_JS + (k))
+#define FS_R4(n) ((FS_DIM(n) + 3) / 4 * 4)  // a byte array's length, in whole words
+
 
 #define JNT_FREE 0
 #define JNT_SLIDE 2
@@ -178,9 +217,66 @@ struct FusedModel {
   int fl_dof[FS_DIM(FS_NFL)];
   float fl_floss[FS_DIM(FS_NFL)], fl_D[FS_DIM(FS_NFL)], fl_negb[FS_DIM(FS_NFL)];
   float fl_knee[FS_DIM(FS_NFL)], fl_lin0[FS_DIM(FS_NFL)];  // 0.5 * knee * floss
+  // launch order: bodies 1.. by tree depth (level_off[l] .. level_off[l+1]
+  // have depth l+1), slots grouped by kind, each slot's first contact row
+  // and row count, the LDL pair lists' offsets per k (0: anc_strict, 1:
+  // anc_solver; pairs in FusedTables)
+  int body_order[FS_DIM(FS_NBODY - 1)], level_off[FS_NLEVEL + 1];
+  int slot_order[FS_DIM(FS_NSLOT)], slot_crow0[FS_DIM(FS_NSLOT)], slot_ncrow[FS_DIM(FS_NSLOT)];
+  int ldl_off[2][FS_NV + 1];
 };
 
+// Index lists that lanes walk, too large for constant memory; global only.
+struct FusedTables {
+  // per k of each pattern: the pairs (i, j), j <= i < k, both in row k's
+  // pattern: i | j << 8
+  int ldl_pair[FS_DIM(FS_NLDLPAIR)];
+  // every lower-triangle entry p of the Newton Hessian, longest term list
+  // first (idx | i << 16 | j << 24), its list's length, and its rows'
+  // terms in row order: row | oi << 8 | oj << 20, oi and oj the offsets of
+  // the row's Jacobian values for dofs i and j in Work.jl.  Term t of entry
+  // p sits at h_base[p / 32] + t * 32 + p % 32: the lanes of a round of 32
+  // entries read one line per step (fused_cuda.py _tables, _interleave).
+  int h_ent[FS_TRI(FS_NV)], h_len[FS_TRI(FS_NV)], h_base[(FS_TRI(FS_NV) + 31) / 32];
+  uint32_t h_term[FS_DIM(FS_NHTERM)];
+  // per dof d: the rows that hold it, in row order (row | o << 8), term t
+  // at t * 32 + d
+  int g_len[FS_NV];
+  uint32_t g_term[FS_DIM(FS_NGTERM)];
+};
+
+// The model twice: in constant memory for values every lane reads alike,
+// in global memory for tables lanes index by slot, row, body or dof
+// (constant memory serialises a warp's distinct addresses).
 FS_CONSTANT FusedModel c_model;
+FS_GLOBAL FusedModel g_model;
+FS_GLOBAL FusedTables g_tables;
+
+// Stage clocks, for measurement builds only (-DFS_STAGE_CLOCK=1, on the
+// card): lane 0 of every warp adds the clock64() cycles since the previous
+// stamp to its stage's counter (tpu_dialmpc_torch/tools/kernel_stages.py
+// reads them).  Stages: 0 kinematics, CoM, cdof, cvel; 1 CRB, actuators, M,
+// RNE; 2 smooth LDL^T; 3 geometry, slots' Jacobians and J; 4 the rows'
+// constants; 5 Newton cost evaluations; 6 the rows' terms at a; 7 M (a -
+// qsm); 8 the gradient; 9 H assembly; 10 H's factor and solve; 11 line
+// search (with J delta, M delta); 12 the rest of the solve; 13 integration
+// and derived outputs.
+#if defined(__CUDACC__) && FS_STAGE_CLOCK
+#define FS_NSTAGE 14
+__device__ unsigned long long g_stage_cycles[FS_NSTAGE];
+#define FS_STAGE_BEGIN long long fs_t0 = clock64()
+#define FS_STAGE_BEGIN_AGAIN fs_t0 = clock64()
+#define FS_STAGE(k)                                                                      \
+  do {                                                                                   \
+    long long fs_t1 = clock64();                                                         \
+    if (FS_LANE == 0) atomicAdd(&g_stage_cycles[k], (unsigned long long)(fs_t1 - fs_t0)); \
+    fs_t0 = fs_t1;                                                                       \
+  } while (0)
+#else
+#define FS_STAGE_BEGIN ((void)0)
+#define FS_STAGE_BEGIN_AGAIN ((void)0)
+#define FS_STAGE(k) ((void)0)
+#endif
 
 #define MJ_MINVAL 1e-15f
 #define MJ_MINIMP 0.0001f
@@ -276,123 +372,220 @@ FS_DEVICE float dot6(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3] + a[4] * b[4] + a[5] * b[5];
 }
 
+
+// A sample's working set, in shared memory (one per warp); 4-byte fields
+// only, so fused_cuda.py:work_bytes can size it.  Constraint rows: r in
+// [0, NFL) friction loss, [NFL, NFL+NLIM) limits, [NFL+NLIM, NROW)
+// contacts; a contact row keeps its Jacobian on its slot's dof list.
+struct Work {
+  // the model's tables that the row and matvec loops read, copied once per
+  // sample (global memory is an L2 round trip: the shared memory leaves
+  // little L1): dof patterns, each contact row's slot, each slot's dofs
+  uint32_t anc[2][FS_NV];
+  unsigned char rslot[FS_R4(FS_NCROW)], sndof[FS_R4(FS_NSLOT)];
+  unsigned char sdof[FS_R4(FS_NSLOT * FS_MAXD)];
+  // state and outputs, carried across substeps
+  float q[FS_NQ], v[FS_NV], w[FS_NV], ctrl[FS_NU], der[FS_ND];
+  // kinematics and smooth dynamics
+  float xpos[FS_NBODY][3], xquat[FS_NBODY][4];
+  float xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
+  float com[FS_NBODY][3];
+  CInert cin[FS_NBODY], crb[FS_NBODY];
+  float cdof[FS_NV][6], cvel[FS_NBODY][6];
+  float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
+  float M[FS_TRI(FS_NV)], H[FS_TRI(FS_NV)], dinv[FS_NV];
+  float qfrc_act[FS_NV], qsm[FS_NV];
+  // constraint rows: jl holds every row's Jacobian values, a friction-loss
+  // or limit row's one value, then contact row c's on its slot's dofs at
+  // FS_JC(c, k) (the term lists address jl by offset)
+  float jl[FS_NFL + FS_NLIM + FS_DIM(FS_NCROW) * FS_JS];
+  float aref[FS_DIM(FS_NROW)], D[FS_DIM(FS_NROW)];
+  int active[FS_DIM(FS_NROW)];
+  float sdist[FS_DIM(FS_NSLOT)];
+  // the Newton solve and integration
+  float a[FS_NV], a_new[FS_NV], da[FS_NV], mda[FS_NV], grad[FS_NV], delta[FS_NV];
+  float md[FS_NV], qacc[FS_NV], qfrc_con[FS_NV], qacc_int[FS_NV], tv[FS_NV], tm[FS_NV];
+  // the smooth dynamics' intermediates are dead once the rows are built:
+  // the rows' per-row values share their memory (t1, t2: terms of sums
+  // over rows)
+  union {
+    struct {
+      float xipos[FS_NBODY][3], ximat[FS_NBODY][9], sub_mpos[FS_NBODY][3];
+      float cdof_dot[FS_NV][6], crbf[FS_NV][6], cacc[FS_NBODY][6], cfrc[FS_NBODY][6];
+    } sm;
+    struct {
+      float x[FS_DIM(FS_NROW)], hc[FS_DIM(FS_NROW)], dc[FS_DIM(FS_NROW)];
+      float jd[FS_DIM(FS_NROW)], t1[FS_DIM(FS_NROW)], t2[FS_DIM(FS_NROW)];
+    } rw;
+  };
+};
+
+static_assert(FS_NSLOT < 256 && FS_NV < 256, "the byte tables of Work");
+static_assert(sizeof(Work) % 4 == 0 && sizeof(Work) <= 232448,
+              "a sample's working set must fit one block's 227 KB of shared memory");
+
+FS_DEVICE float& cin_comp(CInert& c, int k) {
+  return k < 6 ? c.ul[k] : (k < 9 ? c.h[k - 6] : c.m);
+}
+
+// (i, j) of lower-triangle entry e = FS_IDX(i, j)
+FS_DEVICE void tri_ij(int e, int& i, int& j) {
+  int r = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+  while (FS_IDX(r + 1, 0) <= e) ++r;
+  while (FS_IDX(r, 0) > e) --r;
+  i = r;
+  j = e - FS_IDX(r, 0);
+}
+
 // ---- dense-storage LDL^T in the tree-sparse order (fused.py ldl_factor /
-// ldl_solve).  anc[k] bit j marks pattern entry (k, j), j < k.  A is
-// overwritten by L (strict lower part); dinv gets 1 / D.
-FS_DEVICE void ldl_factor(float* A, const uint32_t* anc, float* dinv) {
+// ldl_solve).  Pattern pat (0: anc_strict, 1: anc_solver); anc = Work.anc[pat],
+// bit j of anc[k]: entry (k, j), j < k.  A is overwritten by L (strict
+// lower part); dinv gets 1 / D.  Column k's step updates the pairs (i, j)
+// of row k's pattern in parallel, each once, as the sequential loop does;
+// row k+1's scaling by its pivot joins that step (no lane of it touches
+// row k+1).
+FS_DEVICE void ldl_factor(const FusedTables& T, int pat, const uint32_t* anc, float* A,
+                          float* dinv) {
+  float dprev = 0.0f;
   for (int k = FS_NV - 1; k >= 0; --k) {
     float dk = 1.0f / A[FS_IDX(k, k)];
-    dinv[k] = dk;
-    uint32_t ak = anc[k];
-    for (int i = 0; i < k; ++i) {
-      if (!((ak >> i) & 1u)) continue;
+    int p0 = c_model.ldl_off[pat][k], np = c_model.ldl_off[pat][k + 1] - p0;
+    FS_FOR(p, np) {
+      int e = T.ldl_pair[p0 + p], i = e & 0xff, j = e >> 8;
       float lki = A[FS_IDX(k, i)] * dk;
-      for (int j = 0; j <= i; ++j) {
-        if (!((ak >> j) & 1u)) continue;
-        A[FS_IDX(i, j)] = A[FS_IDX(i, j)] - lki * A[FS_IDX(k, j)];
-      }
+      A[FS_IDX(i, j)] = A[FS_IDX(i, j)] - lki * A[FS_IDX(k, j)];
     }
-    for (int j = 0; j < k; ++j)
-      if ((ak >> j) & 1u) A[FS_IDX(k, j)] = A[FS_IDX(k, j)] * dk;
+    if (k + 1 < FS_NV) {
+      uint32_t a1 = anc[k + 1];
+      FS_FOR(j, k + 1) if ((a1 >> j) & 1u) A[FS_IDX(k + 1, j)] = A[FS_IDX(k + 1, j)] * dprev;
+    }
+    if (FS_LANE == 0) dinv[k] = dk;
+    FS_SYNC();
+    dprev = dk;
   }
 }
-FS_DEVICE void ldl_solve(const float* L, const uint32_t* anc, const float* dinv, float* x) {
-  for (int k = FS_NV - 1; k >= 0; --k)
-    for (int j = 0; j < k; ++j)
-      if ((anc[k] >> j) & 1u) x[j] = x[j] - L[FS_IDX(k, j)] * x[k];
-  for (int k = 0; k < FS_NV; ++k) x[k] = x[k] * dinv[k];
-  for (int k = 0; k < FS_NV; ++k)
-    for (int j = 0; j < k; ++j)
-      if ((anc[k] >> j) & 1u) x[k] = x[k] - L[FS_IDX(k, j)] * x[j];
-}
-// symmetric matvec over the mass-matrix pattern, in m_keys order (fused.py m_vec)
-FS_DEVICE void m_vec(const float* M, const float* x, float* out) {
-  for (int i = 0; i < FS_NV; ++i) out[i] = 0.0f;
-  for (int i = 0; i < FS_NV; ++i) {
-    uint32_t ai = c_model.anc_strict[i];
-    for (int j = 0; j < i; ++j) {
-      if (!((ai >> j) & 1u)) continue;
-      float mij = M[FS_IDX(i, j)];
-      out[i] = out[i] + mij * x[j];
-      out[j] = out[j] + mij * x[i];
+// Back substitution row by row (lanes over the row's pattern), the
+// diagonal, then forward substitution column by column: x[k] takes its
+// terms in the sequential loop's order, j ascending.
+FS_DEVICE void ldl_solve(const uint32_t* anc, const float* L, const float* dinv, float* x) {
+  for (int k = FS_NV - 1; k > 0; --k) {
+    uint32_t ak = anc[k];
+    float xk = x[k];
+    FS_FOR(j, k) if ((ak >> j) & 1u) x[j] = x[j] - L[FS_IDX(k, j)] * xk;
+    FS_SYNC();
+  }
+  FS_FOR(k, FS_NV) x[k] = x[k] * dinv[k];
+  FS_SYNC();
+  for (int j = 0; j < FS_NV - 1; ++j) {
+    float xj = x[j];
+    FS_FOR(t, FS_NV - 1 - j) {
+      int k = j + 1 + t;
+      if ((anc[k] >> j) & 1u) x[k] = x[k] - L[FS_IDX(k, j)] * xj;
     }
-    out[i] = out[i] + M[FS_IDX(i, i)] * x[i];
+    FS_SYNC();
+  }
+}
+// symmetric matvec over the mass-matrix pattern (fused.py m_vec), one lane
+// per output k, its terms in the order of the sequential loop: M[k][j] x[j]
+// for j < k, M[k][k] x[k], then M[i][k] x[i] for i > k.  No sync.
+FS_DEVICE void m_vec(const Work& W, const float* M, const float* x, float* out) {
+  FS_FOR(k, FS_NV) {
+    uint32_t ak = W.anc[0][k];
+    float acc = 0.0f;
+    // each term computed, and added only on the pattern: no branch on a
+    // loaded mask, so the loads run ahead of the sum
+    for (int j = 0; j < k; ++j) {
+      float t = acc + M[FS_IDX(k, j)] * x[j];
+      acc = ((ak >> j) & 1u) ? t : acc;
+    }
+    acc = acc + M[FS_IDX(k, k)] * x[k];
+    for (int i = k + 1; i < FS_NV; ++i) {
+      float t = acc + M[FS_IDX(i, k)] * x[i];
+      acc = ((W.anc[0][i] >> k) & 1u) ? t : acc;
+    }
+    out[k] = acc;
+  }
+}
+// sums every lane computes alike, in index order
+FS_DEVICE float sum_prod(float acc, const float* a, const float* b, int n) {
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) acc = acc + a[i] * b[i];
+  return acc;
+}
+
+// ---- forward kinematics of one body (fused.py _fk, its first loop); its
+// parent is final (an earlier tree level) ----
+FS_DEVICE void body_frame(const FusedModel& m, Work& W, int b) {
+  int p = m.body_parent[b];
+  float t[3], pos[3], quat[4];
+  qrotate(m.body_pos[b], W.xquat[p], t);
+  for (int i = 0; i < 3; ++i) pos[i] = W.xpos[p][i] + t[i];
+  qmul(W.xquat[p], m.body_quat[b], quat);
+  int j = m.body_jnt[b];
+  if (j >= 0) {
+    int qa = m.jnt_qadr[j];
+    const float* ax = m.jnt_axis[j];
+    const float* jp = m.jnt_pos[j];
+    int jt = m.jnt_type[j];
+    if (jt == JNT_FREE) {
+      for (int i = 0; i < 3; ++i) pos[i] = W.q[qa + i];
+      for (int i = 0; i < 4; ++i) quat[i] = W.q[qa + 3 + i];
+      qnormalize(quat);
+      for (int i = 0; i < 3; ++i) { W.xanchor[j][i] = pos[i]; W.xaxis[j][i] = ax[i]; }
+    } else if (jt == JNT_SLIDE) {
+      float aw[3], t2[3];
+      qrotate(ax, quat, aw);
+      qrotate(jp, quat, t2);
+      float trans = W.q[qa] - m.qpos0[qa];
+      for (int i = 0; i < 3; ++i) {
+        W.xanchor[j][i] = pos[i] + t2[i];
+        pos[i] = pos[i] + aw[i] * trans;
+        W.xaxis[j][i] = aw[i];
+      }
+    } else {  // hinge
+      float anchor[3], t2[3];
+      qrotate(jp, quat, t2);
+      for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + t2[i];
+      float half = 0.5f * (W.q[qa] - m.qpos0[qa]);
+      float sh = sinf(half);
+      float qloc[4] = {cosf(half), ax[0] * sh, ax[1] * sh, ax[2] * sh};
+      float nq[4];
+      qmul(quat, qloc, nq);
+      for (int i = 0; i < 4; ++i) quat[i] = nq[i];
+      qrotate(jp, quat, t2);
+      for (int i = 0; i < 3; ++i) {
+        pos[i] = anchor[i] - t2[i];
+        W.xanchor[j][i] = anchor[i];
+      }
+      qrotate(ax, quat, W.xaxis[j]);
+    }
+  }
+  for (int i = 0; i < 3; ++i) W.xpos[b][i] = pos[i];
+  for (int i = 0; i < 4; ++i) W.xquat[b][i] = quat[i];
+}
+
+// every body's frame, level by level down the tree (ends synced)
+FS_DEVICE void kinematics(const FusedModel& m, Work& W) {
+  for (int l = 0; l < FS_NLEVEL; ++l) {
+    int o = c_model.level_off[l];
+    FS_FOR(t, c_model.level_off[l + 1] - o) body_frame(m, W, m.body_order[o + t]);
+    FS_SYNC();
   }
 }
 
-// ---- forward kinematics of the bodies (fused.py _fk, its first loop) ----
-FS_DEVICE void body_frames(const float* q, float (*xpos)[3], float (*xquat)[4],
-                           float (*xanchor)[3], float (*xaxis)[3]) {
-  const FusedModel& m = c_model;
-  xpos[0][0] = xpos[0][1] = xpos[0][2] = 0.0f;
-  xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
-  for (int b = 1; b < FS_NBODY; ++b) {
-    int p = m.body_parent[b];
-    float t[3], pos[3], quat[4];
-    qrotate(m.body_pos[b], xquat[p], t);
-    for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + t[i];
-    qmul(xquat[p], m.body_quat[b], quat);
-    int j = m.body_jnt[b];
-    if (j >= 0) {
-      int qa = m.jnt_qadr[j];
-      const float* ax = m.jnt_axis[j];
-      const float* jp = m.jnt_pos[j];
-      int jt = m.jnt_type[j];
-      if (jt == JNT_FREE) {
-        for (int i = 0; i < 3; ++i) pos[i] = q[qa + i];
-        for (int i = 0; i < 4; ++i) quat[i] = q[qa + 3 + i];
-        qnormalize(quat);
-        for (int i = 0; i < 3; ++i) { xanchor[j][i] = pos[i]; xaxis[j][i] = ax[i]; }
-      } else if (jt == JNT_SLIDE) {
-        float aw[3], t2[3];
-        qrotate(ax, quat, aw);
-        qrotate(jp, quat, t2);
-        float trans = q[qa] - m.qpos0[qa];
-        for (int i = 0; i < 3; ++i) {
-          xanchor[j][i] = pos[i] + t2[i];
-          pos[i] = pos[i] + aw[i] * trans;
-          xaxis[j][i] = aw[i];
-        }
-      } else {  // hinge
-        float anchor[3], t2[3];
-        qrotate(jp, quat, t2);
-        for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + t2[i];
-        float half = 0.5f * (q[qa] - m.qpos0[qa]);
-        float sh = sinf(half);
-        float qloc[4] = {cosf(half), ax[0] * sh, ax[1] * sh, ax[2] * sh};
-        float nq[4];
-        qmul(quat, qloc, nq);
-        for (int i = 0; i < 4; ++i) quat[i] = nq[i];
-        qrotate(jp, quat, t2);
-        for (int i = 0; i < 3; ++i) {
-          pos[i] = anchor[i] - t2[i];
-          xanchor[j][i] = anchor[i];
-        }
-        qrotate(ax, quat, xaxis[j]);
-      }
-    }
-    for (int i = 0; i < 3; ++i) xpos[b][i] = pos[i];
-    for (int i = 0; i < 4; ++i) xquat[b][i] = quat[i];
+// world pose of geom g; a static geom's is the host's
+FS_DEVICE void geom_frame(const FusedModel& m, Work& W, int g) {
+  if (m.geom_static[g]) {
+    for (int i = 0; i < 3; ++i) W.gpos[g][i] = m.geom_sxpos[g][i];
+    for (int i = 0; i < 9; ++i) W.gmat[g][i] = m.geom_sxmat[g][i];
+    return;
   }
-}
-
-// world pose of every collidable geom; a static geom's is the host's
-FS_DEVICE void geom_frames(const float (*xpos)[3], const float (*xquat)[4], float (*gpos)[3],
-                           float (*gmat)[9]) {
-  const FusedModel& m = c_model;
-  for (int g = 0; g < FS_NGEOM; ++g) {
-    if (m.geom_static[g]) {
-      for (int i = 0; i < 3; ++i) gpos[g][i] = m.geom_sxpos[g][i];
-      for (int i = 0; i < 9; ++i) gmat[g][i] = m.geom_sxmat[g][i];
-      continue;
-    }
-    int b = m.geom_body[g];
-    float t[3], gq[4];
-    qrotate(m.geom_pos[g], xquat[b], t);
-    for (int i = 0; i < 3; ++i) gpos[g][i] = xpos[b][i] + t[i];
-    qmul(xquat[b], m.geom_quat[g], gq);
-    qmat(gq, gmat[g]);
-  }
+  int b = m.geom_body[g];
+  float t[3], gq[4];
+  qrotate(m.geom_pos[g], W.xquat[b], t);
+  for (int i = 0; i < 3; ++i) W.gpos[g][i] = W.xpos[b][i] + t[i];
+  qmul(W.xquat[b], m.geom_quat[g], gq);
+  qmat(gq, W.gmat[g]);
 }
 
 // ---- contact geometry (fused.py _contact_geometry and its helpers) ----
@@ -499,9 +692,9 @@ FS_DEVICE void capsule_box_sweeps(const float* a, const float* b, const float* b
 
 // dist, pos and frame (n, t1, t2) of contact slot s, given every geom's
 // world pose (gpos, gmat)
-FS_DEVICE float contact_geometry(int s, const float (*gpos)[3], const float (*gmat)[9],
-                                 float* pos, float* n, float* t1, float* t2) {
-  const FusedModel& m = c_model;
+FS_DEVICE float contact_geometry(const FusedModel& m, int s, const float (*gpos)[3],
+                                 const float (*gmat)[9], float* pos, float* n, float* t1,
+                                 float* t2) {
   int kind = m.slot_kind[s], sub = m.slot_sub[s];
   int g1 = m.slot_g1[s], g2 = m.slot_g2[s];
   const float* p1 = gpos[g1];
@@ -651,482 +844,534 @@ FS_DEVICE void aref_d(const ImpParams& p, float diag, float pos, float margin, f
   *D = 1.0f / r;
 }
 
-// Constraint rows: r in [0, NFL) friction loss, [NFL, NFL+NLIM) limits,
-// [NFL+NLIM, NROW) contacts.  Contact rows keep their Jacobian on the
-// slot's dof list; friction-loss and limit rows are one dof with J = 1 or
-// the limit's sign.
-struct Rows {
-  float J[FS_DIM(FS_NCROW)][FS_DIM(FS_MAXD)];
-  float aref[FS_DIM(FS_NROW)], D[FS_DIM(FS_NROW)];
-  bool active[FS_DIM(FS_NROW)];
-};
 
-FS_DEVICE float row_dot(const Rows& R, int r, const float* a) {
-  if (r < FS_NFL) return a[c_model.fl_dof[r]];
+// ---- constraint rows (fused.py _constraint_rows, _s_terms) ----
+FS_DEVICE float row_dot(const FusedModel& m, const Work& W, int r, const float* a) {
+  if (r < FS_NFL) return a[m.fl_dof[r]];
   if (r < FS_NFL + FS_NLIM) {
     int l = r - FS_NFL;
-    return c_model.lim_sign[l] * a[c_model.lim_dadr[l]];
+    return m.lim_sign[l] * a[m.lim_dadr[l]];
   }
   int c = r - FS_NFL - FS_NLIM;
-  int s = c_model.crow_slot[c];
+  int s = W.rslot[c];
+  int nd = W.sndof[s];
+  const unsigned char* dofs = W.sdof + s * FS_MAXD;
   float acc = 0.0f;
-  for (int k = 0; k < c_model.slot_ndof[s]; ++k) acc = acc + R.J[c][k] * a[c_model.slot_dof[s][k]];
+#pragma unroll 4
+  for (int k = 0; k < nd; ++k) acc = acc + W.jl[FS_JC(c, k)] * a[dofs[k]];
   return acc;
 }
-
 // per-row cost, dcost, hcost (fused.py _s_terms)
-FS_DEVICE void s_terms(const Rows& R, int r, float x, float* cost, float* dc, float* hc) {
+FS_DEVICE void s_terms(const FusedModel& m, const Work& W, int r, float x, float* cost,
+                       float* dc, float* hc) {
   if (r < FS_NFL) {  // Huber friction-loss row, always active
-    float D = c_model.fl_D[r], fl = c_model.fl_floss[r];
+    float D = m.fl_D[r], fl = m.fl_floss[r];
     float ax = fabsf(x);
-    bool quad = ax <= c_model.fl_knee[r];
-    *cost = quad ? 0.5f * (D * (x * x)) : fl * ax - c_model.fl_lin0[r];
+    bool quad = ax <= m.fl_knee[r];
+    *cost = quad ? 0.5f * (D * (x * x)) : fl * ax - m.fl_lin0[r];
     *dc = quad ? D * x : fl * fs_sign(x);
     *hc = quad ? D : 0.0f;
     return;
   }
-  bool act = R.active[r] && (x < 0.0f);
-  float D = R.D[r];
+  bool act = W.active[r] && (x < 0.0f);
+  float D = W.D[r];
   *cost = act ? 0.5f * (D * (x * x)) : 0.0f;
   *dc = act ? D * x : 0.0f;
   *hc = act ? D : 0.0f;
 }
 
-FS_DEVICE float total_cost(const Rows& R, const float* M, const float* qsm, const float* a) {
-  float da[FS_NV], mda[FS_NV];
-  for (int i = 0; i < FS_NV; ++i) da[i] = a[i] - qsm[i];
-  m_vec(M, da, mda);
-  float g = 0.0f;
-  for (int i = 0; i < FS_NV; ++i) g = g + da[i] * mda[i];
-  float c = 0.5f * g;
-  for (int r = 0; r < FS_NROW; ++r) {
-    float cost, dc, hc;
-    s_terms(R, r, row_dot(R, r, a) - R.aref[r], &cost, &dc, &hc);
-    c = c + cost;
+// contact slot s: geometry, point Jacobians of the contact point on body2
+// minus body1 (fused.py _point_jac), its rows' J and J.v (into t1)
+FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
+  float pos[3], n[3], t1[3], t2[3];
+  float dist = contact_geometry(m, s, W.gpos, W.gmat, pos, n, t1, t2);
+  W.sdist[s] = dist;
+  const float* c2 = W.com[m.body_root[m.slot_body2[s]]];
+  const float* c1 = W.com[m.body_root[m.slot_body1[s]]];
+  float off2[3] = {pos[0] - c2[0], pos[1] - c2[1], pos[2] - c2[2]};
+  float off1[3] = {pos[0] - c1[0], pos[1] - c1[1], pos[2] - c1[2]};
+  int c0 = m.slot_crow0[s], nr = m.slot_ncrow[s], nd = m.slot_ndof[s];
+  uint32_t b2 = m.slot_body2_dofs[s], b1 = m.slot_body1_dofs[s];
+  float vel[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < nd; ++k) {
+    int d = m.slot_dof[s][k];
+    float j2[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f}, cr[3];
+    if ((b2 >> d) & 1u) {
+      cross3(W.cdof[d], off2, cr);
+      for (int i = 0; i < 3; ++i) j2[i] = W.cdof[d][3 + i] + cr[i];
+    }
+    if ((b1 >> d) & 1u) {
+      cross3(W.cdof[d], off1, cr);
+      for (int i = 0; i < 3; ++i) j1[i] = W.cdof[d][3 + i] + cr[i];
+    }
+    float jac[3] = {j2[0] - j1[0], j2[1] - j1[1], j2[2] - j1[2]};
+    float jn = dot3(jac, n), jt1 = dot3(jac, t1), jt2 = dot3(jac, t2);
+    float vd = W.v[d];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= nr) break;
+      int c = c0 + q;
+      int t = m.crow_t[c];
+      float jr = jn;
+      if (t == 0) jr = jr + m.crow_coef[c] * jt1;
+      else if (t == 1) jr = jr + m.crow_coef[c] * jt2;
+      W.jl[FS_JC(c, k)] = jr;
+      vel[q] = vel[q] + jr * vd;
+    }
   }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < nr) W.rw.t1[FS_NFL + FS_NLIM + c0 + q] = vel[q];
+}
+
+// out[d] = start[d] + J' dc (or 0 - J' dc), each dof's rows in row order.
+// No sync.
+FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* out,
+                     bool subtract) {
+  FS_FOR(d, FS_NV) {
+    float g = subtract ? 0.0f : start[d];
+    const uint32_t* term = T.g_term + d;
+    int n = T.g_len[d], t = 0;
+    for (; t + 8 <= n; t += 8) {  // 8 loads in flight, then the sum in order
+      uint32_t u[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float tj = W.jl[u[q] >> 8] * W.rw.dc[u[q] & 0xffu];
+        g = subtract ? g - tj : g + tj;
+      }
+    }
+    for (; t < n; ++t) {
+      uint32_t u = term[t * 32];
+      float tj = W.jl[u >> 8] * W.rw.dc[u & 0xffu];
+      g = subtract ? g - tj : g + tj;
+    }
+    out[d] = g;
+  }
+}
+
+// 0.5 (a - qsm)' M (a - qsm) + the rows' costs at a (ends synced)
+FS_DEVICE float total_cost(const FusedModel& m, Work& W, const float* a) {
+  FS_FOR(i, FS_NV) W.tv[i] = a[i] - W.qsm[i];
+  FS_FOR(r, FS_NROW) {
+    float cost, dc, hc;
+    s_terms(m, W, r, row_dot(m, W, r, a) - W.aref[r], &cost, &dc, &hc);
+    W.rw.t1[r] = cost;
+  }
+  FS_SYNC();
+  m_vec(W, W.M, W.tv, W.tm);
+  FS_SYNC();
+  float c = 0.5f * sum_prod(0.0f, W.tv, W.tm, FS_NV);
+#pragma unroll 8
+  for (int r = 0; r < FS_NROW; ++r) c = c + W.rw.t1[r];
+  FS_SYNC();
   return c;
 }
 
-// H += hc * J_r^T J_r on the row's dofs (fused.py _newton_solve H assembly)
-FS_DEVICE void add_row_hessian(const Rows& R, int r, float hc, float* H) {
-  if (r < FS_NFL) {
-    int d = c_model.fl_dof[r];
-    H[FS_IDX(d, d)] = H[FS_IDX(d, d)] + hc * (1.0f * 1.0f);
-    return;
-  }
-  if (r < FS_NFL + FS_NLIM) {
-    int l = r - FS_NFL;
-    int d = c_model.lim_dadr[l];
-    float s = c_model.lim_sign[l];
-    H[FS_IDX(d, d)] = H[FS_IDX(d, d)] + hc * (s * s);
-    return;
-  }
-  int c = r - FS_NFL - FS_NLIM;
-  int s = c_model.crow_slot[c];
-  int nd = c_model.slot_ndof[s];
-  for (int ii = 0; ii < nd; ++ii) {
-    int i = c_model.slot_dof[s][ii];
-    for (int jj = 0; jj <= ii; ++jj) {
-      int j = c_model.slot_dof[s][jj];
-      H[FS_IDX(i, j)] = H[FS_IDX(i, j)] + hc * (R.J[c][ii] * R.J[c][jj]);
+// ---- the truncated Newton solve (fused.py _newton_solve): qacc, and the
+// constraint force into qfrc_con.  done, any_active and the iteration
+// count are one sample's, so uniform over the warp. ----
+FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
+  FS_STAGE_BEGIN;
+  FS_FOR(i, FS_NV) { W.qacc[i] = W.qsm[i]; W.qfrc_con[i] = 0.0f; }
+  FS_SYNC();
+#if FS_NROW > 0
+  bool any_active = FS_NFL > 0;
+  FS_FOR(r, FS_NROW) if (r >= FS_NFL && W.active[r]) any_active = true;
+  any_active = FS_ANY(any_active);
+  // start from the warmstart only where it is strictly cheaper
+  float cost_ws = total_cost(m, W, W.w);
+  float cost_sm = total_cost(m, W, W.qsm);
+  FS_STAGE(5);
+  bool better = cost_ws < cost_sm;
+  FS_FOR(i, FS_NV) W.a[i] = better ? W.w[i] : W.qsm[i];
+  FS_SYNC();
+  float cost_prev = fs_min(cost_ws, cost_sm);
+  // done is sticky and a sample moves only while it was not done before,
+  // so stopping at the top of an iteration is the same computation
+  bool done = !any_active;
+  for (int it = 0; it < c_model.iterations && !done; ++it) {
+    FS_STAGE(12);
+    FS_FOR(i, FS_NV) W.da[i] = W.a[i] - W.qsm[i];
+    FS_FOR(r, FS_NROW) {
+      float cost;
+      float x = row_dot(m, W, r, W.a) - W.aref[r];
+      W.rw.x[r] = x;
+      s_terms(m, W, r, x, &cost, &W.rw.dc[r], &W.rw.hc[r]);
     }
+    FS_SYNC();
+    FS_STAGE(6);
+    m_vec(W, W.M, W.da, W.mda);
+    FS_SYNC();
+    FS_STAGE(7);
+    // the gradient mda + J' dc; H = M + J' diag(hc) J on the solver
+    // pattern, one lane per entry, its rows in row order
+    jt_dc(T, W, W.mda, W.grad, false);
+    FS_STAGE(8);
+    FS_FOR(p, FS_TRI(FS_NV)) {
+      int e = T.h_ent[p], idx = e & 0xffff, i = (e >> 16) & 0xff, j = e >> 24;
+      float h = (i == j || ((W.anc[0][i] >> j) & 1u)) ? W.M[idx] : 0.0f;
+      const float* jl = W.jl;
+      const uint32_t* term = T.h_term + T.h_base[p / 32] + p % 32;
+      int n = T.h_len[p], t = 0;
+      for (; t + 8 <= n; t += 8) {  // 8 loads in flight, then the sum in order
+        uint32_t u[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          h = h + W.rw.hc[u[q] & 0xffu] * (jl[(u[q] >> 8) & 0xfffu] * jl[u[q] >> 20]);
+      }
+      for (; t < n; ++t) {
+        uint32_t u = term[t * 32];
+        h = h + W.rw.hc[u & 0xffu] * (jl[(u >> 8) & 0xfffu] * jl[u >> 20]);
+      }
+      W.H[idx] = h;
+    }
+    FS_SYNC();
+    FS_STAGE(9);
+    ldl_factor(T, 1, W.anc[1], W.H, W.dinv);
+    FS_FOR(i, FS_NV) W.delta[i] = -W.grad[i];
+    FS_SYNC();
+    ldl_solve(W.anc[1], W.H, W.dinv, W.delta);
+    FS_STAGE(10);
+    FS_FOR(r, FS_NROW) W.rw.jd[r] = row_dot(m, W, r, W.delta);
+    m_vec(W, W.M, W.delta, W.md);
+    FS_SYNC();
+    float dmd = sum_prod(0.0f, W.delta, W.md, FS_NV);
+    float dma = sum_prod(0.0f, W.delta, W.mda, FS_NV);
+
+    // exactly ls_iterations 1-D Newton steps on alpha, then alpha >= 0
+    float alpha = 0.0f;
+    for (int ls = 0; ls < c_model.ls_iterations; ++ls) {
+      FS_FOR(r, FS_NROW) {
+        float cost, dc, hc, jd = W.rw.jd[r];
+        s_terms(m, W, r, W.rw.x[r] + alpha * jd, &cost, &dc, &hc);
+        W.rw.t1[r] = jd * dc;
+        W.rw.t2[r] = hc * (jd * jd);
+      }
+      FS_SYNC();
+      float d1 = alpha * dmd + dma, d2 = dmd;
+#pragma unroll 8
+      for (int r = 0; r < FS_NROW; ++r) {
+        d1 = d1 + W.rw.t1[r];
+        d2 = d2 + W.rw.t2[r];
+      }
+      alpha = alpha - d1 / fs_max(d2, 1e-30f);
+      FS_SYNC();
+    }
+    alpha = fs_max(alpha, 0.0f);
+    FS_STAGE(11);
+
+    FS_FOR(i, FS_NV) W.a_new[i] = W.a[i] + alpha * W.delta[i];
+    FS_SYNC();
+    float cost_new = total_cost(m, W, W.a_new);
+    FS_STAGE(5);
+    float improved = cost_prev - cost_new;
+    float gn = sqrtf(sum_prod(0.0f, W.grad, W.grad, FS_NV));
+    FS_FOR(i, FS_NV) W.a[i] = W.a_new[i];
+    FS_SYNC();
+    cost_prev = cost_new;
+    done = (improved < c_model.tol_scale) || (gn < c_model.tol_scale);
   }
-}
-// out[d] += coef * J_r[d]  (sign = -1 for the constraint force)
-FS_DEVICE void add_row_jt(const Rows& R, int r, float coef, float* out, bool subtract) {
-  if (r < FS_NFL) {
-    int d = c_model.fl_dof[r];
-    out[d] = subtract ? out[d] - 1.0f * coef : out[d] + 1.0f * coef;
-    return;
+  if (any_active) {
+    FS_FOR(i, FS_NV) W.qacc[i] = W.a[i];
+    FS_FOR(r, FS_NROW) {
+      float cost, hc;
+      s_terms(m, W, r, row_dot(m, W, r, W.a) - W.aref[r], &cost, &W.rw.dc[r], &hc);
+    }
+    FS_SYNC();
+    jt_dc(T, W, nullptr, W.qfrc_con, true);
+    FS_SYNC();
   }
-  if (r < FS_NFL + FS_NLIM) {
-    int l = r - FS_NFL;
-    int d = c_model.lim_dadr[l];
-    float t = c_model.lim_sign[l] * coef;
-    out[d] = subtract ? out[d] - t : out[d] + t;
-    return;
-  }
-  int c = r - FS_NFL - FS_NLIM;
-  int s = c_model.crow_slot[c];
-  for (int k = 0; k < c_model.slot_ndof[s]; ++k) {
-    int d = c_model.slot_dof[s][k];
-    float t = R.J[c][k] * coef;
-    out[d] = subtract ? out[d] - t : out[d] + t;
-  }
+#endif
+  FS_STAGE(12);
 }
 
 // ---- one substep for one sample (fused.py _substep) ----
-FS_DEVICE void substep(float* q, float* v, float* w, const float* ctrl, float* der) {
-  const FusedModel& m = c_model;
-  const float dt = m.dt;
+FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
+  const float dt = c_model.dt;
+  FS_STAGE_BEGIN;
 
-  // _fk: body frames
-  float xpos[FS_NBODY][3], xquat[FS_NBODY][4];
-  float xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
-  body_frames(q, xpos, xquat, xanchor, xaxis);
-
-  // inertial frames, subtree CoM
-  float xipos[FS_NBODY][3], ximat[FS_NBODY][9], sub_mpos[FS_NBODY][3], com[FS_NBODY][3];
-  for (int b = 0; b < FS_NBODY; ++b) {
+  // _fk: body frames, inertial frames, subtree CoM
+  kinematics(m, W);
+  if (FS_LANE == 0) {  // the world's acceleration: gravity (in the union, so each substep)
+    W.sm.cacc[0][0] = W.sm.cacc[0][1] = W.sm.cacc[0][2] = 0.0f;
+    for (int i = 0; i < 3; ++i) W.sm.cacc[0][3 + i] = -c_model.gravity[i];
+  }
+  FS_FOR(b, FS_NBODY) {
     float t[3], qi[4];
-    qrotate(m.body_ipos[b], xquat[b], t);
-    for (int i = 0; i < 3; ++i) xipos[b][i] = xpos[b][i] + t[i];
-    qmul(xquat[b], m.body_iquat[b], qi);
-    qmat(qi, ximat[b]);
-    for (int i = 0; i < 3; ++i) sub_mpos[b][i] = xipos[b][i] * m.body_mass[b];
+    qrotate(m.body_ipos[b], W.xquat[b], t);
+    for (int i = 0; i < 3; ++i) W.sm.xipos[b][i] = W.xpos[b][i] + t[i];
+    qmul(W.xquat[b], m.body_iquat[b], qi);
+    qmat(qi, W.sm.ximat[b]);
+    for (int i = 0; i < 3; ++i) W.sm.sub_mpos[b][i] = W.sm.xipos[b][i] * m.body_mass[b];
   }
-  for (int b = FS_NBODY - 1; b > 0; --b) {
-    int p = m.body_parent[b];
-    for (int i = 0; i < 3; ++i) sub_mpos[p][i] = sub_mpos[p][i] + sub_mpos[b][i];
+  FS_SYNC();
+  FS_FOR(i, 3) {  // one lane per component, children before their parent
+    for (int b = FS_NBODY - 1; b > 0; --b) {
+      int p = c_model.body_parent[b];
+      W.sm.sub_mpos[p][i] = W.sm.sub_mpos[p][i] + W.sm.sub_mpos[b][i];
+    }
   }
-  for (int b = 0; b < FS_NBODY; ++b)
-    for (int i = 0; i < 3; ++i) com[b][i] = sub_mpos[b][i] * m.subtree_inv_mass[b];
+  FS_SYNC();
+  FS_FOR(e, FS_NBODY * 3) {
+    int b = e / 3, i = e - 3 * b;
+    W.com[b][i] = W.sm.sub_mpos[b][i] * m.subtree_inv_mass[b];
+  }
+  FS_SYNC();
 
-  // spatial inertia about the root's subtree CoM
-  CInert cin[FS_NBODY];
-  for (int b = 0; b < FS_NBODY; ++b) {
-    const float* croot = com[m.body_root[b]];
-    const float* R = ximat[b];
+  // spatial inertia about the root's subtree CoM; cdof
+  FS_FOR(b, FS_NBODY) {
+    const float* croot = W.com[m.body_root[b]];
+    const float* R = W.sm.ximat[b];
     const float* I3 = m.body_inertia[b];
-    float c[3] = {xipos[b][0] - croot[0], xipos[b][1] - croot[1], xipos[b][2] - croot[2]};
+    float c[3] = {W.sm.xipos[b][0] - croot[0], W.sm.xipos[b][1] - croot[1], W.sm.xipos[b][2] - croot[2]};
     float mb = m.body_mass[b];
     float cc = dot3(c, c);
+    CInert& ci = W.cin[b];
 #define FS_ENT(a_, b_) \
   ((I3[0] * R[3 * (a_)] * R[3 * (b_)] + I3[1] * R[3 * (a_) + 1] * R[3 * (b_) + 1]) + \
    I3[2] * R[3 * (a_) + 2] * R[3 * (b_) + 2])
-    cin[b].ul[0] = FS_ENT(0, 0) + mb * (cc - c[0] * c[0]);
-    cin[b].ul[1] = FS_ENT(0, 1) - mb * (c[0] * c[1]);
-    cin[b].ul[2] = FS_ENT(0, 2) - mb * (c[0] * c[2]);
-    cin[b].ul[3] = FS_ENT(1, 1) + mb * (cc - c[1] * c[1]);
-    cin[b].ul[4] = FS_ENT(1, 2) - mb * (c[1] * c[2]);
-    cin[b].ul[5] = FS_ENT(2, 2) + mb * (cc - c[2] * c[2]);
+    ci.ul[0] = FS_ENT(0, 0) + mb * (cc - c[0] * c[0]);
+    ci.ul[1] = FS_ENT(0, 1) - mb * (c[0] * c[1]);
+    ci.ul[2] = FS_ENT(0, 2) - mb * (c[0] * c[2]);
+    ci.ul[3] = FS_ENT(1, 1) + mb * (cc - c[1] * c[1]);
+    ci.ul[4] = FS_ENT(1, 2) - mb * (c[1] * c[2]);
+    ci.ul[5] = FS_ENT(2, 2) + mb * (cc - c[2] * c[2]);
 #undef FS_ENT
-    for (int i = 0; i < 3; ++i) cin[b].h[i] = c[i] * mb;
-    cin[b].m = mb;
+    for (int i = 0; i < 3; ++i) ci.h[i] = c[i] * mb;
+    ci.m = mb;
   }
-
-  // cdof
-  float cdof[FS_NV][6];
-  for (int j = 0; j < FS_NJNT; ++j) {
+  FS_FOR(j, FS_NJNT) {
     int b = m.jnt_body[j], adr = m.jnt_dadr[j], jt = m.jnt_type[j];
-    const float* croot = com[m.body_root[b]];
+    const float* croot = W.com[m.body_root[b]];
     if (jt == JNT_FREE) {
       for (int i = 0; i < 3; ++i)
-        for (int k = 0; k < 6; ++k) cdof[adr + i][k] = (k == 3 + i) ? 1.0f : 0.0f;
+        for (int k = 0; k < 6; ++k) W.cdof[adr + i][k] = (k == 3 + i) ? 1.0f : 0.0f;
       float R[9], off[3];
-      qmat(xquat[b], R);
-      for (int i = 0; i < 3; ++i) off[i] = croot[i] - xpos[b][i];
+      qmat(W.xquat[b], R);
+      for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.xpos[b][i];
       for (int i = 0; i < 3; ++i) {
         float axc[3] = {R[i], R[3 + i], R[6 + i]};
         float cr[3];
         cross3(axc, off, cr);
-        for (int k = 0; k < 3; ++k) { cdof[adr + 3 + i][k] = axc[k]; cdof[adr + 3 + i][3 + k] = cr[k]; }
+        for (int k = 0; k < 3; ++k) {
+          W.cdof[adr + 3 + i][k] = axc[k];
+          W.cdof[adr + 3 + i][3 + k] = cr[k];
+        }
       }
     } else if (jt == JNT_SLIDE) {
-      for (int k = 0; k < 3; ++k) { cdof[adr][k] = 0.0f; cdof[adr][3 + k] = xaxis[j][k]; }
+      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = 0.0f; W.cdof[adr][3 + k] = W.xaxis[j][k]; }
     } else {
       float off[3], cr[3];
-      for (int i = 0; i < 3; ++i) off[i] = croot[i] - xanchor[j][i];
-      cross3(xaxis[j], off, cr);
-      for (int k = 0; k < 3; ++k) { cdof[adr][k] = xaxis[j][k]; cdof[adr][3 + k] = cr[k]; }
+      for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.xanchor[j][i];
+      cross3(W.xaxis[j], off, cr);
+      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = W.xaxis[j][k]; W.cdof[adr][3 + k] = cr[k]; }
     }
   }
+  FS_SYNC();
 
-  // _com_vel: cvel, cdof_dot
-  float cvel[FS_NBODY][6], cdof_dot[FS_NV][6];
-  for (int k = 0; k < 6; ++k) cvel[0][k] = 0.0f;
-  for (int b = 1; b < FS_NBODY; ++b) {
-    float vel[6];
-    for (int k = 0; k < 6; ++k) vel[k] = cvel[m.body_parent[b]][k];
-    int j = m.body_jnt[b];
-    if (j >= 0) {
-      int adr = m.jnt_dadr[j];
-      if (m.jnt_type[j] == JNT_FREE) {
-        for (int i = 0; i < 3; ++i)
-          for (int k = 0; k < 6; ++k) cdof_dot[adr + i][k] = 0.0f;
-        for (int i = 0; i < 3; ++i)
-          for (int k = 0; k < 6; ++k) vel[k] = vel[k] + cdof[adr + i][k] * v[adr + i];
-        for (int i = 3; i < 6; ++i) motion_cross(vel, cdof[adr + i], cdof_dot[adr + i]);
-        for (int i = 3; i < 6; ++i)
-          for (int k = 0; k < 6; ++k) vel[k] = vel[k] + cdof[adr + i][k] * v[adr + i];
-      } else {
-        motion_cross(vel, cdof[adr], cdof_dot[adr]);
-        for (int k = 0; k < 6; ++k) vel[k] = vel[k] + cdof[adr][k] * v[adr];
+  // _com_vel: cvel, cdof_dot, level by level
+  for (int l = 0; l < FS_NLEVEL; ++l) {
+    int o = c_model.level_off[l];
+    FS_FOR(t, c_model.level_off[l + 1] - o) {
+      int b = m.body_order[o + t];
+      float vel[6];
+      for (int k = 0; k < 6; ++k) vel[k] = W.cvel[m.body_parent[b]][k];
+      int j = m.body_jnt[b];
+      if (j >= 0) {
+        int adr = m.jnt_dadr[j];
+        if (m.jnt_type[j] == JNT_FREE) {
+          for (int i = 0; i < 3; ++i)
+            for (int k = 0; k < 6; ++k) W.sm.cdof_dot[adr + i][k] = 0.0f;
+          for (int i = 0; i < 3; ++i)
+            for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr + i][k] * W.v[adr + i];
+          for (int i = 3; i < 6; ++i) motion_cross(vel, W.cdof[adr + i], W.sm.cdof_dot[adr + i]);
+          for (int i = 3; i < 6; ++i)
+            for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr + i][k] * W.v[adr + i];
+        } else {
+          motion_cross(vel, W.cdof[adr], W.sm.cdof_dot[adr]);
+          for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr][k] * W.v[adr];
+        }
+      }
+      for (int k = 0; k < 6; ++k) W.cvel[b][k] = vel[k];
+    }
+    FS_SYNC();
+  }
+
+  FS_STAGE(0);
+  // _crb: composite inertias (one lane per component, children before
+  // their parent); _actuator_force (one lane per dof, its motors in order)
+  FS_FOR(k, 10) {
+    for (int b = 0; b < FS_NBODY; ++b)
+      cin_comp(W.crb[b], k) = (k < 9) ? cin_comp(W.cin[b], k) : c_model.subtree_mass[b];
+    if (k < 9) {
+      for (int b = FS_NBODY - 1; b > 0; --b) {
+        int p = c_model.body_parent[b];
+        cin_comp(W.crb[p], k) = cin_comp(W.crb[p], k) + cin_comp(W.crb[b], k);
       }
     }
-    for (int k = 0; k < 6; ++k) cvel[b][k] = vel[k];
   }
-
-  // _crb: composite inertias, M on the tree pattern (+ armature)
-  float M[FS_TRI(FS_NV)];
-  {
-    CInert crb[FS_NBODY];
-    for (int b = 0; b < FS_NBODY; ++b) crb[b] = cin[b];
-    for (int b = FS_NBODY - 1; b > 0; --b) {
-      int p = m.body_parent[b];
-      for (int i = 0; i < 6; ++i) crb[p].ul[i] = crb[p].ul[i] + crb[b].ul[i];
-      for (int i = 0; i < 3; ++i) crb[p].h[i] = crb[p].h[i] + crb[b].h[i];
+  FS_FOR(d, FS_NV) {
+    float acc = 0.0f;
+    for (int a = 0; a < FS_NU; ++a) {
+      if (c_model.act_dof[a] != d) continue;
+      float c = W.ctrl[a];
+      if (m.act_ctrllimited[a]) c = fs_min(fs_max(c, m.act_ctrlrange[a][0]), m.act_ctrlrange[a][1]);
+      float force = m.act_gain[a] * c;
+      if (m.act_hasbias[a])
+        force = force + (m.act_bias[a][0] + (m.act_bias[a][1] * W.q[m.act_qadr[a]] +
+                                             m.act_bias[a][2] * W.v[d]));
+      if (m.act_forcelimited[a])
+        force = fs_min(fs_max(force, m.act_forcerange[a][0]), m.act_forcerange[a][1]);
+      force = m.act_gear[a] * force;
+      acc = acc + force;
     }
-    for (int b = 0; b < FS_NBODY; ++b) crb[b].m = m.subtree_mass[b];
-    for (int i = 0; i < FS_TRI(FS_NV); ++i) M[i] = 0.0f;
-    for (int i = 0; i < FS_NV; ++i) {
-      float f[6];
-      cinert_vec(crb[m.dof_body[i]], cdof[i], f);
-      for (int j = 0; j < i; ++j)
-        if ((m.anc_strict[i] >> j) & 1u) M[FS_IDX(i, j)] = dot6(cdof[j], f);
-      M[FS_IDX(i, i)] = dot6(cdof[i], f) + m.dof_armature[i];
-    }
+    W.qfrc_act[d] = acc;
+  }
+  FS_SYNC();
+  // M on the tree pattern (+ armature), one lane per entry
+  FS_FOR(i, FS_NV) cinert_vec(W.crb[m.dof_body[i]], W.cdof[i], W.sm.crbf[i]);
+  FS_SYNC();
+  FS_FOR(e, FS_TRI(FS_NV)) {
+    int i, j;
+    tri_ij(e, i, j);
+    if (i == j) W.M[e] = dot6(W.cdof[i], W.sm.crbf[i]) + m.dof_armature[i];
+    else W.M[e] = ((W.anc[0][i] >> j) & 1u) ? dot6(W.cdof[j], W.sm.crbf[i]) : 0.0f;
   }
 
-  // _actuator_force
-  float qfrc_act[FS_NV];
-  for (int d = 0; d < FS_NV; ++d) qfrc_act[d] = 0.0f;
-  for (int a = 0; a < FS_NU; ++a) {
-    float c = ctrl[a];
-    if (m.act_ctrllimited[a]) c = fs_min(fs_max(c, m.act_ctrlrange[a][0]), m.act_ctrlrange[a][1]);
-    float force = m.act_gain[a] * c;
-    if (m.act_hasbias[a])
-      force = force + (m.act_bias[a][0] + (m.act_bias[a][1] * q[m.act_qadr[a]] +
-                                           m.act_bias[a][2] * v[m.act_dof[a]]));
-    if (m.act_forcelimited[a])
-      force = fs_min(fs_max(force, m.act_forcerange[a][0]), m.act_forcerange[a][1]);
-    force = m.act_gear[a] * force;
-    int d = m.act_dof[a];
-    qfrc_act[d] = qfrc_act[d] + force;
-  }
-
-  // _rne_bias
-  float bias[FS_NV];
-  {
-    float cacc[FS_NBODY][6], cfrc[FS_NBODY][6];
-    cacc[0][0] = cacc[0][1] = cacc[0][2] = 0.0f;
-    for (int i = 0; i < 3; ++i) cacc[0][3 + i] = -m.gravity[i];
-    for (int b = 1; b < FS_NBODY; ++b) {
+  // _rne_bias: cacc level by level, cfrc per body, summed up the tree
+  for (int l = 0; l < FS_NLEVEL; ++l) {
+    int o = c_model.level_off[l];
+    FS_FOR(t, c_model.level_off[l + 1] - o) {
+      int b = m.body_order[o + t];
       float a6[6];
-      for (int k = 0; k < 6; ++k) a6[k] = cacc[m.body_parent[b]][k];
+      for (int k = 0; k < 6; ++k) a6[k] = W.sm.cacc[m.body_parent[b]][k];
       int j = m.body_jnt[b];
       if (j >= 0) {
         int adr = m.jnt_dadr[j];
         int nd = (m.jnt_type[j] == JNT_FREE) ? 6 : 1;
         for (int i = 0; i < nd; ++i)
-          for (int k = 0; k < 6; ++k) a6[k] = a6[k] + cdof_dot[adr + i][k] * v[adr + i];
+          for (int k = 0; k < 6; ++k) a6[k] = a6[k] + W.sm.cdof_dot[adr + i][k] * W.v[adr + i];
       }
-      for (int k = 0; k < 6; ++k) cacc[b][k] = a6[k];
+      for (int k = 0; k < 6; ++k) W.sm.cacc[b][k] = a6[k];
     }
-    for (int b = 0; b < FS_NBODY; ++b) {
-      float iv[6], ia[6], fx[6];
-      cinert_vec(cin[b], cvel[b], iv);
-      cinert_vec(cin[b], cacc[b], ia);
-      force_cross(cvel[b], iv, fx);
-      for (int k = 0; k < 6; ++k) cfrc[b][k] = ia[k] + fx[k];
-    }
+    FS_SYNC();
+  }
+  FS_FOR(b, FS_NBODY) {
+    float iv[6], ia[6], fx[6];
+    cinert_vec(W.cin[b], W.cvel[b], iv);
+    cinert_vec(W.cin[b], W.sm.cacc[b], ia);
+    force_cross(W.cvel[b], iv, fx);
+    for (int k = 0; k < 6; ++k) W.sm.cfrc[b][k] = ia[k] + fx[k];
+  }
+  FS_SYNC();
+  FS_FOR(k, 6) {
     for (int b = FS_NBODY - 1; b > 0; --b) {
-      int p = m.body_parent[b];
-      for (int k = 0; k < 6; ++k) cfrc[p][k] = cfrc[p][k] + cfrc[b][k];
+      int p = c_model.body_parent[b];
+      W.sm.cfrc[p][k] = W.sm.cfrc[p][k] + W.sm.cfrc[b][k];
     }
-    for (int d = 0; d < FS_NV; ++d) bias[d] = dot6(cdof[d], cfrc[m.dof_body[d]]);
   }
+  FS_SYNC();
 
+  FS_STAGE(1);
   // smooth acceleration
-  float qsm[FS_NV];
-  {
-    float L[FS_TRI(FS_NV)], dinv[FS_NV];
-    for (int d = 0; d < FS_NV; ++d) qsm[d] = ((-m.dof_damping[d]) * v[d] + qfrc_act[d]) - bias[d];
-    for (int i = 0; i < FS_TRI(FS_NV); ++i) L[i] = M[i];
-    ldl_factor(L, m.anc_strict, dinv);
-    ldl_solve(L, m.anc_strict, dinv, qsm);
+  FS_FOR(d, FS_NV) {
+    float bias = dot6(W.cdof[d], W.sm.cfrc[m.dof_body[d]]);
+    W.qsm[d] = ((-m.dof_damping[d]) * W.v[d] + W.qfrc_act[d]) - bias;
   }
+  FS_FOR(e, FS_TRI(FS_NV)) W.H[e] = W.M[e];
+  FS_SYNC();
+  ldl_factor(T, 0, W.anc[0], W.H, W.dinv);
+  ldl_solve(W.anc[0], W.H, W.dinv, W.qsm);
+  FS_STAGE(2);
 
-  // _constraint_rows
-  Rows R;
-  for (int r = 0; r < FS_NFL; ++r) {
-    R.aref[r] = c_model.fl_negb[r] * v[c_model.fl_dof[r]];
-    R.D[r] = c_model.fl_D[r];
-    R.active[r] = true;
+  // _constraint_rows: friction loss, limits, then the contact slots (lanes
+  // take them grouped by kind) and their rows
+  FS_FOR(r, FS_NFL) {
+    W.aref[r] = m.fl_negb[r] * W.v[m.fl_dof[r]];
+    W.D[r] = m.fl_D[r];
+    W.active[r] = 1;
+    W.jl[r] = 1.0f;
   }
-  for (int l = 0; l < FS_NLIM; ++l) {
+  FS_FOR(l, FS_NLIM) {
     int r = FS_NFL + l;
     float sign = m.lim_sign[l];
-    float dist = sign * (q[m.lim_qadr[l]] - m.lim_bound[l]);
-    float vel = sign * v[m.lim_dadr[l]];
-    aref_d(m.lim_imp[l], m.lim_invweight[l], dist, m.lim_margin[l], vel, &R.aref[r], &R.D[r]);
-    R.active[r] = dist < m.lim_margin[l];
+    float dist = sign * (W.q[m.lim_qadr[l]] - m.lim_bound[l]);
+    float vel = sign * W.v[m.lim_dadr[l]];
+    aref_d(m.lim_imp[l], m.lim_invweight[l], dist, m.lim_margin[l], vel, &W.aref[r], &W.D[r]);
+    W.active[r] = dist < m.lim_margin[l];
+    W.jl[r] = sign;
   }
-  {
-    float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
-    geom_frames(xpos, xquat, gpos, gmat);
-    float jn[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)], jt1[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)],
-        jt2[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)], sdist[FS_DIM(FS_NSLOT)];
-    for (int s = 0; s < FS_NSLOT; ++s) {
-      float pos[3], n[3], t1[3], t2[3];
-      float dist = contact_geometry(s, gpos, gmat, pos, n, t1, t2);
-      sdist[s] = dist;
-      // point Jacobians of pos on body2 minus body1 (fused.py _point_jac)
-      const float* c2 = com[m.body_root[m.slot_body2[s]]];
-      const float* c1 = com[m.body_root[m.slot_body1[s]]];
-      float off2[3] = {pos[0] - c2[0], pos[1] - c2[1], pos[2] - c2[2]};
-      float off1[3] = {pos[0] - c1[0], pos[1] - c1[1], pos[2] - c1[2]};
-      for (int k = 0; k < m.slot_ndof[s]; ++k) {
-        int d = m.slot_dof[s][k];
-        float j2[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f}, cr[3];
-        if ((m.slot_body2_dofs[s] >> d) & 1u) {
-          cross3(cdof[d], off2, cr);
-          for (int i = 0; i < 3; ++i) j2[i] = cdof[d][3 + i] + cr[i];
-        }
-        if ((m.slot_body1_dofs[s] >> d) & 1u) {
-          cross3(cdof[d], off1, cr);
-          for (int i = 0; i < 3; ++i) j1[i] = cdof[d][3 + i] + cr[i];
-        }
-        float jac[3] = {j2[0] - j1[0], j2[1] - j1[1], j2[2] - j1[2]};
-        jn[s][k] = dot3(jac, n);
-        jt1[s][k] = dot3(jac, t1);
-        jt2[s][k] = dot3(jac, t2);
-      }
-    }
-    for (int c = 0; c < FS_NCROW; ++c) {
-      int r = FS_NFL + FS_NLIM + c;
-      int s = m.crow_slot[c];
-      float coef = m.crow_coef[c];
-      float vel = 0.0f;
-      for (int k = 0; k < m.slot_ndof[s]; ++k) {
-        float jr = jn[s][k];
-        if (m.crow_t[c] == 0) jr = jr + coef * jt1[s][k];
-        else if (m.crow_t[c] == 1) jr = jr + coef * jt2[s][k];
-        R.J[c][k] = jr;
-        vel = vel + jr * v[m.slot_dof[s][k]];
-      }
-      aref_d(m.slot_imp[s], m.crow_diag[c], sdist[s], m.slot_margin[s], vel, &R.aref[r], &R.D[r]);
-      R.active[r] = sdist[s] < m.slot_margin[s];
-    }
+  FS_FOR(g, FS_NGEOM) geom_frame(m, W, g);
+  FS_SYNC();
+  FS_FOR(t, FS_NSLOT) contact_slot(m, W, m.slot_order[t]);
+  FS_SYNC();
+  FS_STAGE(3);
+  FS_FOR(c, FS_NCROW) {
+    int r = FS_NFL + FS_NLIM + c;
+    int s = m.crow_slot[c];
+    aref_d(m.slot_imp[s], m.crow_diag[c], W.sdist[s], m.slot_margin[s], W.rw.t1[r], &W.aref[r],
+           &W.D[r]);
+    W.active[r] = W.sdist[s] < m.slot_margin[s];
   }
+  FS_SYNC();
+  FS_STAGE(4);
 
-  // _newton_solve
-  float qacc[FS_NV], qfrc_con[FS_NV];
-  for (int i = 0; i < FS_NV; ++i) { qacc[i] = qsm[i]; qfrc_con[i] = 0.0f; }
-  if (FS_NROW > 0) {
-    bool any_active = FS_NFL > 0;
-    for (int r = FS_NFL; r < FS_NROW; ++r) any_active = any_active || R.active[r];
-    // start from the warmstart only where it is strictly cheaper
-    float cost_ws = total_cost(R, M, qsm, w);
-    float cost_sm = total_cost(R, M, qsm, qsm);
-    float a[FS_NV];
-    bool better = cost_ws < cost_sm;
-    for (int i = 0; i < FS_NV; ++i) a[i] = better ? w[i] : qsm[i];
-    float cost_prev = fs_min(cost_ws, cost_sm);
-    // done is sticky and a sample moves only while it was not done before,
-    // so stopping at the top of an iteration is the same computation
-    bool done = !any_active;
-    for (int it = 0; it < m.iterations && !done; ++it) {
-      float x[FS_DIM(FS_NROW)], hcs[FS_DIM(FS_NROW)], jd[FS_DIM(FS_NROW)];
-      float da[FS_NV], mda[FS_NV], grad[FS_NV];
-      for (int i = 0; i < FS_NV; ++i) da[i] = a[i] - qsm[i];
-      m_vec(M, da, mda);
-      for (int i = 0; i < FS_NV; ++i) grad[i] = mda[i];
-      for (int r = 0; r < FS_NROW; ++r) {
-        float cost, dc;
-        x[r] = row_dot(R, r, a) - R.aref[r];
-        s_terms(R, r, x[r], &cost, &dc, &hcs[r]);
-        add_row_jt(R, r, dc, grad, false);
-      }
-      // H = M + J^T diag(h) J on the solver pattern
-      float H[FS_TRI(FS_NV)], dinv[FS_NV], delta[FS_NV];
-      for (int i = 0; i < FS_NV; ++i) {
-        for (int j = 0; j < i; ++j)
-          H[FS_IDX(i, j)] = ((m.anc_strict[i] >> j) & 1u) ? M[FS_IDX(i, j)] : 0.0f;
-        H[FS_IDX(i, i)] = M[FS_IDX(i, i)];
-      }
-      for (int r = 0; r < FS_NROW; ++r) add_row_hessian(R, r, hcs[r], H);
-      ldl_factor(H, m.anc_solver, dinv);
-      for (int i = 0; i < FS_NV; ++i) delta[i] = -grad[i];
-      ldl_solve(H, m.anc_solver, dinv, delta);
-
-      float md[FS_NV];
-      for (int r = 0; r < FS_NROW; ++r) jd[r] = row_dot(R, r, delta);
-      m_vec(M, delta, md);
-      float dmd = 0.0f, dma = 0.0f;
-      for (int i = 0; i < FS_NV; ++i) dmd = dmd + delta[i] * md[i];
-      for (int i = 0; i < FS_NV; ++i) dma = dma + delta[i] * mda[i];
-
-      // exactly ls_iterations 1-D Newton steps on alpha, then alpha >= 0
-      float alpha = 0.0f;
-      for (int ls = 0; ls < m.ls_iterations; ++ls) {
-        float d1 = alpha * dmd + dma, d2 = dmd;
-        for (int r = 0; r < FS_NROW; ++r) {
-          float cost, dc, hc;
-          s_terms(R, r, x[r] + alpha * jd[r], &cost, &dc, &hc);
-          d1 = d1 + jd[r] * dc;
-          d2 = d2 + hc * (jd[r] * jd[r]);
-        }
-        alpha = alpha - d1 / fs_max(d2, 1e-30f);
-      }
-      alpha = fs_max(alpha, 0.0f);
-
-      float a_new[FS_NV];
-      for (int i = 0; i < FS_NV; ++i) a_new[i] = a[i] + alpha * delta[i];
-      float cost_new = total_cost(R, M, qsm, a_new);
-      float improved = cost_prev - cost_new;
-      float gn = 0.0f;
-      for (int i = 0; i < FS_NV; ++i) gn = gn + grad[i] * grad[i];
-      gn = sqrtf(gn);
-      for (int i = 0; i < FS_NV; ++i) a[i] = a_new[i];
-      cost_prev = cost_new;
-      done = (improved < m.tol_scale) || (gn < m.tol_scale);
-    }
-    if (any_active) {
-      for (int i = 0; i < FS_NV; ++i) qacc[i] = a[i];
-      for (int r = 0; r < FS_NROW; ++r) {
-        float cost, dc, hc;
-        s_terms(R, r, row_dot(R, r, a) - R.aref[r], &cost, &dc, &hc);
-        add_row_jt(R, r, dc, qfrc_con, true);
-      }
-    }
-  }
+  newton(m, T, W);
+  FS_STAGE_BEGIN_AGAIN;
 
   // integration; the optional implicit-damping re-solve (mj_Euler) solves
   // (M + dt diag(damping)) qacc_int = M qacc_smooth + qfrc_constraint
-  float qacc_int[FS_NV];
 #if FS_IMPLICIT
-  {
-    float Mhb[FS_TRI(FS_NV)], dinv[FS_NV], mq[FS_NV];
-    for (int i = 0; i < FS_TRI(FS_NV); ++i) Mhb[i] = M[i];
-    for (int d = 0; d < FS_NV; ++d)
-      if (m.dof_damp_dt[d] != 0.0f) Mhb[FS_IDX(d, d)] = Mhb[FS_IDX(d, d)] + m.dof_damp_dt[d];
-    m_vec(M, qsm, mq);
-    for (int d = 0; d < FS_NV; ++d) qacc_int[d] = mq[d] + qfrc_con[d];
-    ldl_factor(Mhb, m.anc_strict, dinv);
-    ldl_solve(Mhb, m.anc_strict, dinv, qacc_int);
+  FS_FOR(e, FS_TRI(FS_NV)) {
+    int i, j;
+    tri_ij(e, i, j);
+    float h = W.M[e];
+    if (i == j && m.dof_damp_dt[i] != 0.0f) h = h + m.dof_damp_dt[i];
+    W.H[e] = h;
   }
+  m_vec(W, W.M, W.qsm, W.tm);
+  FS_SYNC();
+  FS_FOR(d, FS_NV) W.qacc_int[d] = W.tm[d] + W.qfrc_con[d];
+  FS_SYNC();
+  ldl_factor(T, 0, W.anc[0], W.H, W.dinv);
+  ldl_solve(W.anc[0], W.H, W.dinv, W.qacc_int);
 #else
-  for (int d = 0; d < FS_NV; ++d) qacc_int[d] = qacc[d];
+  FS_FOR(d, FS_NV) W.qacc_int[d] = W.qacc[d];
+  FS_SYNC();
 #endif
 
   // derived reward inputs, from this (pre-integration) forward pass
-  {
-    int o = 0;
-    for (int i = 0; i < 3; ++i) der[o++] = xpos[m.torso][i];
-    for (int i = 0; i < 4; ++i) der[o++] = xquat[m.torso][i];
-    for (int i = 0; i < 6; ++i) der[o++] = cvel[m.torso][i];
-    for (int i = 0; i < 3; ++i) der[o++] = com[m.torso_root][i];
+  FS_FOR(i, 16) {
+    int tb = c_model.torso;
+    W.der[i] = (i < 3) ? W.xpos[tb][i]
+             : (i < 7) ? W.xquat[tb][i - 3]
+             : (i < 13) ? W.cvel[tb][i - 7]
+                        : W.com[c_model.torso_root][i - 13];
+  }
 #if FS_WANT_SITES
-    for (int s = 0; s < FS_NSITE; ++s) {
-      float t[3];
-      int b = m.site_body[s];
-      qrotate(m.site_pos[s], xquat[b], t);
-      for (int i = 0; i < 3; ++i) der[o++] = xpos[b][i] + t[i];
-    }
+  FS_FOR(s, FS_NSITE) {
+    float t[3];
+    int b = m.site_body[s];
+    qrotate(m.site_pos[s], W.xquat[b], t);
+    for (int i = 0; i < 3; ++i) W.der[16 + 3 * s + i] = W.xpos[b][i] + t[i];
+  }
 #endif
 #if FS_WANT_QFRC
-    for (int d = 0; d < FS_NV; ++d) der[o++] = qfrc_act[d];
+  FS_FOR(d, FS_NV) W.der[16 + 3 * FS_NSITE * FS_WANT_SITES + d] = W.qfrc_act[d];
 #endif
-  }
 
-  for (int d = 0; d < FS_NV; ++d) v[d] = v[d] + dt * qacc_int[d];
-  for (int j = 0; j < FS_NJNT; ++j) {
+  FS_FOR(d, FS_NV) W.v[d] = W.v[d] + dt * W.qacc_int[d];
+  FS_SYNC();
+  FS_FOR(j, FS_NJNT) {
     int qa = m.jnt_qadr[j], da = m.jnt_dadr[j];
     if (m.jnt_type[j] == JNT_FREE) {
-      for (int i = 0; i < 3; ++i) q[qa + i] = q[qa + i] + dt * v[da + i];
+      for (int i = 0; i < 3; ++i) W.q[qa + i] = W.q[qa + i] + dt * W.v[da + i];
       // mju_quatIntegrate, with the small-angle branch of the plain version
-      const float* w3 = v + da + 3;
+      const float* w3 = W.v + da + 3;
       float wn2 = w3[0] * w3[0] + w3[1] * w3[1] + w3[2] * w3[2];
       float theta = sqrtf(fs_max(wn2, 1e-30f)) * dt;
       float half = 0.5f * theta;
@@ -1134,48 +1379,104 @@ FS_DEVICE void substep(float* q, float* v, float* w, const float* ctrl, float* d
       float s = dt * sin_over;
       float dq[4] = {cosf(half), w3[0] * s, w3[1] * s, w3[2] * s};
       float qn[4];
-      qmul(q + qa + 3, dq, qn);
+      qmul(W.q + qa + 3, dq, qn);
       qnormalize(qn);
-      for (int i = 0; i < 4; ++i) q[qa + 3 + i] = qn[i];
+      for (int i = 0; i < 4; ++i) W.q[qa + 3 + i] = qn[i];
     } else {
-      q[qa] = q[qa] + dt * v[da];
+      W.q[qa] = W.q[qa] + dt * W.v[da];
     }
   }
   // the warmstart output is the solver's qacc (not the damped qacc_int)
-  for (int d = 0; d < FS_NV; ++d) w[d] = qacc[d];
+  FS_FOR(d, FS_NV) W.w[d] = W.qacc[d];
+  FS_SYNC();
+  FS_STAGE(13);
 }
 
-FS_DEVICE void step_sample(int b, int n_substeps, const float* qpos, const float* qvel,
+// the world body's frame and velocity never change
+FS_DEVICE void init_world(Work& W) {
+  if (FS_LANE == 0) {
+    for (int i = 0; i < 3; ++i) W.xpos[0][i] = 0.0f;
+    W.xquat[0][0] = 1.0f;
+    W.xquat[0][1] = W.xquat[0][2] = W.xquat[0][3] = 0.0f;
+    for (int k = 0; k < 6; ++k) W.cvel[0][k] = 0.0f;
+  }
+}
+
+FS_DEVICE void step_sample(const FusedModel& m, const FusedTables& T, Work& W, int b,
+                           int n_substeps, const float* qpos, const float* qvel,
                            const float* ws, const float* ctrl, float* oq, float* ov,
                            float* ow, float* od) {
-  float q[FS_NQ], v[FS_NV], w[FS_NV], c[FS_NU], der[FS_ND];
-  for (int i = 0; i < FS_NQ; ++i) q[i] = qpos[(size_t)b * FS_NQ + i];
-  for (int i = 0; i < FS_NV; ++i) v[i] = qvel[(size_t)b * FS_NV + i];
-  for (int i = 0; i < FS_NV; ++i) w[i] = ws[(size_t)b * FS_NV + i];
-  for (int i = 0; i < FS_NU; ++i) c[i] = ctrl[(size_t)b * FS_NU + i];
-  for (int s = 0; s < n_substeps; ++s) substep(q, v, w, c, der);
-  for (int i = 0; i < FS_NQ; ++i) oq[(size_t)b * FS_NQ + i] = q[i];
-  for (int i = 0; i < FS_NV; ++i) ov[(size_t)b * FS_NV + i] = v[i];
-  for (int i = 0; i < FS_NV; ++i) ow[(size_t)b * FS_NV + i] = w[i];
-  for (int i = 0; i < FS_ND; ++i) od[(size_t)b * FS_ND + i] = der[i];
+  FS_FOR(i, FS_NQ) W.q[i] = qpos[(size_t)b * FS_NQ + i];
+  FS_FOR(i, FS_NV) W.v[i] = qvel[(size_t)b * FS_NV + i];
+  FS_FOR(i, FS_NV) W.w[i] = ws[(size_t)b * FS_NV + i];
+  FS_FOR(i, FS_NU) W.ctrl[i] = ctrl[(size_t)b * FS_NU + i];
+  FS_FOR(i, FS_NV) {
+    W.anc[0][i] = m.anc_strict[i];
+    W.anc[1][i] = m.anc_solver[i];
+  }
+  FS_FOR(c, FS_NCROW) W.rslot[c] = (unsigned char)m.crow_slot[c];
+  FS_FOR(e, FS_NSLOT * FS_MAXD) W.sdof[e] = (unsigned char)m.slot_dof[e / FS_MAXD][e % FS_MAXD];
+  FS_FOR(t, FS_NSLOT) W.sndof[t] = (unsigned char)m.slot_ndof[t];
+  init_world(W);
+  FS_SYNC();
+  for (int s = 0; s < n_substeps; ++s) substep(m, T, W);
+  FS_FOR(i, FS_NQ) oq[(size_t)b * FS_NQ + i] = W.q[i];
+  FS_FOR(i, FS_NV) ov[(size_t)b * FS_NV + i] = W.v[i];
+  FS_FOR(i, FS_NV) ow[(size_t)b * FS_NV + i] = W.w[i];
+  FS_FOR(i, FS_ND) od[(size_t)b * FS_ND + i] = W.der[i];
 }
 
-#define FS_THREADS 32
+#define FS_THREADS (32 * FS_SPB)
+#define FS_SMEM ((size_t)FS_SPB * sizeof(Work))
 
 #ifdef __CUDACC__
+// one warp per sample, FS_SPB samples per block, each warp's Work in the
+// block's dynamic shared memory
 __global__ void __launch_bounds__(FS_THREADS)
-fused_step_kernel(int batch, int n_substeps, const float* __restrict__ qpos,
+fused_step_kernel(const FusedModel* __restrict__ gm, const FusedTables* __restrict__ gt,
+                  int batch, int n_substeps, const float* __restrict__ qpos,
                   const float* __restrict__ qvel, const float* __restrict__ ws,
                   const float* __restrict__ ctrl, float* __restrict__ oq,
                   float* __restrict__ ov, float* __restrict__ ow, float* __restrict__ od) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;  // the last block's spare threads
-  step_sample(b, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
+  extern __shared__ __align__(16) unsigned char fs_smem[];
+  int warp = (int)(threadIdx.x >> 5);
+  int b = blockIdx.x * FS_SPB + warp;
+  if (b >= batch) return;  // the last block's spare warps
+  Work& W = reinterpret_cast<Work*>(fs_smem)[warp];
+  step_sample(*gm, *gt, W, b, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
 }
 
 extern "C" int fused_step_upload(const void* model, size_t nbytes) {
   if (nbytes != sizeof(FusedModel)) return -1;
-  return (int)cudaMemcpyToSymbol(c_model, model, nbytes);
+  cudaError_t e = cudaMemcpyToSymbol(c_model, model, nbytes);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_model, model, nbytes);
+  if (e == cudaSuccess && FS_SMEM > 48 * 1024)
+    e = cudaFuncSetAttribute(fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)FS_SMEM);
+  return (int)e;
+}
+
+extern "C" int fused_tables_upload(const void* tables, size_t nbytes) {
+  if (nbytes != sizeof(FusedTables)) return -1;
+  return (int)cudaMemcpyToSymbol(g_tables, tables, nbytes);
+}
+
+#if FS_STAGE_CLOCK
+// measurement builds: copy out (and zero) the stage clocks
+extern "C" int fused_stage_cycles(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_stage_cycles, sizeof(g_stage_cycles));
+  unsigned long long zero[FS_NSTAGE] = {0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stage_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
+
+// out: bytes per sample, samples per block, resident blocks per SM
+extern "C" int fused_launch_info(int* out) {
+  out[0] = (int)sizeof(Work);
+  out[1] = FS_SPB;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fused_step_kernel,
+                                                            FS_THREADS, FS_SMEM);
 }
 
 // Launches on `stream` and returns cudaGetLastError(): 0 when the launch
@@ -1184,15 +1485,34 @@ extern "C" int fused_step_launch(int batch, int n_substeps, const float* qpos,
                                  const float* qvel, const float* ws, const float* ctrl,
                                  float* oq, float* ov, float* ow, float* od, void* stream) {
   if (batch <= 0) return 0;
-  int blocks = (batch + FS_THREADS - 1) / FS_THREADS;
-  fused_step_kernel<<<blocks, FS_THREADS, 0, (cudaStream_t)stream>>>(
-      batch, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
+  void *gm = nullptr, *gt = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&gm, g_model);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&gt, g_tables);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = (batch + FS_SPB - 1) / FS_SPB;
+  fused_step_kernel<<<blocks, FS_THREADS, FS_SMEM, (cudaStream_t)stream>>>(
+      (const FusedModel*)gm, (const FusedTables*)gt, batch, n_substeps, qpos, qvel, ws, ctrl,
+      oq, ov, ow, od);
   return (int)cudaGetLastError();
 }
 #else
 extern "C" int fused_step_upload(const void* model, size_t nbytes) {
   if (nbytes != sizeof(FusedModel)) return -1;
   memcpy(&c_model, model, nbytes);
+  memcpy(&g_model, model, nbytes);
+  return 0;
+}
+
+extern "C" int fused_tables_upload(const void* tables, size_t nbytes) {
+  if (nbytes != sizeof(FusedTables)) return -1;
+  memcpy(&g_tables, tables, nbytes);
+  return 0;
+}
+
+extern "C" int fused_launch_info(int* out) {
+  out[0] = (int)sizeof(Work);
+  out[1] = FS_SPB;
+  out[2] = 1;
   return 0;
 }
 
@@ -1203,26 +1523,36 @@ extern "C" int fused_step_upload(const void* model, size_t nbytes) {
 // build's.
 extern "C" int fused_contacts(int batch, int nq, int nslot, const float* qpos, float* out) {
   if (nq != FS_NQ || nslot != FS_NSLOT) return -1;
+  Work* W = (Work*)calloc(1, sizeof(Work));
+  if (!W) return -2;
   for (int b = 0; b < batch; ++b) {
-    float xpos[FS_NBODY][3], xquat[FS_NBODY][4], xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
-    float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
-    body_frames(qpos + (size_t)b * FS_NQ, xpos, xquat, xanchor, xaxis);
-    geom_frames(xpos, xquat, gpos, gmat);
+    for (int i = 0; i < FS_NQ; ++i) W->q[i] = qpos[(size_t)b * FS_NQ + i];
+    init_world(*W);
+    kinematics(g_model, *W);
+    for (int g = 0; g < FS_NGEOM; ++g) geom_frame(g_model, *W, g);
     for (int s = 0; s < FS_NSLOT; ++s) {
       float* o = out + ((size_t)b * FS_NSLOT + s) * 13;
-      o[0] = contact_geometry(s, gpos, gmat, o + 1, o + 4, o + 7, o + 10);
+      o[0] = contact_geometry(g_model, s, W->gpos, W->gmat, o + 1, o + 4, o + 7, o + 10);
     }
   }
+  free(W);
   return 0;
 }
 
+// The host build runs the samples one after another, each through the same
+// lane sections with one lane taking every index.
 extern "C" int fused_step_launch(int batch, int n_substeps, const float* qpos,
                                  const float* qvel, const float* ws, const float* ctrl,
                                  float* oq, float* ov, float* ow, float* od, void* stream) {
   (void)stream;
-  for (int b = 0; b < batch; ++b) step_sample(b, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
+  Work* W = (Work*)calloc(1, sizeof(Work));
+  if (!W) return -2;
+  for (int b = 0; b < batch; ++b)
+    step_sample(g_model, g_tables, *W, b, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
+  free(W);
   return 0;
 }
 #endif
 
 extern "C" size_t fused_model_nbytes(void) { return sizeof(FusedModel); }
+extern "C" size_t fused_tables_nbytes(void) { return sizeof(FusedTables); }

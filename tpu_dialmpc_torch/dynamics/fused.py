@@ -1420,6 +1420,46 @@ def _substep(model: PhysicsModel, meta: _Meta, spec: DerivedSpec, q, v, ws, ctrl
     return q_new, v_new, list(qacc), derived
 
 
+# aten ops that are arithmetic: the counterparts of the JAX primitives that
+# tpu_dialmpc/telemetry/profile.py:count_fused_ops counts (_ARITH_PRIMS)
+ARITH_ATEN = frozenset({
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sign", "sqrt", "rsqrt", "reciprocal",
+    "sin", "cos", "pow", "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "where",
+    "gt", "lt", "ge", "le", "eq", "ne", "bitwise_and", "bitwise_or", "bitwise_not",
+    "bitwise_xor", "logical_and", "logical_or", "logical_not",
+})
+
+
+def count_ops(model: PhysicsModel, spec: DerivedSpec | None = None,
+              exclude: Sequence[str] = ()) -> int:
+    """Arithmetic ops of one plain substep at B=1, less those named in
+    `exclude`: each is one operation per sample, so B samples x n substeps
+    take B * n * count_ops operations.  Model constants fold away as in the
+    JAX graph, so without the selects (`where`, which count_fused_ops does
+    not see: jnp.where traces into a nested jaxpr) this is the JAX
+    package's count of the same graph, from torch alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counted = ARITH_ATEN - set(exclude)
+
+    class _Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__.rstrip("_") in counted:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def zeros(n):
+        return [torch.zeros(1, dtype=torch.float32) for _ in range(n)]
+
+    spec = spec if spec is not None else DerivedSpec(torso_body=1)
+    with _Count() as counter:
+        _substep(model, _meta(model), spec, zeros(model.nq), zeros(model.nv),
+                 zeros(model.nv), zeros(model.nu))
+    return counter.n
+
+
 def derived_size(model: PhysicsModel, spec: DerivedSpec) -> int:
     n = 3 + 4 + 6 + 3
     if spec.want_sites:

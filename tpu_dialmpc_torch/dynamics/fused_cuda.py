@@ -10,9 +10,14 @@ ctrl (B,nu)) -> (qpos', qvel', ws', derived (B, ND)).
 
 The kernel is built from the checkout's sources at the first CUDA call
 (`_build.py`), with the model's sizes as compile-time constants; the model's
-values are packed here into the kernel's `FusedModel` struct and uploaded to
-its `__constant__` memory once.  `launches` counts kernel launches and
+values are packed here into the kernel's `FusedModel` struct (uploaded to
+its `__constant__` memory and to a global copy once), and the index lists
+its lanes walk into `FusedTables`.  `launches` counts kernel launches and
 nothing else.
+
+Launch shape: one warp per sample, `samples_per_block` samples per block,
+each sample's working set (`Work` in the source) in the block's dynamic
+shared memory; `launch_config` sizes both from the model.
 """
 
 from __future__ import annotations
@@ -82,6 +87,62 @@ def _static_geoms(model: PhysicsModel):
     return out
 
 
+# shared memory: a block may use 227 KB; an SM holds 228 KB, less 1 KB per
+# resident block (the H100's limits)
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+MAX_BLOCKS_PER_SM = 32
+MAX_SAMPLES_PER_BLOCK = 4
+
+
+def work_bytes(defines: dict) -> int:
+    """Bytes of one sample's working set, the kernel's `struct Work`, in its
+    order (4-byte fields, and byte arrays in whole words)."""
+    d = defines
+    nq, nv, nu, nd = d["FS_NQ"], d["FS_NV"], d["FS_NU"], d["FS_ND"]
+    nb, nj, ng = d["FS_NBODY"], d["FS_NJNT"], d["FS_NGEOM"]
+    nrow = max(d["FS_NFL"] + d["FS_NLIM"] + d["FS_NCROW"], 1)
+    tri = nv * (nv + 1) // 2
+    js = max(d["FS_MAXD"], 1) | 1
+
+    def words(n):  # a byte array, in whole words
+        return (max(n, 1) + 3) // 4
+
+    floats = (
+        2 * nv + words(d["FS_NCROW"]) + words(d["FS_NSLOT"])  # anc; rslot, sndof
+        + words(d["FS_NSLOT"] * d["FS_MAXD"])  # sdof
+        + nq + 2 * nv + nu + nd  # q, v, w, ctrl, der
+        + 7 * nb + 6 * nj + 3 * nb  # xpos, xquat; xanchor, xaxis; com
+        + 20 * nb + 6 * nv + 6 * nb  # cin, crb; cdof; cvel
+        + 12 * ng  # gpos, gmat
+        + 2 * tri + nv + 2 * nv  # M, H, dinv; qfrc_act, qsm
+        + d["FS_NFL"] + d["FS_NLIM"] + max(d["FS_NCROW"], 1) * js  # jl, J
+        + 3 * nrow + max(d["FS_NSLOT"], 1)  # aref, D, active; sdist
+        + 12 * nv  # the solver's vectors
+        # the union of the smooth dynamics' intermediates and the rows' values
+        + max(27 * nb + 12 * nv, 6 * nrow)
+    )
+    return 4 * floats
+
+
+def launch_config(defines: dict) -> Tuple[int, int]:
+    """(bytes per sample, samples per block): the samples per block (up to
+    4) that let the most samples share an SM's shared memory, the larger on
+    a tie.  Raises if one sample does not fit a block's 227 KB."""
+    nbytes = work_bytes(defines)
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(f"one sample's working set is {nbytes} bytes; a block holds at most "
+                         f"{SMEM_PER_BLOCK}")
+
+    def per_sm(spb):
+        blocks = SMEM_PER_SM // (spb * nbytes + SMEM_RESERVED_PER_BLOCK)
+        return spb * min(blocks, MAX_BLOCKS_PER_SM)
+
+    fits = [k for k in range(1, MAX_SAMPLES_PER_BLOCK + 1) if k * nbytes <= SMEM_PER_BLOCK]
+    return nbytes, max(fits, key=lambda k: (per_sm(k), k))
+
+
 def _bits(idx) -> int:
     out = 0
     for j in idx:
@@ -89,14 +150,83 @@ def _bits(idx) -> int:
     return out
 
 
+def _tree_levels(model: PhysicsModel):
+    """(bodies 1.. ordered by tree depth, offsets of each depth 1.. in it)."""
+    depth = [0] * model.nbody
+    for b in range(1, model.nbody):
+        depth[b] = depth[int(model.body_parentid[b])] + 1
+    order = sorted(range(1, model.nbody), key=lambda b: (depth[b], b))
+    nlevel = max(depth, default=0)
+    off = [sum(1 for b in order if depth[b] <= lv) for lv in range(nlevel + 1)]
+    return order, off
+
+
+def _ldl_pairs(anc, nv):
+    """Per k: the pairs (i, j), j <= i, both in row k's pattern."""
+    return [[(i, j) for i in sorted(anc[k]) for j in sorted(anc[k]) if j <= i]
+            for k in range(nv)]
+
+
+def _row_dofs(meta, crows):
+    """Each constraint row's dof list, in row order: friction loss, limits,
+    contacts (a contact row's dofs are its slot's)."""
+    slots = meta.contact_slots
+    return ([[int(r["dof"])] for r in meta.floss_rows]
+            + [[int(r["dadr"])] for r in meta.limit_rows]
+            + [list(slots[c[0]]["dofs"]) for c in crows])
+
+
+def _tables(nv, rows, nlf, js):
+    """FusedTables' lists: the Hessian's entries (longest term list first)
+    with their rows' terms, and each dof's rows, in row order.  A term names its row r and the offsets of its Jacobian
+    values in the kernel's Work.jl: a friction-loss or limit row's one
+    value sits at r, contact row c's k-th at nlf + c * js + k (nlf: the
+    friction-loss and limit rows).  8 bits of row and 12 of offset."""
+    if len(rows) > 256 or nlf + (len(rows) - nlf) * js > 4096:
+        raise ValueError(f"{len(rows)} rows: the kernel's term lists hold at most 256 rows "
+                         "and 4096 Jacobian values")
+    h = {(i, j): [] for i in range(nv) for j in range(i + 1)}
+    g = [[] for _ in range(nv)]
+    for r, dofs in enumerate(rows):
+        if list(dofs) != sorted(dofs):
+            raise ValueError(f"row {r}: the kernel takes a row's dofs in ascending order")
+        off = [r] if r < nlf else [nlf + (r - nlf) * js + k for k in range(len(dofs))]
+        for ii, i in enumerate(dofs):
+            g[i].append(r | off[ii] << 8)
+            for jj in range(ii + 1):
+                h[(i, dofs[jj])].append(r | off[ii] << 8 | off[jj] << 20)
+    ents = sorted(h, key=lambda e: -len(h[e]))  # stable: ties in entry order
+    return ents, [h[e] for e in ents], g
+
+
+def _interleave(lists):
+    """Term lists of outputs p = 0, 1, ... (lane p % 32 of round p // 32),
+    stored round by round with term t of output p at base[p // 32] + t * 32
+    + p % 32, so the lanes of a round read one line per step; (base per
+    round, the stored words, 0 where a list is shorter than its round's
+    longest)."""
+    base, words = [], []
+    for r0 in range(0, len(lists), 32):
+        group = lists[r0:r0 + 32]
+        n = max((len(x) for x in group), default=0)
+        base.append(len(words))
+        block = [0] * (32 * n)
+        for lane, x in enumerate(group):
+            for t, u in enumerate(x):
+                block[t * 32 + lane] = u
+        words.extend(block)
+    return base, words
+
+
 def pack_model(
     model: PhysicsModel, meta, spec: fused.DerivedSpec
-) -> Tuple[dict, bytes]:
-    """(the kernel's -D sizes, the FusedModel struct as bytes).
+) -> Tuple[dict, bytes, bytes]:
+    """(the kernel's -D sizes, the FusedModel struct as bytes, the
+    FusedTables struct as bytes).
 
-    Fields are written in the struct's order; every field is 4 bytes wide, so
+    Fields are written in the structs' order; every field is 4 bytes wide, so
     the layout has no padding.  Arrays sized 0 in the model are padded to one
-    element, as the struct's FS_DIM does."""
+    element, as the structs' FS_DIM does."""
     nv = model.nv
     if nv > 32:
         raise ValueError(f"the kernel keeps dof patterns in 32-bit masks; nv={nv}")
@@ -112,6 +242,14 @@ def pack_model(
                 mu = s["friction"][t]
                 for sgn in (1.0, -1.0):
                     crows.append((si, t, sgn * mu, 2.0 * (iw + mu * mu * iw)))
+    if any(len([c for c in crows if c[0] == si]) > 4 for si in range(len(slots))):
+        raise ValueError("the kernel takes at most 4 rows per contact slot")
+    rows = _row_dofs(meta, crows)
+    ents, hterms, gterms = _tables(nv, rows, len(floss) + len(limits), max(maxd, 1) | 1)
+    pairs = [_ldl_pairs(anc, nv) for anc in (meta.anc_strict, meta.anc_solver)]
+    h_base, h_words = _interleave(hterms)
+    _, g_words = _interleave(gterms)
+    body_order, level_off = _tree_levels(model)
     nb = model.nbody
     sub_mass = [float(x) for x in model.body_mass]
     for b in range(nb - 1, 0, -1):
@@ -124,7 +262,10 @@ def pack_model(
         FS_NFL=len(floss), FS_MAXD=maxd, FS_ND=fused.derived_size(model, spec),
         FS_IMPLICIT=int(bool(model.eulerdamp) and bool((model.dof_damping != 0).any())),
         FS_WANT_SITES=int(spec.want_sites), FS_WANT_QFRC=int(spec.want_qfrc_actuator),
+        FS_NLEVEL=len(level_off) - 1, FS_NLDLPAIR=sum(len(p) for pk in pairs for p in pk),
+        FS_NHTERM=len(h_words), FS_NGTERM=len(g_words),
     )
+    defines["FS_SPB"] = launch_config(defines)[1]
 
     parts: List[np.ndarray] = []
 
@@ -218,7 +359,25 @@ def pack_model(
     put([r["floss"] for r in floss], "f", nf)
     for vals in (fl_D, fl_negb, fl_knee, fl_lin0):
         put(vals, "f", nf)
-    return defines, b"".join(p.tobytes() for p in parts)
+    # launch order: bodies by depth, slots grouped by kind, slot -> rows
+    put(body_order, "i", nb - 1)
+    put(level_off, "i")
+    put(sorted(range(ns), key=lambda s: (KIND_CODES[slots[s]["kind"]], s)), "i", ns)
+    put([next((c for c, row in enumerate(crows) if row[0] == si), 0) for si in range(ns)], "i", ns)
+    put([sum(1 for row in crows if row[0] == si) for si in range(ns)], "i", ns)
+    off = np.cumsum([0] + [len(p) for pk in pairs for p in pk])  # into both patterns' lists
+    put([off[:nv + 1], off[nv:]], "i")
+    blob = b"".join(p.tobytes() for p in parts)
+
+    parts = []
+    put([i | j << 8 for pk in pairs for p in pk for i, j in p], "i", defines["FS_NLDLPAIR"])
+    put([(i * (i + 1) // 2 + j) | i << 16 | j << 24 for i, j in ents], "i")
+    put([len(x) for x in hterms], "i")
+    put(h_base, "i")
+    put(h_words, "u", defines["FS_NHTERM"])
+    put([len(x) for x in gterms], "i")
+    put(g_words, "u", defines["FS_NGTERM"])
+    return defines, blob, b"".join(p.tobytes() for p in parts)
 
 
 class _Library:
@@ -230,6 +389,12 @@ class _Library:
         lib.fused_model_nbytes.argtypes = []
         lib.fused_step_upload.restype = ctypes.c_int
         lib.fused_step_upload.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        lib.fused_tables_nbytes.restype = ctypes.c_size_t
+        lib.fused_tables_nbytes.argtypes = []
+        lib.fused_tables_upload.restype = ctypes.c_int
+        lib.fused_tables_upload.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        lib.fused_launch_info.restype = ctypes.c_int
+        lib.fused_launch_info.argtypes = [ctypes.c_void_p]
         lib.fused_step_launch.restype = ctypes.c_int
         lib.fused_step_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
         if hasattr(lib, "fused_contacts"):  # host builds only
@@ -237,16 +402,29 @@ class _Library:
             lib.fused_contacts.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         self.lib = lib
 
-    def upload(self, blob: bytes):
-        n = self.lib.fused_model_nbytes()
-        if n != len(blob):
-            raise RuntimeError(
-                f"FusedModel layout mismatch: kernel struct {n} bytes, packed {len(blob)}"
-            )
-        buf = ctypes.create_string_buffer(blob, len(blob))
-        err = self.lib.fused_step_upload(buf, len(blob))
+    def upload(self, blob: bytes, tables: bytes):
+        for name, data, nbytes, fn in (
+            ("FusedModel", blob, self.lib.fused_model_nbytes, self.lib.fused_step_upload),
+            ("FusedTables", tables, self.lib.fused_tables_nbytes, self.lib.fused_tables_upload),
+        ):
+            n = nbytes()
+            if n != len(data):
+                raise RuntimeError(
+                    f"{name} layout mismatch: kernel struct {n} bytes, packed {len(data)}"
+                )
+            err = fn(ctypes.create_string_buffer(data, len(data)), len(data))
+            if err != 0:
+                raise RuntimeError(f"uploading {name} to the kernel failed (error {err})")
+
+    def launch_info(self) -> dict:
+        """The build's bytes per sample and samples per block, and how many
+        blocks an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+        1 in a host build)."""
+        out = (ctypes.c_int * 3)()
+        err = self.lib.fused_launch_info(out)
         if err != 0:
-            raise RuntimeError(f"uploading the model to the kernel failed (error {err})")
+            raise RuntimeError(f"fused_launch_info failed (error {err})")
+        return dict(bytes_per_sample=out[0], samples_per_block=out[1], blocks_per_sm=out[2])
 
     def launch(self, n_substeps, qpos, qvel, ws, ctrl, outs, stream: int) -> int:
         ptrs = [t.data_ptr() for t in (qpos, qvel, ws, ctrl, *outs)]
@@ -271,12 +449,18 @@ class _Library:
 def build_library(model, meta, spec, host=False, out_dir=None):
     """Build (or find) and load the kernel library for this model, with the
     model uploaded; returns (library, build log, built now)."""
-    defines, blob = pack_model(model, meta, spec)
+    defines, blob, tables = pack_model(model, meta, spec)
     path, log, built = _build.build(
-        SOURCE, defines, key=hashlib.sha256(blob).digest(), host=host, out_dir=out_dir
+        SOURCE, defines, key=hashlib.sha256(blob + tables).digest(), host=host, out_dir=out_dir
     )
     lib = _Library(path)
-    lib.upload(blob)
+    lib.upload(blob, tables)
+    info = lib.launch_info()
+    want = launch_config(defines)
+    if (info["bytes_per_sample"], info["samples_per_block"]) != want:
+        raise RuntimeError(f"the kernel's Work is {info['bytes_per_sample']} bytes and "
+                           f"{info['samples_per_block']} per block; work_bytes/launch_config "
+                           f"say {want}")
     return lib, log, built
 
 

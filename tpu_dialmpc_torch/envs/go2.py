@@ -67,7 +67,7 @@ class UnitreeGo2Env(LeggedEnv):
     def __init__(
         self,
         config: UnitreeGo2EnvConfig = UnitreeGo2EnvConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         model: PhysicsModel | None = None,
     ):
         if config.randomize_tasks:

@@ -76,7 +76,7 @@ class UnitreeH1Env(LeggedEnv):
     def __init__(
         self,
         config: UnitreeH1EnvConfig = UnitreeH1EnvConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         model: PhysicsModel | None = None,
     ):
         if config.randomize_tasks:

@@ -31,9 +31,9 @@ _GO2_DIAL = dict(_DIAL_COMMON, Hsample=20, Hnode=5)
 _H1_DIAL = dict(_DIAL_COMMON, Hsample=32, Hnode=8)
 
 
-def get_env(name: str, device="cpu", **overrides):
-    """Instantiate a registered task env on `device`, with config-field
-    overrides."""
+def get_env(name: str, device="cuda", **overrides):
+    """Instantiate a registered task env on `device` (the card unless the
+    caller asks for the CPU), with config-field overrides."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown task {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](device=device, **overrides)
@@ -56,7 +56,7 @@ def _go2(defaults):
     # registered tasks substep ctrl_dt / timestep = 8 times per control
     defaults.setdefault("n_substeps", 8)
 
-    def factory(device="cpu", **overrides):
+    def factory(device="cuda", **overrides):
         cfg = dataclasses.replace(UnitreeGo2EnvConfig(**defaults), **overrides)
         return UnitreeGo2Env(cfg, device=device)
 
@@ -68,7 +68,7 @@ def _h1(defaults):
 
     defaults.setdefault("n_substeps", 8)  # see _go2
 
-    def factory(device="cpu", **overrides):
+    def factory(device="cuda", **overrides):
         cfg = dataclasses.replace(UnitreeH1EnvConfig(**defaults), **overrides)
         return UnitreeH1Env(cfg, device=device)
 

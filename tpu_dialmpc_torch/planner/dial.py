@@ -81,7 +81,7 @@ class MBDPI:
         self.args = args
         self.env = env
         self.nu = env.action_size
-        self.device = torch.device(getattr(env, "device", "cpu"))
+        self.device = torch.device(env.device)
 
         # sigma schedule (dial-core.h:388-395)
         sigma0, sigma1 = 1e-2, 1.0
