@@ -34,7 +34,11 @@ limit:
   3. the main path: reset, the reverse warm start, 3 control steps, with the
      kernel's launch count checked, plus a small reverse_once checked against
      the plain substep chain (on the crate tasks from a state at the crate),
-     then timings and the path's wall seconds.
+     then timings, 3 `reverse_once` and 2 control steps under
+     torch.profiler (wall ms, device busy ms and idle share, the fused
+     kernel's device ms and launches, the other kernels', and the host's
+     cudaStreamSynchronize calls and wait; wall includes the profiler's
+     own cost), and the path's wall seconds.
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
@@ -227,9 +231,12 @@ def phase_compare(env, path, device, tag):
                 check(not two_trees or crossing > 0,
                       f"B={B}: no active contact couples two trees, the compare proves nothing")
         got = fs(*args)
-        want = fs.plain(*args)
-        if B > 1:  # the plain version takes seconds per call: one call after this warm one
-            plain_ms = cuda_ms(lambda: fs.plain(*args), 1)
+        if B > 1:  # the plain version takes tens of seconds per call: time this one
+            out = []
+            plain_ms = cuda_ms(lambda: out.append(fs.plain(*args)), 1)
+            want = out[0]
+        else:
+            want = fs.plain(*args)
         for _ in range(3):
             fs(*args)
         ms[B] = cuda_ms(lambda: fs(*args), 20)
@@ -388,6 +395,38 @@ def check_small_against_plain(env, cfg, path, device):
         check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
 
 
+def _profile_window(fn, n):
+    """fn() n times under torch.profiler: where the window's time went."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, syncs = [], []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = ev.self_cuda_time_total
+        if ev.key == "cudaStreamSynchronize":
+            syncs.append((ev.count, ev.cpu_time_total / 1e3))
+        elif dev > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            kernels.append((ev.key, ev.count, dev / 1e3))
+    fused = [k for k in kernels if "fused_step_kernel" in k[0]]
+    others = [k for k in kernels if "fused_step_kernel" not in k[0]]
+    busy = sum(k[2] for k in kernels)
+    return {
+        "calls": n, "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+        "fused_ms": sum(k[2] for k in fused), "fused_launches": sum(k[1] for k in fused),
+        "other_kernels": sum(k[1] for k in others), "other_ms": sum(k[2] for k in others),
+        "stream_syncs": sum(s[0] for s in syncs), "sync_wait_ms": sum(s[1] for s in syncs),
+    }
+
+
 def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task):
     import torch
 
@@ -408,6 +447,9 @@ def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task):
     cs_ms = timed(lambda: step_rest(state, Y0, gen), 5)
     print(f"[time {task}] median ms per reverse_once: {ro_ms:.2f}; per control step "
           f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f}")
+    for name, fn, n in (("reverse_once", lambda: mbdpi.reverse_once(state, gen, Y0, scale), 3),
+                        ("control_step", lambda: step_rest(state, Y0, gen), 2)):
+        print(f"[profile {task}] {name}: {json.dumps(_profile_window(fn, n))}")
     return ro_ms, cs_ms
 
 

@@ -86,6 +86,31 @@ def test_launch_config_picks_the_most_samples_per_sm_and_raises_beyond_a_block()
         fused_cuda.launch_config(too_big)
 
 
+def test_term_lists_hold_rows_past_the_crate_models():
+    """Term lists for 40 single-dof rows and 600 contact rows of up to 12
+    dofs each: every term decodes to a row holding both dofs at the places
+    it names, each entry's and each dof's rows come in row order, and none
+    is missed."""
+    nv, rng = 26, torch.Generator().manual_seed(0)
+    rows = [[int(torch.randint(nv, (1,), generator=rng))] for _ in range(40)]
+    for _ in range(600):
+        n = int(torch.randint(1, 13, (1,), generator=rng))
+        rows.append(sorted(torch.randperm(nv, generator=rng)[:n].tolist()))
+    ents, hterms, gterms = fused_cuda._tables(nv, rows)
+    assert sorted(ents) == [(i, j) for i in range(nv) for j in range(i + 1)]
+    for (i, j), terms in zip(ents, hterms):
+        got = [(u & 0xFFFF, rows[u & 0xFFFF][(u >> 16) & 0xFF], rows[u & 0xFFFF][u >> 24])
+               for u in terms]
+        want = [r for r, dofs in enumerate(rows) if i in dofs and j in dofs]
+        assert [r for r, _, _ in got] == want, (i, j)
+        assert all((a, b) == (i, j) for _, a, b in got), (i, j)
+    for d, terms in enumerate(gterms):
+        assert [u & 0xFFFF for u in terms] == [r for r, dofs in enumerate(rows) if d in dofs]
+        assert all(rows[u & 0xFFFF][u >> 16] == d for u in terms)
+    with pytest.raises(ValueError):
+        fused_cuda._tables(2, [[0]] * ((1 << 16) + 1))
+
+
 def test_entry_points_default_to_the_card():
     for fn in (get_env, UnitreeGo2Env.__init__, UnitreeH1Env.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

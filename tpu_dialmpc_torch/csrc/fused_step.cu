@@ -24,11 +24,12 @@
 // under its own dof mask, and the Newton Hessian's pattern (anc_solver)
 // holds the LDL fill-in; those entries start at 0.
 //
-// What bounds it: arithmetic.  One substep is about 36k arithmetic ops per
-// sample on the flat Go2 scene (4 slots, 52 rows), 170k on the Go2 crate
-// scene (52 slots, 244 rows) and 192k on the H1 push-crate scene (44 slots,
-// 234 rows, nv=26) (fused.py count_ops), against 67 TFLOP/s of fp32 outside
-// the tensor cores: 2049 samples x 8 substeps take at least 9, 42 and 47 us.
+// What bounds it: arithmetic.  One substep is 38,881 fp32 ops per sample on
+// the flat Go2 scene (4 slots, 52 rows), 183,782 on the Go2 crate scene (52
+// slots, 244 rows) and 206,491 on the H1 push-crate scene (44 slots, 234
+// rows, nv=26) (fused.py count_ops, which chip_smoke.py's bound uses),
+// against 67 TFLOP/s of fp32 outside the tensor cores: 2049 samples x 8
+// substeps take at least 9.5, 45.0 and 50.5 us.
 // Bytes do not bound it: under 1 KB in and out per sample.  What kept the
 // one-thread-per-sample version three orders of magnitude from that bound
 // was latency: a 12-37 KB per-thread stack at 255 registers (local memory
@@ -72,8 +73,7 @@
 // What it left: a sample's substep is a few hundred short lane sections
 // (the LDL^T column steps, the row passes, the serial sums), each a chain of
 // shared-memory round trips, so the warp's latency, not the SM's issue
-// rate, sets the time: PERF.md section 5 has the stage split (-D
-// FS_STAGE_CLOCK=1 builds, tpu_dialmpc_torch/tools/kernel_stages.py).
+// rate, sets the time (PERF.md section 5 has the split by stage).
 //
 // The same source builds as plain C++ for the host (g++ -x c++): there one
 // lane takes every index of a lane section in order, and fused_step_launch
@@ -233,13 +233,14 @@ struct FusedTables {
   int ldl_pair[FS_DIM(FS_NLDLPAIR)];
   // every lower-triangle entry p of the Newton Hessian, longest term list
   // first (idx | i << 16 | j << 24), its list's length, and its rows'
-  // terms in row order: row | oi << 8 | oj << 20, oi and oj the offsets of
-  // the row's Jacobian values for dofs i and j in Work.jl.  Term t of entry
-  // p sits at h_base[p / 32] + t * 32 + p % 32: the lanes of a round of 32
-  // entries read one line per step (fused_cuda.py _tables, _interleave).
+  // terms in row order: row | ki << 16 | kj << 24, ki and kj the places of
+  // dofs i and j in the row's dof list (its Jacobian values are at
+  // jl_row(row) + k).  Term t of entry p sits at h_base[p / 32] + t * 32 +
+  // p % 32: the lanes of a round of 32 entries read one line per step
+  // (fused_cuda.py _tables, _interleave).
   int h_ent[FS_TRI(FS_NV)], h_len[FS_TRI(FS_NV)], h_base[(FS_TRI(FS_NV) + 31) / 32];
   uint32_t h_term[FS_DIM(FS_NHTERM)];
-  // per dof d: the rows that hold it, in row order (row | o << 8), term t
+  // per dof d: the rows that hold it, in row order (row | k << 16), term t
   // at t * 32 + d
   int g_len[FS_NV];
   uint32_t g_term[FS_DIM(FS_NGTERM)];
@@ -251,32 +252,6 @@ struct FusedTables {
 FS_CONSTANT FusedModel c_model;
 FS_GLOBAL FusedModel g_model;
 FS_GLOBAL FusedTables g_tables;
-
-// Stage clocks, for measurement builds only (-DFS_STAGE_CLOCK=1, on the
-// card): lane 0 of every warp adds the clock64() cycles since the previous
-// stamp to its stage's counter (tpu_dialmpc_torch/tools/kernel_stages.py
-// reads them).  Stages: 0 kinematics, CoM, cdof, cvel; 1 CRB, actuators, M,
-// RNE; 2 smooth LDL^T; 3 geometry, slots' Jacobians and J; 4 the rows'
-// constants; 5 Newton cost evaluations; 6 the rows' terms at a; 7 M (a -
-// qsm); 8 the gradient; 9 H assembly; 10 H's factor and solve; 11 line
-// search (with J delta, M delta); 12 the rest of the solve; 13 integration
-// and derived outputs.
-#if defined(__CUDACC__) && FS_STAGE_CLOCK
-#define FS_NSTAGE 14
-__device__ unsigned long long g_stage_cycles[FS_NSTAGE];
-#define FS_STAGE_BEGIN long long fs_t0 = clock64()
-#define FS_STAGE_BEGIN_AGAIN fs_t0 = clock64()
-#define FS_STAGE(k)                                                                      \
-  do {                                                                                   \
-    long long fs_t1 = clock64();                                                         \
-    if (FS_LANE == 0) atomicAdd(&g_stage_cycles[k], (unsigned long long)(fs_t1 - fs_t0)); \
-    fs_t0 = fs_t1;                                                                       \
-  } while (0)
-#else
-#define FS_STAGE_BEGIN ((void)0)
-#define FS_STAGE_BEGIN_AGAIN ((void)0)
-#define FS_STAGE(k) ((void)0)
-#endif
 
 #define MJ_MINVAL 1e-15f
 #define MJ_MINIMP 0.0001f
@@ -397,7 +372,7 @@ struct Work {
   float qfrc_act[FS_NV], qsm[FS_NV];
   // constraint rows: jl holds every row's Jacobian values, a friction-loss
   // or limit row's one value, then contact row c's on its slot's dofs at
-  // FS_JC(c, k) (the term lists address jl by offset)
+  // FS_JC(c, k) (jl_row gives a row's first)
   float jl[FS_NFL + FS_NLIM + FS_DIM(FS_NCROW) * FS_JS];
   float aref[FS_DIM(FS_NROW)], D[FS_DIM(FS_NROW)];
   int active[FS_DIM(FS_NROW)];
@@ -924,6 +899,11 @@ FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
     if (q < nr) W.rw.t1[FS_NFL + FS_NLIM + c0 + q] = vel[q];
 }
 
+// where row r's Jacobian values start in Work.jl
+FS_DEVICE int jl_row(int r) {
+  return r < FS_NFL + FS_NLIM ? r : FS_JC(r - (FS_NFL + FS_NLIM), 0);
+}
+
 // out[d] = start[d] + J' dc (or 0 - J' dc), each dof's rows in row order.
 // No sync.
 FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* out,
@@ -938,13 +918,15 @@ FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* o
       for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        float tj = W.jl[u[q] >> 8] * W.rw.dc[u[q] & 0xffu];
+        int r = u[q] & 0xffff;
+        float tj = W.jl[jl_row(r) + (u[q] >> 16)] * W.rw.dc[r];
         g = subtract ? g - tj : g + tj;
       }
     }
     for (; t < n; ++t) {
       uint32_t u = term[t * 32];
-      float tj = W.jl[u >> 8] * W.rw.dc[u & 0xffu];
+      int r = u & 0xffff;
+      float tj = W.jl[jl_row(r) + (u >> 16)] * W.rw.dc[r];
       g = subtract ? g - tj : g + tj;
     }
     out[d] = g;
@@ -973,7 +955,6 @@ FS_DEVICE float total_cost(const FusedModel& m, Work& W, const float* a) {
 // constraint force into qfrc_con.  done, any_active and the iteration
 // count are one sample's, so uniform over the warp. ----
 FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
-  FS_STAGE_BEGIN;
   FS_FOR(i, FS_NV) { W.qacc[i] = W.qsm[i]; W.qfrc_con[i] = 0.0f; }
   FS_SYNC();
 #if FS_NROW > 0
@@ -983,7 +964,6 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
   // start from the warmstart only where it is strictly cheaper
   float cost_ws = total_cost(m, W, W.w);
   float cost_sm = total_cost(m, W, W.qsm);
-  FS_STAGE(5);
   bool better = cost_ws < cost_sm;
   FS_FOR(i, FS_NV) W.a[i] = better ? W.w[i] : W.qsm[i];
   FS_SYNC();
@@ -992,7 +972,6 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
   // so stopping at the top of an iteration is the same computation
   bool done = !any_active;
   for (int it = 0; it < c_model.iterations && !done; ++it) {
-    FS_STAGE(12);
     FS_FOR(i, FS_NV) W.da[i] = W.a[i] - W.qsm[i];
     FS_FOR(r, FS_NROW) {
       float cost;
@@ -1001,18 +980,14 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
       s_terms(m, W, r, x, &cost, &W.rw.dc[r], &W.rw.hc[r]);
     }
     FS_SYNC();
-    FS_STAGE(6);
     m_vec(W, W.M, W.da, W.mda);
     FS_SYNC();
-    FS_STAGE(7);
     // the gradient mda + J' dc; H = M + J' diag(hc) J on the solver
     // pattern, one lane per entry, its rows in row order
     jt_dc(T, W, W.mda, W.grad, false);
-    FS_STAGE(8);
     FS_FOR(p, FS_TRI(FS_NV)) {
       int e = T.h_ent[p], idx = e & 0xffff, i = (e >> 16) & 0xff, j = e >> 24;
       float h = (i == j || ((W.anc[0][i] >> j) & 1u)) ? W.M[idx] : 0.0f;
-      const float* jl = W.jl;
       const uint32_t* term = T.h_term + T.h_base[p / 32] + p % 32;
       int n = T.h_len[p], t = 0;
       for (; t + 8 <= n; t += 8) {  // 8 loads in flight, then the sum in order
@@ -1020,22 +995,25 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
 #pragma unroll
         for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          h = h + W.rw.hc[u[q] & 0xffu] * (jl[(u[q] >> 8) & 0xfffu] * jl[u[q] >> 20]);
+        for (int q = 0; q < 8; ++q) {
+          int r = u[q] & 0xffff;
+          const float* jr = W.jl + jl_row(r);
+          h = h + W.rw.hc[r] * (jr[(u[q] >> 16) & 0xffu] * jr[u[q] >> 24]);
+        }
       }
       for (; t < n; ++t) {
         uint32_t u = term[t * 32];
-        h = h + W.rw.hc[u & 0xffu] * (jl[(u >> 8) & 0xfffu] * jl[u >> 20]);
+        int r = u & 0xffff;
+        const float* jr = W.jl + jl_row(r);
+        h = h + W.rw.hc[r] * (jr[(u >> 16) & 0xffu] * jr[u >> 24]);
       }
       W.H[idx] = h;
     }
     FS_SYNC();
-    FS_STAGE(9);
     ldl_factor(T, 1, W.anc[1], W.H, W.dinv);
     FS_FOR(i, FS_NV) W.delta[i] = -W.grad[i];
     FS_SYNC();
     ldl_solve(W.anc[1], W.H, W.dinv, W.delta);
-    FS_STAGE(10);
     FS_FOR(r, FS_NROW) W.rw.jd[r] = row_dot(m, W, r, W.delta);
     m_vec(W, W.M, W.delta, W.md);
     FS_SYNC();
@@ -1062,12 +1040,10 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
       FS_SYNC();
     }
     alpha = fs_max(alpha, 0.0f);
-    FS_STAGE(11);
 
     FS_FOR(i, FS_NV) W.a_new[i] = W.a[i] + alpha * W.delta[i];
     FS_SYNC();
     float cost_new = total_cost(m, W, W.a_new);
-    FS_STAGE(5);
     float improved = cost_prev - cost_new;
     float gn = sqrtf(sum_prod(0.0f, W.grad, W.grad, FS_NV));
     FS_FOR(i, FS_NV) W.a[i] = W.a_new[i];
@@ -1086,13 +1062,11 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
     FS_SYNC();
   }
 #endif
-  FS_STAGE(12);
 }
 
 // ---- one substep for one sample (fused.py _substep) ----
 FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   const float dt = c_model.dt;
-  FS_STAGE_BEGIN;
 
   // _fk: body frames, inertial frames, subtree CoM
   kinematics(m, W);
@@ -1201,7 +1175,6 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     FS_SYNC();
   }
 
-  FS_STAGE(0);
   // _crb: composite inertias (one lane per component, children before
   // their parent); _actuator_force (one lane per dof, its motors in order)
   FS_FOR(k, 10) {
@@ -1276,7 +1249,6 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   }
   FS_SYNC();
 
-  FS_STAGE(1);
   // smooth acceleration
   FS_FOR(d, FS_NV) {
     float bias = dot6(W.cdof[d], W.sm.cfrc[m.dof_body[d]]);
@@ -1286,7 +1258,6 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   FS_SYNC();
   ldl_factor(T, 0, W.anc[0], W.H, W.dinv);
   ldl_solve(W.anc[0], W.H, W.dinv, W.qsm);
-  FS_STAGE(2);
 
   // _constraint_rows: friction loss, limits, then the contact slots (lanes
   // take them grouped by kind) and their rows
@@ -1309,7 +1280,6 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   FS_SYNC();
   FS_FOR(t, FS_NSLOT) contact_slot(m, W, m.slot_order[t]);
   FS_SYNC();
-  FS_STAGE(3);
   FS_FOR(c, FS_NCROW) {
     int r = FS_NFL + FS_NLIM + c;
     int s = m.crow_slot[c];
@@ -1318,10 +1288,8 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     W.active[r] = W.sdist[s] < m.slot_margin[s];
   }
   FS_SYNC();
-  FS_STAGE(4);
 
   newton(m, T, W);
-  FS_STAGE_BEGIN_AGAIN;
 
   // integration; the optional implicit-damping re-solve (mj_Euler) solves
   // (M + dt diag(damping)) qacc_int = M qacc_smooth + qfrc_constraint
@@ -1389,7 +1357,6 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   // the warmstart output is the solver's qacc (not the damped qacc_int)
   FS_FOR(d, FS_NV) W.w[d] = W.qacc[d];
   FS_SYNC();
-  FS_STAGE(13);
 }
 
 // the world body's frame and velocity never change
@@ -1460,16 +1427,6 @@ extern "C" int fused_tables_upload(const void* tables, size_t nbytes) {
   if (nbytes != sizeof(FusedTables)) return -1;
   return (int)cudaMemcpyToSymbol(g_tables, tables, nbytes);
 }
-
-#if FS_STAGE_CLOCK
-// measurement builds: copy out (and zero) the stage clocks
-extern "C" int fused_stage_cycles(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_stage_cycles, sizeof(g_stage_cycles));
-  unsigned long long zero[FS_NSTAGE] = {0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stage_cycles, zero, sizeof(zero));
-  return (int)e;
-}
-#endif
 
 // out: bytes per sample, samples per block, resident blocks per SM
 extern "C" int fused_launch_info(int* out) {

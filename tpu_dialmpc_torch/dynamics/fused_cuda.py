@@ -176,25 +176,23 @@ def _row_dofs(meta, crows):
             + [list(slots[c[0]]["dofs"]) for c in crows])
 
 
-def _tables(nv, rows, nlf, js):
+def _tables(nv, rows):
     """FusedTables' lists: the Hessian's entries (longest term list first)
-    with their rows' terms, and each dof's rows, in row order.  A term names its row r and the offsets of its Jacobian
-    values in the kernel's Work.jl: a friction-loss or limit row's one
-    value sits at r, contact row c's k-th at nlf + c * js + k (nlf: the
-    friction-loss and limit rows).  8 bits of row and 12 of offset."""
-    if len(rows) > 256 or nlf + (len(rows) - nlf) * js > 4096:
-        raise ValueError(f"{len(rows)} rows: the kernel's term lists hold at most 256 rows "
-                         "and 4096 Jacobian values")
+    with their rows' terms, and each dof's rows, in row order.  A term
+    names its row r (16 bits) and the places k (8 bits each) of its dofs in
+    the row's dof list; the kernel finds the row's Jacobian values from r
+    (`jl_row`)."""
+    if len(rows) > 1 << 16:
+        raise ValueError(f"{len(rows)} rows: the kernel's term lists hold at most 65536")
     h = {(i, j): [] for i in range(nv) for j in range(i + 1)}
     g = [[] for _ in range(nv)]
     for r, dofs in enumerate(rows):
         if list(dofs) != sorted(dofs):
             raise ValueError(f"row {r}: the kernel takes a row's dofs in ascending order")
-        off = [r] if r < nlf else [nlf + (r - nlf) * js + k for k in range(len(dofs))]
-        for ii, i in enumerate(dofs):
-            g[i].append(r | off[ii] << 8)
-            for jj in range(ii + 1):
-                h[(i, dofs[jj])].append(r | off[ii] << 8 | off[jj] << 20)
+        for ki, i in enumerate(dofs):
+            g[i].append(r | ki << 16)
+            for kj in range(ki + 1):
+                h[(i, dofs[kj])].append(r | ki << 16 | kj << 24)
     ents = sorted(h, key=lambda e: -len(h[e]))  # stable: ties in entry order
     return ents, [h[e] for e in ents], g
 
@@ -245,7 +243,7 @@ def pack_model(
     if any(len([c for c in crows if c[0] == si]) > 4 for si in range(len(slots))):
         raise ValueError("the kernel takes at most 4 rows per contact slot")
     rows = _row_dofs(meta, crows)
-    ents, hterms, gterms = _tables(nv, rows, len(floss) + len(limits), max(maxd, 1) | 1)
+    ents, hterms, gterms = _tables(nv, rows)
     pairs = [_ldl_pairs(anc, nv) for anc in (meta.anc_strict, meta.anc_solver)]
     h_base, h_words = _interleave(hterms)
     _, g_words = _interleave(gterms)
