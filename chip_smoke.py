@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through the entry points a user calls
-(`get_env`, `MBDPI`, `make_control_step`), each at its task's full planner
-width with 8 substeps per control, after building that model's substep
-kernel from the sources in this checkout and holding it against its plain
-PyTorch version on the card:
+Drives the port's paths through the entry points a user calls
+(`get_env`, `MBDPI`, `make_control_step`, and the CLI's `run`), each at its
+task's full planner width with 8 substeps per control, after building that
+model's substep kernel from the sources in this checkout and holding it
+against its plain PyTorch version on the card:
 
 - go2_stand on the Go2 stand-in scene (plane-sphere contacts), Nsample=2048,
   Hsample=20, Hnode=5: the reference benchmark workload;
@@ -15,39 +15,56 @@ PyTorch version on the card:
   Nsample=2048, Hsample=25, Hnode=5;
 - h1_push_crate on the H1 humanoid stand-in with a crate on its own slide
   joint (all six kinds, and contact rows that couple the robot's and the
-  crate's kinematic trees), Nsample=2048, Hsample=32, Hnode=8.
+  crate's kinematic trees), Nsample=2048, Hsample=32, Hnode=8;
+- go2_trot_position on the Go2 position stand-in (12 position servos: the
+  kernel's affine-bias actuator branch), Nsample=2048, Hsample=20, Hnode=5;
+- h1_walk and h1_loco (the arms-fixed H1, 11 motors) on their crate-free
+  stand-ins, Nsample=2048, Hsample=32, Hnode=8.
 
-Phases, for each path (each prints its lines; any failure exits non-zero
-with no result), after the card as nvidia-smi reports its name and power
-limit:
-  1. the kernel build (nvcc, sm_90a) for this model, with ptxas' register,
-     stack and spill lines and the launch shape (bytes of shared memory per
-     sample, samples per block, resident blocks per SM);
+All six kernels are built first, in parallel (one nvcc each).  Phases, for
+each path (each prints its lines; any failure exits non-zero with no
+result), after the card as nvidia-smi reports its name and power limit:
+  1. the kernel build for this model, with ptxas' register, stack and spill
+     lines and the launch shape (bytes of shared memory per sample, samples
+     per block, resident blocks per SM);
   2. kernel vs plain version on the same inputs, B=2049 and B=1, 8
-     substeps; on the crate models, inputs that touch every contact kind
-     (and on H1, slots that span both trees), counted, printed and checked;
-     the kernel's time per call at B=2049 and B=1 and the plain version's
-     at B=2049, and the kernel's at B=8192 (the JAX package's bench timed
-     h1_push_crate at N8192); the kernel's bound (the
-     plain substep's fp32 operations, fused.count_ops, at 67 TFLOP/s) and
-     its share of the measured time;
+     substeps; on the models with more than plane-sphere contacts, inputs
+     that touch every contact kind of the scene (and on the push-crate H1,
+     slots that span both trees), counted, printed and checked; on the
+     servo model, how often its ctrl and force clamps bind and the size of
+     the bias terms, checked nonzero; the kernel's time per call at B=2049
+     and B=1 and the plain version's at B=2049, on the first four paths
+     also at B=8192 (the JAX package's bench timed h1_push_crate at
+     N8192); the kernel's bound (the plain substep's fp32 operations,
+     fused.count_ops, at 67 TFLOP/s) and its share of the measured time;
   3. the main path: reset, the reverse warm start, 3 control steps, with the
-     kernel's launch count checked, plus a small reverse_once checked against
-     the plain substep chain (on the crate tasks from a state at the crate),
-     then timings, 3 `reverse_once` and 2 control steps under
-     torch.profiler (wall ms, device busy ms and idle share, the fused
-     kernel's device ms and launches, the other kernels', and the host's
-     cudaStreamSynchronize calls and wait; wall includes the profiler's
-     own cost), and the path's wall seconds.
+     kernel's launch count checked, then timings: on the first four paths a
+     small reverse_once checked against the plain substep chain (on the
+     crate tasks from a state at the crate), 5 timed `reverse_once` and
+     control steps and a torch.profiler window over 3 and 2 of them (wall
+     ms, device busy ms and idle share, the fused kernel's device ms and
+     launches, the trace's count of them held against the launch counter,
+     the other kernels', and the host's cudaStreamSynchronize calls and
+     wait; wall includes the profiler's own cost); on h1_walk and
+     h1_loco one timed `reverse_once` and control step; and the path's wall
+     seconds.
+After go2_trot_position, the [cli] phase runs the CLI's `run` on it at full
+width: 6 steps with telemetry and a trajectory file, 3 steps with a
+checkpoint and a resume to 6, and `--scan`, each with its launch count
+checked, the resumed and scanned trajectories bit-equal to the host loop's;
+and one `reverse_once` with diag_states, whose Ybar must equal the plain
+one's to the bit.
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
@@ -126,6 +143,28 @@ def h1_crate_inputs(model, B, seed, device):
     return _inputs_from(h1_crate_states, model, B, seed, device, row=4, n_min=10)
 
 
+def servo_inputs(model, B, seed, device):
+    """Go2 position-servo inputs: near-home states and joint targets about
+    each sample's joints, so the servos' ctrl and force clamps bind for some
+    samples and not for others (see tests/torch_port_helpers.py:servo_states)."""
+    import numpy as np
+    import torch
+
+    from torch_port_helpers import servo_states
+
+    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+            for a in servo_states(model, np.random.default_rng(seed), B)]
+
+
+def h1_floor_inputs(model, B, seed, device):
+    """Crate-free H1 inputs that touch every contact kind of the scene, all
+    against the floor (tests/torch_port_helpers.py:h1_floor_states).  At
+    B=1: a sample on its back, the torso box's corner in the floor."""
+    from torch_port_helpers import h1_floor_states
+
+    return _inputs_from(h1_floor_states, model, B, seed, device, row=7, n_min=10)
+
+
 def go2_at_crate(qpos):
     qpos[0] = CRATE_FACE_X
 
@@ -143,6 +182,9 @@ class SmokePath(NamedTuple):
     inputs: Callable  # (model, B, seed, device) -> kernel inputs for the compare
     at_crate: Optional[Callable]  # moves the reset qpos to the crate, in place
     big_batch: Optional[int]  # a larger batch the kernel is also timed at
+    # the small reverse_once against the plain chain, 5 timed repetitions
+    # and the profile window; else one timed reverse_once and control step
+    full: bool = True
 
 
 PATHS = (
@@ -152,7 +194,11 @@ PATHS = (
     # the JAX package's bench timed h1_push_crate at N2048/H32 and N8192/H32
     SmokePath("h1_push_crate", "h1_push_crate", (2048, 32, 8, 8), h1_crate_inputs,
               h1_at_crate, 8192),
+    SmokePath("go2_trot_position", "go2_position", (2048, 20, 5, 8), servo_inputs, None, 8192),
+    SmokePath("h1_walk", "h1_walk", (2048, 32, 8, 8), h1_floor_inputs, None, None, full=False),
+    SmokePath("h1_loco", "h1_loco", (2048, 32, 8, 8), h1_floor_inputs, None, None, full=False),
 )
+CLI_TASK = "go2_trot_position"
 
 
 def cuda_ms(fn, reps):
@@ -179,11 +225,20 @@ def phase_card():
     return line
 
 
+def phase_build_all(envs):
+    """Every path's kernel, built at once: one nvcc process per model."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(envs)) as pool:
+        list(pool.map(lambda e: e.fused_step.compile(), envs))
+    print(f"[build] {len(envs)} builds of fused_step.cu for sm_90a in parallel: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
 def phase_build(env, device, tag):
     t0 = time.perf_counter()
     lib = env.fused_step.library(device)
     secs = time.perf_counter() - t0
-    print(f"[build {tag}] fused_step.cu for sm_90a: {secs:.2f} s (nvcc + load + model upload)")
+    print(f"[build {tag}] fused_step.cu for sm_90a: {secs:.2f} s (load + model upload)")
     for line in (env.fused_step.build_log or "").splitlines():
         if any(k in line for k in ("registers", "spill", "stack frame")):
             print(f"[build {tag}] {line.strip()}")
@@ -211,13 +266,25 @@ def phase_compare(env, path, device, tag):
 
     from tpu_dialmpc_torch.dynamics import fused
 
+    from torch_port_helpers import servo_clamps
+
     fs = env.fused_step
     crate = len(env.model.pairs) > 1
     two_trees = any(fused.spans_two_trees(env.model, s) for s in fs.meta.contact_slots)
+    servos = bool(env.model.actuator_biasprm.any())
     names = ("qpos", "qvel", "warmstart", "derived")
     worst, ms = 0.0, {}
     for B, seed in ((2049, 0), (1, 1)):
         args = path.inputs(env.model, B, seed, device)
+        if servos:
+            n_ctrl, n_force, bias = servo_clamps(
+                env.model, *(a.cpu().numpy() for a in (args[0], args[1], args[3])))
+            print(f"[compare {tag}] B={B} servos (affine bias): max |b1 q + b2 qdot| "
+                  f"{bias:.3f} N m; ctrl clamped {n_ctrl}, force clamped {n_force} of "
+                  f"{B * env.model.nu}")
+            check(bias > 0.0, f"B={B}: the servos' bias terms are 0, the affine branch is not live")
+            if B > 1:
+                check(n_ctrl > 0 and n_force > 0, f"B={B}: a servo clamp never binds")
         if crate:
             active = fused.active_contacts(env.model, args[0])
             line = ", ".join(f"{KIND_NAMES[k]} {n}" for k, n in active.items())
@@ -304,6 +371,16 @@ def make_env(task, scene, width, device):
     return env, cfg
 
 
+def expected_launches(cfg, n_steps, t0=0):
+    """Kernel launches of `n_steps` control steps: the reverse warm start
+    (Ndiffuse-1 reverse_once), the first step (one B=1 step, Ndiffuse_init
+    reverse_once), the rest (one B=1 step, Ndiffuse reverse_once each);
+    from step t0 > 0 (a resume) no warm start or first step."""
+    horizon = cfg.Hsample + 1
+    first = (cfg.Ndiffuse - 1) * horizon + (1 + cfg.Ndiffuse_init * horizon)
+    return (first if t0 == 0 else 0) + (n_steps - max(t0, 1)) * (1 + cfg.Ndiffuse * horizon)
+
+
 def run_main_path(env, cfg, device, task, envs):
     import torch
 
@@ -317,11 +394,7 @@ def run_main_path(env, cfg, device, task, envs):
     step_rest = make_control_step(mbdpi, cfg.Ndiffuse)
     n_steps = 3
     horizon = cfg.Hsample + 1
-    expected = (
-        (cfg.Ndiffuse - 1) * horizon  # reverse: Ndiffuse-1 reverse_once
-        + (1 + cfg.Ndiffuse_init * horizon)  # first control step
-        + (n_steps - 1) * (1 + cfg.Ndiffuse * horizon)  # the rest
-    )
+    expected = expected_launches(cfg, n_steps)
 
     for e in envs:  # every count to 0 just before this path
         e.fused_step.launches = 0
@@ -395,18 +468,23 @@ def check_small_against_plain(env, cfg, path, device):
         check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
 
 
-def _profile_window(fn, n):
-    """fn() n times under torch.profiler: where the window's time went."""
+def _profile_window(fn, n, fused_step):
+    """fn() n times under torch.profiler: where the window's time went.  The
+    trace's count of fused-kernel records is held against the launch
+    counter: a record lost from the trace is reported, with the window's
+    kernel launches that have no device record and where they fall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    launched = fused_step.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    launched = fused_step.launches - launched
     kernels, syncs = [], []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total", None)
@@ -419,18 +497,37 @@ def _profile_window(fn, n):
     fused = [k for k in kernels if "fused_step_kernel" in k[0]]
     others = [k for k in kernels if "fused_step_kernel" not in k[0]]
     busy = sum(k[2] for k in kernels)
+    traced = sum(k[1] for k in fused)
+    if traced != launched:
+        raw = list(prof.profiler.kineto_results.events())
+        on_device = {e.correlation_id() for e in raw if not str(e.device_type()).endswith("CPU")}
+        lost = [e for e in raw if "LaunchKernel" in e.name() and e.correlation_id() not in on_device]
+        start = min(e.start_ns() for e in raw)
+        print(f"[profile] the trace holds {traced} of the window's {launched} fused-kernel "
+              f"launches ({sum('fused_step_kernel' in e.name() for e in raw)} raw device "
+              f"records); {len(lost)} kernel launches have no device record, at "
+              f"{[round((e.start_ns() - start) / 1e6, 3) for e in lost[:8]]} ms into the "
+              f"{(max(e.end_ns() for e in raw) - start) / 1e6:.1f} ms window")
+    # one record lost per window was seen on the card (PERF.md section 5): it
+    # undercounts device time by one kernel call, and no more is accepted
+    check(launched - 1 <= traced <= launched,
+          f"the profile window traced {traced} fused-kernel launches of the {launched} made")
     return {
         "calls": n, "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
-        "fused_ms": sum(k[2] for k in fused), "fused_launches": sum(k[1] for k in fused),
+        "fused_ms": sum(k[2] for k in fused), "fused_launches": launched,
+        "fused_traced": traced,
         "other_kernels": sum(k[1] for k in others), "other_ms": sum(k[2] for k in others),
         "stream_syncs": sum(s[0] for s in syncs), "sync_wait_ms": sum(s[1] for s in syncs),
     }
 
 
-def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task):
+def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task, full):
+    """Median wall ms of `reverse_once` and of a control step (5 timed
+    repetitions and the profile window, or one of each)."""
     import torch
 
     scale = torch.as_tensor(mbdpi.sigma_control, dtype=torch.float32, device=device)
+    reps = 5 if full else 1
 
     def timed(fn, reps):
         fn()  # warm-up
@@ -443,14 +540,126 @@ def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task):
             out.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(out)
 
-    ro_ms = timed(lambda: mbdpi.reverse_once(state, gen, Y0, scale), 5)
-    cs_ms = timed(lambda: step_rest(state, Y0, gen), 5)
+    ro_ms = timed(lambda: mbdpi.reverse_once(state, gen, Y0, scale), reps)
+    cs_ms = timed(lambda: step_rest(state, Y0, gen), reps)
     print(f"[time {task}] median ms per reverse_once: {ro_ms:.2f}; per control step "
-          f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f}")
+          f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f} ({reps} timed)")
+    if not full:
+        return ro_ms, cs_ms
     for name, fn, n in (("reverse_once", lambda: mbdpi.reverse_once(state, gen, Y0, scale), 3),
                         ("control_step", lambda: step_rest(state, Y0, gen), 2)):
-        print(f"[profile {task}] {name}: {json.dumps(_profile_window(fn, n))}")
+        window = _profile_window(fn, n, mbdpi.env.fused_step)
+        print(f"[profile {task}] {name}: {json.dumps(window)}")
     return ro_ms, cs_ms
+
+
+OUT_KEYS = {"rewards", "qpos", "qvel", "us", "dones", "qpos0", "qvel0", "warmstart0", "dt"}
+RECORD_KEYS = ["t", "time", "reward", "done", "z", "ess", "entropy", "rew_mean", "rew_max",
+               "rew_std"]
+
+
+def phase_cli(cfg):
+    """The CLI's `run` on CLI_TASK at its full width, on the card: a 6-step
+    run with telemetry and a trajectory file, a 3-step run with a
+    checkpoint, its resume to 6 steps, and `--scan`; each run's launches
+    against the formula, the resumed and scanned trajectories bit-equal to
+    the 6-step run's.  Returns (host loop s, --scan s) for the 6 steps."""
+    import numpy as np
+
+    import tpu_dialmpc_torch.envs as envs_mod
+    from tpu_dialmpc_torch.cli import main as cli
+
+    out = ROOT / "build" / "smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    made = []  # the env each run builds, to read its kernel's launch count
+    get_env = envs_mod.get_env
+
+    def recording_get_env(*args, **kw):
+        made.append(get_env(*args, **kw))
+        return made[-1]
+
+    def run(expected, *flags):
+        argv = ["run", "--task", CLI_TASK, *flags]
+        print(f"[cli] main({argv})", flush=True)
+        t0 = time.perf_counter()
+        check(cli.main(argv) == 0, f"the CLI run {flags} failed")
+        secs = time.perf_counter() - t0
+        launches = made[-1].fused_step.launches
+        print(f"[cli] {secs:.2f} s; kernel launches {launches} (expected {expected})")
+        check(launches == expected, "the CLI run did not launch the kernel as expected")
+        return secs
+
+    envs_mod.get_env = recording_get_env
+    try:
+        loop_s = run(expected_launches(cfg, 6), "--n-steps", "6",
+                     "--telemetry", str(out / "t.jsonl"), "--out", str(out / "full.npz"))
+        run(expected_launches(cfg, 3), "--n-steps", "3", "--checkpoint", str(out / "ck.npz"))
+        run(expected_launches(cfg, 6, t0=3), "--resume", str(out / "ck.npz"), "--n-steps", "6",
+            "--out", str(out / "resumed.npz"))
+        scan_s = run(expected_launches(cfg, 6), "--scan", "--n-steps", "6",
+                     "--out", str(out / "scan.npz"))
+    finally:
+        envs_mod.get_env = get_env
+
+    records = [json.loads(line) for line in (out / "t.jsonl").read_text().splitlines()]
+    print(f"[cli] telemetry: {len(records)} records, keys {list(records[0]) if records else []}")
+    check(len(records) == 6 and [r["t"] for r in records] == list(range(6)),
+          "telemetry did not write one record per step")
+    check(all(list(r) == RECORD_KEYS for r in records), "telemetry records lack the JAX keys")
+    with np.load(out / "full.npz") as full, np.load(out / "resumed.npz") as resumed, \
+            np.load(out / "scan.npz") as scan:
+        for name, data in (("full", full), ("resumed", resumed), ("scan", scan)):
+            check(set(data.files) == OUT_KEYS, f"{name}.npz has keys {sorted(data.files)}")
+        check(bool(np.isfinite(full["rewards"]).all()), "non-finite rewards in the CLI run")
+        print(f"[cli] rewards {full['rewards'].round(5).tolist()}, "
+              f"torso z {float(full['qpos'][-1, 2]):.4f}")
+        for k in ("rewards", "qpos", "us"):
+            diff = np.abs(resumed[k] - full[k][3:]).max()
+            print(f"[cli] resumed from step 3 vs the 6-step run, steps 3-5 {k}: max abs diff {diff}")
+            check(np.array_equal(resumed[k], full[k][3:]), f"the resumed run's {k} differ")
+        for k in ("rewards", "dones", "qpos", "qvel", "us"):
+            diff = np.abs(scan[k].astype(np.float64) - full[k]).max()
+            print(f"[cli] --scan vs the host loop {k}: max abs diff {diff}")
+            check(np.array_equal(scan[k], full[k]), f"--scan's {k} differ from the host loop's")
+    print(f"[cli] 6 steps at N{cfg.Nsample}/H{cfg.Hsample}: host loop with telemetry "
+          f"{loop_s:.2f} s, --scan {scan_s:.2f} s (each with its env's set-up)")
+    return loop_s, scan_s
+
+
+def phase_diag(env, cfg, device):
+    """One full-width reverse_once with diag_states and one without, from
+    the same generator state: the same Ybar to the bit, and finite weighted
+    states of the right shapes."""
+    import dataclasses
+
+    import torch
+
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+
+    state = to_lean(env.reset())
+    Y = torch.zeros((cfg.Hnode + 1, env.action_size), device=device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    start = gen.get_state()
+    out = []
+    for diag in (True, False):
+        mb = MBDPI(dataclasses.replace(cfg, diag_states=diag), env)
+        scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
+        gen.set_state(start)
+        out.append(mb.reverse_once(state, gen, Y, scale))
+    (dY, dinfo), (pY, pinfo) = out
+    torch.cuda.synchronize()
+    T = cfg.Hsample + 1
+    shapes = {f: tuple(getattr(dinfo, f).shape) for f in ("qbar", "qdbar", "xbar")}
+    print(f"[diag] reverse_once with diag_states: Ybar max abs diff from the plain one "
+          f"{(dY - pY).abs().max().item()}; {shapes}; xbar[-1] {dinfo.xbar[-1].tolist()}")
+    check(torch.equal(dY, pY) and torch.equal(dinfo.weights, pinfo.weights),
+          "diag_states changed the planner's update")
+    check(shapes == {"qbar": (T, env.model.nq), "qdbar": (T, env.model.nv), "xbar": (T, 3)},
+          "diag_states' weighted states are misshapen")
+    check(all(bool(torch.isfinite(getattr(dinfo, f)).all()) for f in shapes),
+          "non-finite weighted states")
 
 
 def main():
@@ -471,10 +680,12 @@ def main():
     device = torch.device("cuda", 0)
 
     records, summary = [], []
+    t_start = time.perf_counter()
     try:
         card = phase_card()
         envs = [(path,) + make_env(path.task, path.scene, path.width, device) for path in PATHS]
         all_envs = [env for _, env, _ in envs]
+        phase_build_all(all_envs)
         for path, env, cfg in envs:
             t0 = time.perf_counter()
             task, scene = path.task, path.scene
@@ -483,12 +694,20 @@ def main():
             ops, bound = phase_bound(env, ms, scene)
             mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
                 env, cfg, device, task, all_envs)
-            check_small_against_plain(env, cfg, path, device)
-            ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task)
+            if path.full:
+                check_small_against_plain(env, cfg, path, device)
+            ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task,
+                                          path.full)
             print(f"[time {task}] path wall {time.perf_counter() - t0:.1f} s")
             summary.append(f"{task} reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
                            f"fused_step[{scene}] {ms[2049]:.3f} ms vs plain {plain_ms:.1f} ms, "
                            f"bound {bound:.4f} ms")
+            if task == CLI_TASK:
+                t0 = time.perf_counter()
+                loop_s, scan_s = phase_cli(cfg)
+                phase_diag(env, cfg, device)
+                print(f"[time cli] phase wall {time.perf_counter() - t0:.1f} s")
+                summary.append(f"cli run 6 steps {loop_s:.2f} s, --scan {scan_s:.2f} s")
             records.append({
                 "name": f"fused_step[{scene}]",
                 "route": "cuda",
@@ -509,6 +728,7 @@ def main():
         return 1
 
     print(f"[summary] {card}, per call at B=2049: " + "; ".join(summary))
+    print(f"[summary] total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,8 +7,9 @@ with its `save_model`:
     PYTHONPATH=. python tests/assets/export_npz.py
 
 writes `tpu_dialmpc_torch/assets/<scene>.npz` for every scene in SCENES: the
-Go2 flat-ground scene, the Go2 crate scene (crate at its XML pose) and the
-H1 push-crate scene.  Each file also carries the joint names (entry
+Go2 flat-ground scene with torque motors and with position servos, the Go2
+crate scene (crate at its XML pose), and the H1 push-crate, walking and
+arms-fixed (loco) scenes.  Each file also carries the joint names (entry
 `jnt_names`, "" for an unnamed joint), which `save_model` does not write and
 the H1 env reads to size its arm actions.  `tests/test_torch_model.py` and
 `tests/test_torch_h1_model.py` check that each committed file equals a fresh
@@ -23,7 +24,7 @@ import numpy as np
 
 ASSETS = Path(__file__).resolve().parent
 OUT_DIR = ASSETS.parent.parent / "tpu_dialmpc_torch" / "assets"
-SCENES = ("go2_force", "go2_force_crate", "h1_push_crate")
+SCENES = ("go2_force", "go2_force_crate", "go2_position", "h1_push_crate", "h1_walk", "h1_loco")
 TIMESTEP = 0.0025  # the envs' default timestep (envs/go2.py, envs/h1.py config)
 
 

@@ -1,8 +1,9 @@
 """torch port, the fused substep kernel on the card, for the Go2 stand-in
-(plane-sphere contacts), the crate stand-in (all six contact kinds) and the
+(plane-sphere contacts), the crate stand-in (all six contact kinds), the
 H1 push-crate stand-in (all six kinds, and contact rows that couple the
-robot's and the crate's kinematic trees): marked `cuda`, and each test
-skips without a CUDA device.
+robot's and the crate's kinematic trees), the Go2 position stand-in (the
+servos' affine-bias branch) and the arms-fixed H1 (h1_loco): marked
+`cuda`, and each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -26,7 +27,10 @@ from torch_port_helpers import (
     PORT_NPZ,
     crate_states,
     h1_crate_states,
+    h1_floor_states,
     near_home_states,
+    servo_clamps,
+    servo_states,
 )
 from tpu_dialmpc_torch.dynamics import fused, fused_cuda
 from tpu_dialmpc_torch.dynamics.model import load_model
@@ -194,3 +198,34 @@ def test_launch_shapes_match_plain_on_card(card, scene, batch):
     for o, r in zip(out, ref):
         assert o.shape == r.shape and bool(torch.isfinite(o).all())
         assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("scene", ["go2_position", "h1_loco"])
+def test_new_scene_kernels_bit_equal_to_plain_on_card(card, scene):
+    """B=2049, 8 substeps, equal to the bit: the position servos with their
+    ctrl and force clamps binding for some samples (the affine-bias branch),
+    and the arms-fixed H1 with every contact kind of its scene active."""
+    m = load_model(str(PORT_NPZ.with_name(f"{scene}.npz")))
+    rng = np.random.default_rng(7)
+    B = 2049
+    if scene == "go2_position":
+        arrays = servo_states(m, rng, B)
+        clamped_ctrl, clamped_force, bias = servo_clamps(m, *arrays[:2], arrays[3])
+        assert clamped_ctrl > 0 and clamped_force > 0 and bias > 1.0
+        torso = "base"
+    else:
+        qpos, qvel = h1_floor_states(m, rng, B)
+        arrays = (qpos, qvel, np.zeros((B, m.nv)), rng.uniform(-10, 10, (B, m.nu)))
+        torso = "pelvis"
+    args = [torch.as_tensor(a, dtype=torch.float32, device=card).contiguous() for a in arrays]
+    if scene == "h1_loco":
+        active = fused.active_contacts(m, args[0])
+        assert len(active) == 3 and all(n > 0 for n in active.values()), active
+    fs = fused_cuda.FusedStep(m, 8, fused.DerivedSpec(
+        torso_body=m.body_names.index(torso), want_sites=True, want_qfrc_actuator=True))
+    out = fs(*args)
+    ref = fs.plain(*args)
+    torch.cuda.synchronize()
+    assert fs.launches == 1
+    for o, r in zip(out, ref):
+        assert bool(torch.isfinite(o).all()) and torch.equal(o, r)

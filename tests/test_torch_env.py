@@ -159,11 +159,31 @@ def test_foot_step_targets_match_jax(name):
     assert tgait.GAIT_PHASES[name] == jgait.GAIT_PHASES[name]
 
 
-def test_unported_options_raise():
-    for kw in (dict(randomize_tasks=True), dict(leg_control="position"),
-               dict(joint_range_source="climb")):
+OPTIONS = {
+    "randomize_tasks": dict(randomize_tasks=True),
+    "position": dict(leg_control="position", scene="go2_position"),
+    "climb_ranges": dict(joint_range_source="climb"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_unported_options_raise(monkeypatch, option):
+    """randomize_tasks and the "climb" range table are not ported and raise.
+    Position leg control is: the env builds on the position scene, and its
+    ctrl map (the action's joint targets) matches the JAX env's."""
+    if option != "position":
         with pytest.raises(NotImplementedError):
-            get_env("go2_stand", device="cpu", **kw)
+            get_env("go2_stand", device="cpu", **OPTIONS[option])
+        return
+    jenv, tenv = _envs(monkeypatch, OPTIONS[option])
+    arrays, _ = _inputs(tenv, seed=3)
+    act = np.random.default_rng(4).uniform(-1.2, 1.2, size=(B, tenv.action_size))
+    want = jenv._ctrl_batch(jnp.asarray(act), jnp.asarray(arrays["qpos"]),
+                            jnp.asarray(arrays["qvel"]))
+    got = tenv._ctrl_batch(torch.as_tensor(act), torch.as_tensor(arrays["qpos"]),
+                           torch.as_tensor(arrays["qvel"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+    assert torch.equal(got, tenv.act2joint(torch.as_tensor(act)))
 
 
 def test_crate_options_need_the_crate_scene():

@@ -192,8 +192,29 @@ def test_biped_foot_step_targets_match_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
 
 
-def test_unported_h1_options_raise():
-    for kw in (dict(randomize_tasks=True), dict(leg_control="position"),
-               dict(fused="off"), dict(joint_range_source="other")):
+H1_OPTIONS = {
+    "randomize_tasks": dict(randomize_tasks=True),
+    "position": dict(leg_control="position"),
+    "fused_off": dict(fused="off"),
+    "other_ranges": dict(joint_range_source="other"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(H1_OPTIONS))
+def test_unported_h1_options_raise(monkeypatch, option):
+    """randomize_tasks, the XLA physics path and unknown range sources are
+    not ported and raise.  Position leg control is: its ctrl map (the
+    action's joint targets) matches the JAX env's."""
+    if option != "position":
         with pytest.raises(NotImplementedError):
-            get_env(TASK, device="cpu", **kw)
+            get_env(TASK, device="cpu", **H1_OPTIONS[option])
+        return
+    jenv, tenv = _envs(monkeypatch, H1_OPTIONS[option])
+    arrays, _ = _inputs(tenv, seed=3)
+    act = np.random.default_rng(4).uniform(-1.2, 1.2, size=(B, tenv.action_size))
+    want = jenv._ctrl_batch(jnp.asarray(act), jnp.asarray(arrays["qpos"]),
+                            jnp.asarray(arrays["qvel"]))
+    got = tenv._ctrl_batch(torch.as_tensor(act), torch.as_tensor(arrays["qpos"]),
+                           torch.as_tensor(arrays["qvel"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+    assert torch.equal(got, tenv.act2joint(torch.as_tensor(act)))

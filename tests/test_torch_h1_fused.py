@@ -20,16 +20,13 @@ Tolerances, with their reasons:
   functions, within the envelope of test_torch_fused.py's host-build test.
 """
 
-import ctypes
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import h1_crate_states, jax_standin_model, port_model_from
+from torch_port_helpers import h1_crate_states, jax_standin_model, port_model_from, use_host_math
 from tpu_dialmpc.dynamics import fused as jfused
 from tpu_dialmpc.dynamics import pipeline
 from tpu_dialmpc_torch.dynamics import fused as tfused
@@ -191,13 +188,6 @@ def test_h1_kernel_source_host_build_matches_plain(models, host_build):
     assert kinds == set(tm.pairs)
 
 
-def _libm():
-    lib = ctypes.CDLL("libm.so.6")
-    for fn in (lib.sinf, lib.cosf):
-        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
-    return lib
-
-
 def test_h1_kernel_source_host_build_bit_equal_to_plain(models, host_build, monkeypatch):
     """8 substeps: the host build equals the plain float32 version to the
     bit once the plain version's sin, cos and sqrt are the host's (glibc's
@@ -205,19 +195,7 @@ def test_h1_kernel_source_host_build_bit_equal_to_plain(models, host_build, monk
     differently).  On the card both sides use the same CUDA math library,
     which is why the kernel equals the plain version there."""
     _, tm = models
-    libm = _libm()
-
-    def host(fn, exact):
-        def f(a):
-            if tfused._isf(a):
-                return exact(float(a))
-            return torch.tensor([fn(x) for x in a.tolist()], dtype=a.dtype).reshape(a.shape)
-        return f
-
-    monkeypatch.setattr(tfused, "ssin", host(libm.sinf, math.sin))
-    monkeypatch.setattr(tfused, "scos", host(libm.cosf, math.cos))
-    monkeypatch.setattr(tfused, "ssqrt", lambda a: math.sqrt(float(a)) if tfused._isf(a)
-                        else torch.from_numpy(np.sqrt(a.numpy())))
+    use_host_math(monkeypatch)
     args = _host_inputs(tm, seed=3)
     outs = _host_step(host_build, tm, args, 8)
     plain = tfused.build_fused_step(tm, 8, SPEC)(*args)

@@ -9,7 +9,6 @@ import dataclasses
 import pytest
 
 from torch_port_helpers import (
-    CRATE_NPZ,
     PORT_NPZ,
     assert_same as _assert_same,
     assert_same_model,
@@ -30,17 +29,38 @@ def jax_model(monkeypatch):
     return jax_standin_model(monkeypatch)
 
 
-def test_committed_npz_equals_fresh_compile(jax_model, monkeypatch):
-    port = load_model(str(PORT_NPZ))
-    assert_same_model(port, jax_model)
-    assert port.jnt_names == standin_joint_names(monkeypatch, "go2_force")
+PLANE_KINDS = [(0, 2), (0, 3), (0, 6)]  # plane-sphere, plane-capsule, plane-box
+SCENES = {  # scene: (nq, nv, nu), contact pair kinds, servos (affine bias) or motors
+    "go2_force": ((19, 18, 12), [(0, 2)], False),
+    "go2_force_crate": ((19, 18, 12), PLANE_KINDS + [(2, 6), (3, 6), (6, 6)], False),
+    "go2_position": ((19, 18, 12), [(0, 2)], True),
+    "h1_walk": ((26, 25, 19), PLANE_KINDS, False),
+    "h1_loco": ((18, 17, 11), PLANE_KINDS, False),
+}
 
 
-def test_committed_crate_npz_equals_fresh_compile(monkeypatch):
-    jax_crate = jax_standin_model(monkeypatch, "go2_force_crate")
-    port = load_model(str(CRATE_NPZ))
-    assert_same_model(port, jax_crate)
-    assert port.jnt_names == standin_joint_names(monkeypatch, "go2_force_crate")
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_committed_npz_equals_fresh_compile(monkeypatch, scene):
+    """Each committed Go2/H1 model file equals a fresh compile of its
+    stand-in, with the joint names, and the port's static metadata equals
+    the JAX package's."""
+    jm = jax_standin_model(monkeypatch, scene)
+    port = load_model(str(PORT_NPZ.with_name(f"{scene}.npz")))
+    assert_same_model(port, jm)
+    assert port.jnt_names == standin_joint_names(monkeypatch, scene)
+    widths, kinds, servos = SCENES[scene]
+    assert (port.nq, port.nv, port.nu) == widths and sorted(port.pairs) == kinds
+    assert tfused.supported(port) and jfused.supported(jm)
+    for field in ("anc_strict", "m_keys", "anc_solver", "contact_slots", "limit_rows",
+                  "floss_rows"):
+        assert getattr(tfused._meta(port), field) == getattr(jfused._meta(jm), field), field
+    if servos:
+        # the servos' affine bias kp (ctrl - q) - kv qdot, clamped in ctrl and force
+        assert port.actuator_biasprm.tolist() == [[0.0, -30.0, -0.65]] * 12
+        assert port.actuator_gainprm.tolist() == [30.0] * 12
+        assert port.actuator_ctrllimited.all() and port.actuator_forcelimited.all()
+    else:
+        assert not port.actuator_biasprm.any()
 
 
 @pytest.mark.parametrize("task", ["go2_crate", "go2_crate_climb", "go2_jump"])

@@ -171,5 +171,27 @@ def test_run_is_the_control_loop_written_out():
 
 @pytest.mark.parametrize("flag", ["compat_q1", "diag_states"])
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        tdial.MBDPI(tdial.DialConfig(**{flag: True}), TorchStubEnv())
+    """compat_q1 is not ported and raises.  diag_states is: the weighted
+    rollout states match the JAX planner's, and Ybar is the plain one."""
+    if flag == "compat_q1":
+        with pytest.raises(NotImplementedError):
+            tdial.MBDPI(tdial.DialConfig(**{flag: True}), TorchStubEnv())
+        return
+    jmb, tmb = _planners(diag_states=True)
+    _, plain = _planners()
+    rng = np.random.default_rng(9)
+    qpos = rng.normal(size=4)
+    Y = rng.uniform(-0.5, 0.5, size=(CFG["Hnode"] + 1, 4))
+    noise = rng.normal(size=(CFG["Nsample"], CFG["Hnode"] + 1, 4))
+    scale = np.linspace(0.2, 1.0, CFG["Hnode"] + 1)
+    jY, jinfo = jmb.reverse_once(_jax_state(qpos), None, jnp.asarray(Y),
+                                 jnp.asarray(scale), noise=jnp.asarray(noise))
+    outs = [mb.reverse_once(_torch_state(qpos), None, torch.as_tensor(Y),
+                            torch.as_tensor(scale), noise=torch.as_tensor(noise))
+            for mb in (tmb, plain)]
+    (tY, tinfo), (pY, pinfo) = outs
+    _close(tY, jY)
+    assert torch.equal(tY, pY) and pinfo.qbar.shape == (1, 1)
+    assert tinfo.qbar.shape == (CFG["Hsample"] + 1, 4) and tinfo.xbar.shape == (CFG["Hsample"] + 1, 3)
+    for f in ("qbar", "qdbar", "xbar"):
+        _close(getattr(tinfo, f), getattr(jinfo, f))

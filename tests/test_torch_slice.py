@@ -280,13 +280,17 @@ def test_crate_control_step_matches_jax(crate_slice):
 
 
 def test_port_imports_neither_jax_nor_mujoco():
-    """At run time the port imports torch and numpy only, also with the H1
-    env built."""
+    """At run time the port imports torch and numpy only, also with the CLI,
+    checkpoint and telemetry modules loaded and the H1 and position envs
+    built."""
     code = (
         "import sys\n"
         "import tpu_dialmpc_torch, tpu_dialmpc_torch.envs, tpu_dialmpc_torch.planner.runner\n"
         "import tpu_dialmpc_torch.dynamics.fused_cuda, tpu_dialmpc_torch.envs.h1\n"
-        "tpu_dialmpc_torch.envs.get_env('h1_push_crate', device='cpu')  # reads no mujoco\n"
+        "import tpu_dialmpc_torch.cli.main, tpu_dialmpc_torch.checkpoint\n"
+        "import tpu_dialmpc_torch.telemetry\n"
+        "for task in ('h1_push_crate', 'go2_trot_position', 'h1_loco'):\n"
+        "    tpu_dialmpc_torch.envs.get_env(task, device='cpu')  # reads no mujoco\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mujoco', 'tpu_dialmpc'))\n"
         "print(bad)\n"

@@ -90,6 +90,34 @@ def near_home_states(model, rng, n, scale_q=0.1, scale_v=0.5):
     return qpos, qvel, ws
 
 
+def servo_states(model, rng, n):
+    """Inputs for the position-servo model (go2_position): near-home states
+    (test_fused.py's perturbation) and joint targets about each sample's
+    joints, spread so that some targets lie outside the servo's ctrlrange
+    and some forces kp (ctrl - q) - kv qdot outside its forcerange, and the
+    rest inside both.  Returns (qpos, qvel, ws, ctrl)."""
+    qpos, qvel, ws = near_home_states(model, rng, n, scale_q=0.05, scale_v=0.2)
+    ws[:] = 0.0
+    ctrl = qpos[:, 7:7 + model.nu] + rng.normal(scale=0.8, size=(n, model.nu))
+    return qpos, qvel, ws, ctrl
+
+
+def servo_clamps(model, qpos, qvel, ctrl):
+    """(ctrl clamped, force clamped, the largest |b1 q + b2 qdot|) over the
+    samples and servos: how much of the affine-bias actuator branch the
+    inputs exercise."""
+    qpos, qvel, ctrl = (np.asarray(a, np.float64) for a in (qpos, qvel, ctrl))
+    qadr, dadr = np.asarray(model.actuator_qposadr), np.asarray(model.actuator_dofadr)
+    lo, hi = np.asarray(model.actuator_ctrlrange).T
+    c = np.clip(ctrl, lo, hi)
+    b = np.asarray(model.actuator_biasprm)
+    bias = b[:, 0] + b[:, 1] * qpos[:, qadr] + b[:, 2] * qvel[:, dadr]
+    force = np.asarray(model.actuator_gainprm) * c + bias
+    flo, fhi = np.asarray(model.actuator_forcerange).T
+    return (int(((ctrl < lo) | (ctrl > hi)).sum()), int(((force < flo) | (force > fhi)).sum()),
+            float(np.abs(bias).max()))
+
+
 def _quat_rp(roll, pitch):
     cr, sr = np.cos(roll / 2), np.sin(roll / 2)
     cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
@@ -216,6 +244,84 @@ def h1_crate_states(model, rng, n):
     return qpos, qvel
 
 
+def use_host_math(monkeypatch):
+    """Make the plain version's sin, cos and sqrt the host's own (glibc's
+    sinf/cosf, IEEE sqrt), as the kernel's g++ host build calls them: torch's
+    CPU kernels round a few inputs in 1e3 differently.  With this the host
+    build and the plain float32 version are equal to the bit."""
+    import ctypes
+    import math
+
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import fused
+
+    libm = ctypes.CDLL("libm.so.6")
+    for fn in (libm.sinf, libm.cosf):
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+
+    def host(fn, exact):
+        def f(a):
+            if fused._isf(a):
+                return exact(float(a))
+            return torch.tensor([fn(x) for x in a.tolist()], dtype=a.dtype).reshape(a.shape)
+        return f
+
+    monkeypatch.setattr(fused, "ssin", host(libm.sinf, math.sin))
+    monkeypatch.setattr(fused, "scos", host(libm.cosf, math.cos))
+    monkeypatch.setattr(fused, "ssqrt", lambda a: math.sqrt(float(a)) if fused._isf(a)
+                        else torch.from_numpy(np.sqrt(a.numpy())))
+
+
+def h1_floor_states(model, rng, n):
+    """States on a crate-free H1 scene (h1_walk, h1_loco) where every
+    contact kind the scene has is active, each against the floor.
+
+    The joints are perturbed about home; by thirds, the robot
+    - stands, its lowest foot a few mm in the floor (plane-capsule);
+    - lies face down, its lower hand a few mm in the floor (plane-sphere);
+    - lies on its back, the torso box's lowest corner a few mm in the floor
+      (plane-box).
+    The pelvis height that does it comes from the plain forward kinematics
+    of each sample.  Returns (qpos, qvel), zero-mean velocities of scale
+    0.2."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import fused
+    from tpu_dialmpc_torch.dynamics.model import GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE
+
+    types = [int(t) for t in model.geom_type]
+    qpos = np.tile(np.asarray(model.key_qpos["home"], np.float64), (n, 1))
+    qpos[:, 7:] += rng.normal(scale=0.03, size=(n, model.nq - 7))
+    g = np.arange(n) * 3 // n
+    pitch = np.select([g == 1, g == 2], [np.pi / 2, -np.pi / 2], 0.0) + rng.uniform(-0.1, 0.1, n)
+    qpos[:, 3:7] = _quat_rp(np.zeros(n), np.where(g == 0, 0.0, pitch))
+    fk = fused._fk(model, list(torch.as_tensor(qpos).unbind(-1)))
+
+    def lowest(kind):
+        """(n,) the lowest z over the geoms of one type."""
+        out = []
+        for i, t in enumerate(types):
+            if t != kind:
+                continue
+            p = [np.broadcast_to(np.asarray(x, np.float64), (n,)) for x in fk["geom_xpos"][i]]
+            zrow = [np.broadcast_to(np.asarray(x, np.float64), (n,)) for x in fk["geom_xmat"][i][2]]
+            size = model.geom_size[i]
+            if t == GEOM_SPHERE:
+                out.append(p[2] - size[0])
+            elif t == GEOM_CAPSULE:
+                out.append(p[2] - np.abs(zrow[2]) * size[1] - size[0])
+            else:
+                out.append(p[2] - sum(np.abs(zrow[c]) * size[c] for c in range(3)))
+        return np.min(out, axis=0)
+
+    low = np.select([g == 0, g == 1], [lowest(GEOM_CAPSULE), lowest(GEOM_SPHERE)],
+                    lowest(GEOM_BOX))
+    qpos[:, 2] -= low + rng.uniform(0.002, 0.008, n)
+    qvel = rng.normal(scale=0.2, size=(n, model.nv))
+    return qpos, qvel
+
+
 class TorchStubEnv:
     """Torch copy of tests/stub_env.py's StubFusedEnv: linear dynamics
     qpos' = 0.9 qpos + 0.1 u, so the planner is tested without physics."""
@@ -247,17 +353,18 @@ class TorchStubEnv:
         reward = -((qpos2 - 1.0) ** 2).sum(-1) + 0.01 * qvel2.sum(-1)
         return qpos2, qvel2, reward
 
-    def rollout_batch(self, state, all_us):
+    def rollout_batch(self, state, all_us, want_states=False):
         import torch
 
         B = all_us.shape[0]
         qpos = state.pipeline.qpos.expand(B, self.nu)
         qvel = state.pipeline.qvel.expand(B, self.nu)
-        rews = []
+        outs = []
         for t in range(all_us.shape[1]):
             qpos, qvel, r = self._step_math(qpos, qvel, all_us[:, t])
-            rews.append(r)
-        return torch.stack(rews, dim=1)
+            outs.append((r, qpos, qvel, qpos[:, :3]) if want_states else (r,))
+        stacked = [torch.stack(x, dim=1) for x in zip(*outs)]
+        return tuple(stacked) if want_states else stacked[0]
 
     def step_lean(self, state, u):
         import dataclasses

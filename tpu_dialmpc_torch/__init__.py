@@ -10,8 +10,12 @@ compiled from MJCF.
 - `dynamics/`  the model container, the plain PyTorch substep chain
                (`fused.py`) and its CUDA kernel (`fused_cuda.py`,
                `csrc/fused_step.cu`)
-- `envs/`      the go2_stand environment and its batched rollouts
-- `planner/`   the MBDPI planner and the receding-horizon driver
+- `envs/`      the Go2 and H1 environments, their batched rollouts and the
+               13-task registry
+- `planner/`   the MBDPI planner and the receding-horizon drivers
+- `checkpoint.py`, `telemetry/`  checkpoints of the control loop, and its
+               JSONL telemetry stream
+- `cli/`       `python -m tpu_dialmpc_torch.cli.main run --task <task>`
 """
 
 import torch

@@ -1,0 +1,67 @@
+"""Checkpoint / resume for the receding-horizon control loop.
+
+Counterpart of `tpu_dialmpc/checkpoint.py`.  The planner is stateless per
+solve, so a control run resumes exactly from (qpos, qvel, warmstart, Y0,
+StateInfo, the noise generator's state): a few KB in one `.npz`, with the
+JAX package's entry names (`meta` = JSON of the DialConfig and the step,
+`qpos`, `qvel`, `qacc_warmstart`, `Y0`, `reward`, `done`, `info_<field>`).
+The JAX file's PRNG key (`key`, and `info_rng`, which the port's StateInfo
+does not carry) is replaced by `generator`, the bytes of
+`torch.Generator.get_state()`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tpu_dialmpc_torch.envs.base import EnvState, StateInfo
+from tpu_dialmpc_torch.planner.dial import DialConfig
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def save(path: str, state, Y0: torch.Tensor, generator: torch.Generator,
+         dial_cfg: DialConfig, step: int):
+    """Write the full control-loop state (an EnvState or LeanEnvState) to
+    one .npz; `step` is the number of control steps taken."""
+    ps = state.pipeline
+    np.savez(
+        path,
+        meta=json.dumps({"dial": dataclasses.asdict(dial_cfg), "step": int(step)}),
+        qpos=_np(ps.qpos),
+        qvel=_np(ps.qvel),
+        qacc_warmstart=_np(ps.qacc_warmstart),
+        Y0=_np(Y0),
+        generator=_np(generator.get_state()),
+        reward=_np(state.reward),
+        done=_np(state.done),
+        **{f"info_{f.name}": _np(getattr(state.info, f.name))
+           for f in dataclasses.fields(StateInfo)},
+    )
+
+
+def load(path: str, env) -> Tuple[EnvState, torch.Tensor, torch.Generator, DialConfig, int]:
+    """(EnvState, Y0, generator, DialConfig, step) from a checkpoint, on the
+    env's device.  The derived fields are rebuilt at the stored (qpos,
+    qvel) by the forward stages `reset` uses (`env.full_state`); the
+    warmstart and everything else are restored as stored."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["meta"]))
+
+        def t(name):
+            return torch.as_tensor(data[name], device=env.device)
+
+        info = StateInfo(**{f.name: t(f"info_{f.name}") for f in dataclasses.fields(StateInfo)})
+        state = env.full_state(t("qpos"), t("qvel"), t("qacc_warmstart"), info,
+                               reward=t("reward"), done=t("done"))
+        generator = torch.Generator(device=env.device)
+        generator.set_state(torch.from_numpy(data["generator"]))
+        Y0 = t("Y0")
+    return state, Y0, generator, DialConfig(**meta["dial"]), int(meta["step"])

@@ -1,0 +1,147 @@
+"""CLI: run a DIAL-MPC task in closed loop from the registry, YAML or flags.
+
+Counterpart of `tpu_dialmpc/cli/main.py`'s `run` subcommand, with its flags,
+its config precedence (the task's registry defaults < the YAML file's
+`dial:` / `env:` sections < flags), its printed lines and its `--out`
+trajectory keys; plus `--device` (default `cuda`, the card; `cpu` runs the
+plain PyTorch version).
+
+  python -m tpu_dialmpc_torch.cli.main run --task go2_trot --n-steps 100
+  python -m tpu_dialmpc_torch.cli.main run --config configs/h1_walk.yaml
+  python -m tpu_dialmpc_torch.cli.main run --task go2_stand --device cpu \\
+      --nsample 16 --hsample 4 --n-steps 3
+
+`--checkpoint` writes the loop's state every 50 steps and at the end,
+`--resume` continues from such a file, `--telemetry` streams one JSONL
+record per step, and `--scan` runs the bare loop (`runner.run_scan`: `run`
+with nothing attached), which takes none of those three.  The JAX CLI's other subcommands (bench, replay,
+plot, render, env-test, ik, profile, scaling) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import numpy as np
+
+
+def _load_yaml(path):
+    import yaml  # only with --config: PyYAML is optional
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def _build(args):
+    """(env, DialConfig, task) for the parsed flags."""
+    from tpu_dialmpc_torch.envs import dial_defaults, get_env
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    env_overrides = {}
+    if args.config:
+        cfg = _load_yaml(args.config)
+        task = cfg.get("task", args.task)
+        # registry task defaults < yaml dial section < explicit flags
+        dial_kwargs = dial_defaults(task)
+        env_overrides.update(cfg.get("env", {}))
+        dial_kwargs.update(cfg.get("dial", {}))
+    else:
+        task = args.task
+        dial_kwargs = dial_defaults(task)
+    if args.nsample:
+        dial_kwargs["Nsample"] = args.nsample
+    if args.hsample:
+        dial_kwargs["Hsample"] = args.hsample
+    if args.n_steps:
+        dial_kwargs["n_steps"] = args.n_steps
+    if args.substeps:
+        env_overrides["n_substeps"] = args.substeps
+    env = get_env(task, device=args.device, **env_overrides)
+    return env, DialConfig(**dial_kwargs), task
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def cmd_run(args):
+    from tpu_dialmpc_torch import checkpoint
+    from tpu_dialmpc_torch.planner import runner
+    from tpu_dialmpc_torch.telemetry import TelemetryStream
+
+    if args.scan and (args.resume or args.checkpoint or args.telemetry):
+        raise SystemExit(
+            "--scan is incompatible with --resume/--checkpoint/--telemetry "
+            "(those need the host-loop driver)"
+        )
+    env, dial_cfg, task = _build(args)
+    resume = None
+    if args.resume:
+        state, Y0, generator, ckpt_cfg, step = checkpoint.load(args.resume, env)
+        resume = (state, Y0, generator, step)
+        # the checkpoint's planner config is authoritative (the restored Y0
+        # has its Hnode+1 shape); --n-steps only extends the run
+        dial_cfg = ckpt_cfg
+        if args.n_steps:
+            dial_cfg = dataclasses.replace(dial_cfg, n_steps=args.n_steps)
+        print(f"resumed from {args.resume} at step {step}")
+    stream = TelemetryStream(args.telemetry) if args.telemetry else None
+    t0 = time.time()
+    try:
+        if args.scan:
+            res = runner.run_scan(env, dial_cfg)
+        else:
+            res = runner.run(env, dial_cfg, telemetry=stream, resume=resume,
+                             checkpoint_path=args.checkpoint)
+        rewards = _host(res.rewards)  # waits for the run's last step
+        wall = time.time() - t0
+    finally:
+        if stream:
+            stream.close()
+    print(f"task={task} steps={rewards.shape[0]} wall={wall:.2f}s")
+    print(f"average reward: {rewards.mean():.6f}")  # dial-core-test.cpp:101-106
+    if args.out:
+        np.savez(
+            args.out,
+            rewards=rewards,
+            qpos=_host(res.qpos),
+            qvel=_host(res.qvel),
+            us=_host(res.us),
+            dones=_host(res.dones),
+            # the state us[0] was executed from, with its warmstart (exact
+            # replay), and the control period the run used
+            qpos0=_host(res.qpos0),
+            qvel0=_host(res.qvel0),
+            warmstart0=_host(res.warmstart0),
+            dt=float(env.dt),
+        )
+        print(f"trajectory saved to {args.out}")
+    return 0
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="tpu_dialmpc_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("run", help="run a task in closed loop")
+    sp.add_argument("--task", default="go2_stand")
+    sp.add_argument("--config", default=None, help="YAML file: task, env:, dial:")
+    sp.add_argument("--nsample", type=int, default=None)
+    sp.add_argument("--hsample", type=int, default=None)
+    sp.add_argument("--n-steps", type=int, default=None)
+    sp.add_argument("--substeps", type=int, default=None)
+    sp.add_argument("--scan", action="store_true", help="the bare loop, records on the device")
+    sp.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
+    sp.add_argument("--resume", default=None, help="resume from checkpoint")
+    sp.add_argument("--telemetry", default=None, help="JSONL output path")
+    sp.add_argument("--out", default=None, help="trajectory .npz output")
+    sp.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    sp.set_defaults(fn=cmd_run)
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -444,13 +444,20 @@ class _Library:
         return out
 
 
-def build_library(model, meta, spec, host=False, out_dir=None):
-    """Build (or find) and load the kernel library for this model, with the
-    model uploaded; returns (library, build log, built now)."""
+def _compile(model, meta, spec, host=False, out_dir=None):
+    """(defines, FusedModel bytes, FusedTables bytes, library path, build
+    log, built now): the library for this model, built or found."""
     defines, blob, tables = pack_model(model, meta, spec)
     path, log, built = _build.build(
         SOURCE, defines, key=hashlib.sha256(blob + tables).digest(), host=host, out_dir=out_dir
     )
+    return defines, blob, tables, path, log, built
+
+
+def build_library(model, meta, spec, host=False, out_dir=None):
+    """Build (or find) and load the kernel library for this model, with the
+    model uploaded; returns (library, build log, built now)."""
+    defines, blob, tables, path, log, built = _compile(model, meta, spec, host, out_dir)
     lib = _Library(path)
     lib.upload(blob, tables)
     info = lib.launch_info()
@@ -476,6 +483,13 @@ class FusedStep:
         self.launches = 0
         self.build_log = None  # nvcc's output, after the first CUDA call
         self._libs = {}  # device index -> _Library
+
+    def compile(self) -> str:
+        """Build this model's kernel library without loading it (a build
+        already in `build/kernels/` is reused) and return nvcc's log; the
+        first CUDA call then only loads it.  Each build is its own nvcc
+        process, so several models' builds can run in parallel threads."""
+        return _compile(self.model, self.meta, self.spec)[4]
 
     def library(self, device: torch.device) -> _Library:
         """The kernel for `device`, built and uploaded at first use."""

@@ -159,7 +159,10 @@ ASSETS = Path(__file__).resolve().parents[1] / "assets"
 SCENES = {
     "go2_force": "go2_force.npz",
     "go2_force_crate": "go2_force_crate.npz",
+    "go2_position": "go2_position.npz",
     "h1_push_crate": "h1_push_crate.npz",
+    "h1_walk": "h1_walk.npz",
+    "h1_loco": "h1_loco.npz",
 }
 
 

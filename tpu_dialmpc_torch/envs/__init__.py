@@ -1,7 +1,7 @@
 from tpu_dialmpc_torch.envs.base import EnvState, LeanEnvState, StateInfo
 from tpu_dialmpc_torch.envs.go2 import UnitreeGo2Env, UnitreeGo2EnvConfig
 from tpu_dialmpc_torch.envs.h1 import UnitreeH1Env, UnitreeH1EnvConfig
-from tpu_dialmpc_torch.envs.registry import dial_defaults, get_env
+from tpu_dialmpc_torch.envs.registry import dial_defaults, get_env, list_envs, register_env
 
 __all__ = [
     "EnvState",
@@ -13,4 +13,6 @@ __all__ = [
     "UnitreeH1EnvConfig",
     "dial_defaults",
     "get_env",
+    "list_envs",
+    "register_env",
 ]

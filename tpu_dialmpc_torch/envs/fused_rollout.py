@@ -5,7 +5,9 @@ Counterpart of `tpu_dialmpc/envs/fused_rollout.py`:
 - `rollout_batch(state, all_us)` rolls every candidate control sequence
   (B, T, nu) through the substep chain and the env's reward stack and
   returns the (B, T) reward matrix the planner scores — one kernel launch
-  per horizon step for all B candidates, the horizon a Python loop.
+  per horizon step for all B candidates, the horizon a Python loop; with
+  `want_states` also the rollouts' qpos, qvel and torso positions (the
+  planner's `diag_states` diagnostics).
 - `step_lean(state, action)` is the executed control step: the same chain at
   B=1.
 
@@ -91,11 +93,13 @@ class FusedRolloutMixin:
             info=info2,
         )
 
-    def rollout_batch(self, state, all_us):
+    def rollout_batch(self, state, all_us, want_states=False):
         """Batched rollout (B, T, nu) -> per-step rewards (B, T).
 
         Every candidate starts from `state`; rewards, termination and info
-        updates are the code path `step_lean` uses."""
+        updates are the code path `step_lean` uses.  With `want_states`,
+        returns (rewss (B,T), qss (B,T,nq), qdss (B,T,nv), xss (B,T,3)): the
+        states after each step and the torso's world position."""
         B, T = all_us.shape[0], all_us.shape[1]
         dtype = self._dtype
         ps = state.pipeline
@@ -106,10 +110,16 @@ class FusedRolloutMixin:
         qpos, qvel, ws = bcast(ps.qpos), bcast(ps.qvel), bcast(ps.qacc_warmstart)
         info = map_tensors(state.info, lambda x: x.expand((B,) + tuple(x.shape)))
         us = all_us.to(dtype)
-        rews = []
+        rews, qss, qdss, xss = [], [], [], []
         for t in range(T):
-            qpos, qvel, ws, _, _, reward, _, info = self._step_batch(
+            qpos, qvel, ws, der, _, reward, _, info = self._step_batch(
                 qpos, qvel, ws, info, us[:, t]
             )
             rews.append(reward)
+            if want_states:
+                qss.append(qpos)
+                qdss.append(qvel)
+                xss.append(der["torso_xpos"])
+        if want_states:
+            return tuple(torch.stack(x, dim=1) for x in (rews, qss, qdss, xss))
         return torch.stack(rews, dim=1)

@@ -7,8 +7,12 @@ runs through the fused substep (`envs/fused_rollout.py`), so the env has no
 single-sample `step` of its own: the executed step is `step_lean` and the
 planner's rollouts are `rollout_batch`, as on the JAX package's TPU path.
 
-Not ported yet (they raise NotImplementedError): `randomize_tasks`, position
-leg control and the "climb" joint-range table.
+Legs are torque-controlled (the PD map onto `<motor>`s) or, with
+`leg_control="position"`, position-controlled: the action's joint targets go
+to the model's `<position>` servos as ctrl (the go2_position scene).
+
+Not ported yet (they raise NotImplementedError): `randomize_tasks` and the
+"climb" joint-range table.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ class UnitreeGo2EnvConfig:
     gait: str = "stand"
     timestep: float = 0.0025
     randomize_tasks: bool = False
-    leg_control: str = "torque"  # "torque" (ported) | "position" (not yet)
+    leg_control: str = "torque"  # "torque" | "position"
     n_substeps: int = 1
     scene: str = "go2_force"
     energy_weight: float = 0.0
@@ -72,8 +76,6 @@ class UnitreeGo2Env(LeggedEnv):
     ):
         if config.randomize_tasks:
             raise NotImplementedError("randomize_tasks is not ported yet")
-        if config.leg_control != "torque":
-            raise NotImplementedError("position leg control is not ported yet")
         if config.joint_range_source not in ("upstream", "model", "model_eigen"):
             raise NotImplementedError(
                 f"joint_range_source={config.joint_range_source!r} is not ported"
@@ -159,7 +161,10 @@ class UnitreeGo2Env(LeggedEnv):
         return self._reset_state([0.282, 0.0, 0.3])
 
     def _ctrl_batch(self, action, qpos, qvel):
-        """Batched action (..., nu) -> ctrl (..., nu) (the PD torque map)."""
+        """Batched action (..., nu) -> ctrl (..., nu): the joint targets in
+        position mode, else the PD torque map."""
+        if self.config.leg_control == "position":
+            return self.act2joint(action)
         nu = self.model.nu
         return self._act2tau_qv(action, qpos[..., 7 : 7 + nu], qvel[..., 6 : 6 + nu])
 

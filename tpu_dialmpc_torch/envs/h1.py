@@ -13,8 +13,14 @@ file instead: the joint names (its `jnt_names` entry, written by
 `tests/assets/export_npz.py`) and the feet sites' ground-contact heights,
 which the plain forward kinematics computes at the home keyframe in float64.
 
-Not ported yet (they raise NotImplementedError): `randomize_tasks`,
-position leg control and the XLA physics path (`fused="off"`).
+Legs are torque-controlled (the PD map), or with `leg_control="position"`
+the action's joint targets go to the model's actuators as ctrl, as in the
+JAX env.  The walking and arms-fixed scenes (h1_walk, h1_loco) have no
+crate: the env finds no unactuated slide joint, so the crate terms stay
+inert and the crate anchor falls back to the integrated one.
+
+Not ported yet (they raise NotImplementedError): `randomize_tasks` and the
+XLA physics path (`fused="off"`).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ class UnitreeH1EnvConfig:
     gait: str = "stand"
     timestep: float = 0.0025
     randomize_tasks: bool = False
-    leg_control: str = "torque"  # "torque" (ported) | "position" (not yet)
+    leg_control: str = "torque"  # "torque" | "position"
     n_substeps: int = 1
     scene: str = "h1_walk"
     pos_tar_z: float = 0.98
@@ -81,8 +87,6 @@ class UnitreeH1Env(LeggedEnv):
     ):
         if config.randomize_tasks:
             raise NotImplementedError("randomize_tasks is not ported yet")
-        if config.leg_control != "torque":
-            raise NotImplementedError("position leg control is not ported yet")
         if config.fused == "off":
             raise NotImplementedError("the XLA physics path (fused='off') is not ported yet")
         self.config = config
@@ -169,7 +173,10 @@ class UnitreeH1Env(LeggedEnv):
         return self._reset_state([0.0, 0.0, self.config.pos_tar_z])
 
     def _ctrl_batch(self, action, qpos, qvel):
-        """Batched action (..., nu) -> ctrl (..., nu) (the PD torque map)."""
+        """Batched action (..., nu) -> ctrl (..., nu): the joint targets in
+        position mode, else the PD torque map."""
+        if self.config.leg_control == "position":
+            return self.act2joint(action)
         return self._act2tau_qv(action, qpos[..., self._act_qadr], qvel[..., self._act_dadr])
 
     # ------------------------------------------------------------------

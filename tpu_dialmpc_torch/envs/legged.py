@@ -40,14 +40,13 @@ class LeggedEnv(FusedRolloutMixin):
         """A constant on the env's device, made once (in __init__)."""
         return torch.as_tensor(np.asarray(x), dtype=dtype or self._dtype, device=self.device)
 
-    def _reset_state(self, pos_tar) -> EnvState:
-        """Keyframe "home" at rest.  The derived fields come from the plain
+    def full_state(self, qpos, qvel, qacc_warmstart, info: StateInfo, reward, done) -> EnvState:
+        """The EnvState at (qpos, qvel): the derived fields from the plain
         forward stages of the fused substep (FK, CoM velocities, actuation at
-        zero ctrl), the port's counterpart of `pipeline.init`; the warmstart is
-        zero, as after mj_resetData."""
+        zero ctrl), the port's counterpart of `pipeline.init`; the warmstart
+        as given; the observation at zero ctrl.  `reset` and
+        `checkpoint.load` build their states with it."""
         m = self.model
-        qpos = torch.as_tensor(self._init_q, dtype=self._dtype, device=self.device)
-        qvel = self._zeros(m.nv)
         q = list(qpos[None].unbind(-1))
         v = list(qvel[None].unbind(-1))
         like = q[0]
@@ -61,7 +60,7 @@ class LeggedEnv(FusedRolloutMixin):
         ps = PipelineState(
             qpos=qpos,
             qvel=qvel,
-            qacc_warmstart=self._zeros(m.nv),
+            qacc_warmstart=qacc_warmstart,
             xpos=stack(fk["xpos"]),
             xquat=stack(fk["xquat"]),
             site_xpos=stack(fk["site_xpos"]),
@@ -69,6 +68,18 @@ class LeggedEnv(FusedRolloutMixin):
             cvel=stack(cvel),
             qfrc_actuator=fused._stack(qfrc_act, like)[0],
         )
+        b = self._torso_idx
+        root = int(m.body_rootid[b])
+        obs = self._get_obs(
+            ps.qpos, ps.qvel, ps.xpos[b], ps.xquat[b], ps.cvel[b], ps.subtree_com[root],
+            info, self._zeros(m.nu),
+        )
+        return EnvState(pipeline=ps, obs=obs, reward=reward, done=done, info=info)
+
+    def _reset_state(self, pos_tar) -> EnvState:
+        """Keyframe "home" at rest, zero warmstart (as after
+        mj_resetData)."""
+        m = self.model
         n_feet = len(self.FEET_SITES)
         info = StateInfo(
             pos_tar=torch.tensor(pos_tar, dtype=self._dtype, device=self.device),
@@ -81,15 +92,10 @@ class LeggedEnv(FusedRolloutMixin):
             last_contact=self._zeros(n_feet, dtype=torch.bool),
             feet_air_time=self._zeros(n_feet),
         )
-        b = self._torso_idx
-        root = int(m.body_rootid[b])
-        obs = self._get_obs(
-            ps.qpos, ps.qvel, ps.xpos[b], ps.xquat[b], ps.cvel[b], ps.subtree_com[root],
-            info, self._zeros(m.nu),
-        )
-        return EnvState(
-            pipeline=ps, obs=obs, reward=self._zeros(),
-            done=self._zeros(dtype=torch.bool), info=info,
+        qpos = torch.as_tensor(self._init_q, dtype=self._dtype, device=self.device)
+        return self.full_state(
+            qpos, self._zeros(m.nv), self._zeros(m.nv), info,
+            reward=self._zeros(), done=self._zeros(dtype=torch.bool),
         )
 
     def act2joint(self, act: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,111 @@
+"""Asynchronous telemetry stream: one JSONL record per control step.
+
+Counterpart of `tpu_dialmpc/telemetry/stream.py`, with its record keys.  The
+control loop hands `emit_step` its step's state and planner infos; the
+values it records stay on the device, packed into one small tensor, and a
+writer thread reads them back and writes the JSONL line, so the loop never
+waits for a record.  The queue is bounded: when it is full a record is
+dropped (counted in `dropped`) rather than stall the loop.
+
+Only the Python writer is ported: `backend="native"` (the JAX package's C++
+ring-buffer sink) raises NotImplementedError, and "auto" means the Python
+writer.
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from typing import Optional
+
+import torch
+
+_BASE = ("reward", "done", "z")
+_PLANNER = ("ess", "entropy", "rew_mean", "rew_max", "rew_std")
+
+
+class TelemetryStream:
+    """JSONL telemetry writer with a background thread."""
+
+    def __init__(self, path: Optional[str] = None, maxsize: int = 4096, backend: str = "auto"):
+        if backend == "native":
+            raise NotImplementedError("the native telemetry sink is not ported yet")
+        if backend not in ("auto", "python"):
+            raise ValueError(f"unknown telemetry backend {backend!r}")
+        self.path = path
+        self.dropped = 0
+        self._q: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        self._records = []
+        self._file = open(path, "w") if path else None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._writer, daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------------
+    def emit_step(self, t: int, state, infos) -> None:
+        """Queue one control step's diagnostics: the executed step's reward,
+        done flag and torso height, the last annealing iteration's ESS,
+        weight entropy and candidate reward statistics, and under
+        `diag_states` the end of its weighted state averages."""
+        parts = [state.reward, state.done, state.pipeline.qpos[2]]
+        diag = False
+        if infos is not None:
+            rews = infos.rews[-1]
+            parts += [infos.ess[-1], infos.entropy[-1], rews.mean(), rews.max(),
+                      rews.std(correction=0)]
+            # the placeholders are (1, 1) per iteration (dial-core.h:577-589)
+            diag = infos.qbar.numel() > infos.qbar.shape[0]
+            if diag:
+                parts += [*infos.xbar[-1][-1], infos.qbar[-1][-1, 2],
+                          torch.linalg.vector_norm(infos.qdbar[-1][-1])]
+        packed = torch.stack([p.detach().to(torch.float64) for p in parts])
+        try:
+            self._q.put_nowait((int(t), time.time(), infos is not None, diag, packed))
+        except queue.Full:
+            self.dropped += 1  # drop rather than stall the control loop
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _record(item) -> dict:
+        t, stamp, planner, diag, packed = item
+        vals = packed.tolist()  # the one read back, on this thread
+        rec = {"t": t, "time": stamp, **dict(zip(_BASE, vals))}
+        rec["done"] = bool(rec["done"])
+        rec.update(dict(zip(_PLANNER, vals[3:8] if planner else [None] * 5)))
+        if diag:
+            rec["xbar_end"] = vals[8:11]
+            rec["qbar_end_z"], rec["qdbar_end_norm"] = vals[11], vals[12]
+        return rec
+
+    def _write(self, rec: dict) -> None:
+        if self._file:
+            self._file.write(json.dumps(rec) + "\n")
+
+    def _writer(self):
+        while not self._stop.is_set() or not self._q.empty():
+            try:
+                item = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            rec = self._record(item)
+            self._records.append(rec)
+            self._write(rec)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+        if self._file:
+            self._file.close()
+            self._file = None
+
+    @property
+    def records(self):
+        return list(self._records)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
