@@ -54,6 +54,24 @@ checkpoint and a resume to 6, and `--scan`, each with its launch count
 checked, the resumed and scanned trajectories bit-equal to the host loop's;
 and one `reverse_once` with diag_states, whose Ybar must equal the plain
 one's to the bit.
+After the six paths, the physics pipeline (`dynamics/pipeline.py`, the JAX
+package's XLA path as batched PyTorch ops, which has no kernel of its own):
+  - [physics] `pipeline.step` at B=2049, 1 and 8 substeps, on the go2_force,
+    Go2 crate, H1 push-crate and go2_position models, with the inputs their
+    kernel compares use, held against the same call on the CPU in float64
+    and against the fused kernel on the card; its time per call;
+  - [physics go2_pair_kinds] the pair-kinds scene, which only the pipeline
+    runs (sphere-sphere, sphere-capsule, capsule-capsule), card against CPU
+    float64, with the active contacts of every kind counted;
+  - [physics no-syncs] a profiler window over a warm `pipeline.step`: no
+    synchronising call and no host-device copy, and its kernels per substep;
+  - [xla-path go2_stand] go2_stand with fused="off" at full width: one
+    `reverse_once` under injected noise held against the fused path's, one
+    timed `reverse_once` and one control step executed by `env.step`;
+  - [xla-path compat_q1] the chained-candidate planner at a small width,
+    card against CPU float64;
+  - [cli] `replay` of the [cli] phase's trajectory through `env.step`, and
+    `env-test` for 20 steps.
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
@@ -662,6 +680,313 @@ def phase_diag(env, cfg, device):
           "non-finite weighted states")
 
 
+# ----------------------------------------------------------------------
+# The physics pipeline (dynamics/pipeline.py, the JAX package's XLA path):
+# batched PyTorch ops, no kernel of its own.
+# ----------------------------------------------------------------------
+
+# Float32 on the card against float64 on the CPU, or against the fused
+# kernel (another factorisation of the same system): per sample, the largest
+# error of a field.  The median sample must be within tests/test_fused.py's
+# float32 tolerances (10x after 8 substeps) and 99 % of the samples within
+# 2e-2 of their own scale.  The rest are the truncated Newton solve's
+# branches (the warm-start and done tests) that float32 rounding tips:
+# a few samples jump, while a wrong formula moves every sample by 1e-3 and
+# more.
+PHYSICS_TOL = {"qpos": 2e-5, "qvel": 5e-4, "site_xpos": 2e-5, "torso_xquat": 2e-5,
+               "torso_cvel": 1e-3, "qfrc_actuator": 1e-4}
+P99_TOL = 2e-2
+REF_STRIDE = 8  # the CPU float64 reference takes every 8th sample (257 of 2049)
+PHYSICS_MODELS = (("go2_force", "near-home"), ("go2_force_crate", "every kind active"),
+                  ("h1_push_crate", "every kind active, two trees"),
+                  ("go2_position", "servo clamps binding"))
+NEW_KINDS = {(2, 2): "sphere-sphere", (2, 3): "sphere-capsule", (3, 3): "capsule-capsule"}
+
+
+def _sample_errors(got, want):
+    """(per-sample max abs error, per-sample error over max(1, scale))."""
+    g = got.detach().double().reshape(got.shape[0], -1).cpu()
+    w = want.detach().double().reshape(want.shape[0], -1).cpu()
+    e = (g - w).abs().max(1).values
+    return e, e / w.abs().max(1).values.clamp(min=1.0)
+
+
+def hold_physics(tag, got, want, n_substeps):
+    """Check got against want field by field (dicts of (B, ...) tensors)
+    under PHYSICS_TOL; print each field's median and p99 errors."""
+    import torch
+
+    for name, tol in PHYSICS_TOL.items():
+        g = got[name]
+        check(bool(torch.isfinite(g).all()), f"{tag} {name}: non-finite output")
+        e, rel = _sample_errors(g, want[name])
+        med, p99 = e.median().item(), torch.quantile(rel, 0.99).item()
+        tol = tol * (10.0 if n_substeps > 1 else 1.0)
+        print(f"{tag} {name}: per-sample max abs error median {med:.2e} (tolerance {tol:.0e}), "
+              f"p99 of relative {p99:.2e} (tolerance {P99_TOL:.0e}), max {e.max().item():.2e}")
+        check(med <= tol and p99 <= P99_TOL, f"{tag} {name} disagrees")
+
+
+def _named(env, ps):
+    """A pipeline state's reward inputs and physics, by name."""
+    return dict(qpos=ps.qpos, qvel=ps.qvel, **env._derived(ps))
+
+
+def phase_physics(env, inputs, device, what):
+    """pipeline.step at B=2049 on the card, 1 and 8 substeps: against the
+    same call on the CPU in float64 (every REF_STRIDE-th sample) and
+    against the fused kernel on the card; the card's time per call."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import fused, pipeline
+    from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
+    from tpu_dialmpc_torch.envs.base import LeanPipelineState
+
+    m = env.model
+    tag = f"[physics {env.config.scene}]"
+    args = inputs(m, 2049, 0, device)
+    state = LeanPipelineState(*args[:3])
+    sub = [a[::REF_STRIDE].cpu().double() for a in args]
+    ref_state = LeanPipelineState(*sub[:3])
+    print(f"{tag} B=2049, {what}; the CPU float64 reference on {sub[0].shape[0]} of them")
+    for n in (1, N_SUBSTEPS):
+        card = pipeline.step(m, state, args[3], n)
+        ref = pipeline.step(m, ref_state, sub[3], n)
+        fs = env.fused_step if n == N_SUBSTEPS else FusedStep(m, n, env.fused_step.spec)
+        q, v, _, der = fs(*args)
+        kernel = dict(qpos=q, qvel=v, **fused.split_derived(m, fs.spec, der))
+        got = _named(env, card)
+        hold_physics(f"{tag} n_substeps={n} card float32 vs CPU float64:",
+                     {k: x[::REF_STRIDE] for k, x in got.items()}, _named(env, ref), n)
+        hold_physics(f"{tag} n_substeps={n} pipeline vs fused kernel, card:", got, kernel, n)
+    ms = cuda_ms(lambda: pipeline.step(m, state, args[3], N_SUBSTEPS), 2)
+    print(f"{tag} pipeline.step, {N_SUBSTEPS} substeps at B=2049: {ms:.1f} ms per call "
+          f"(the fused kernel: see [compare {env.config.scene}])")
+    return ms
+
+
+def phase_pair_kinds(device):
+    """The pair-kinds scene (the Go2 robot, a free ball and two free sticks),
+    which only the physics pipeline runs: B=2049 on the card against the CPU
+    in float64, with the active contacts of every kind counted; each of the
+    three kinds the fused substep lacks must have some."""
+    import numpy as np
+    import torch
+
+    from torch_port_helpers import pair_kinds_states
+    from tpu_dialmpc_torch.dynamics import collision, fused, kinematics, pipeline
+    from tpu_dialmpc_torch.envs import get_env
+    from tpu_dialmpc_torch.envs.base import LeanPipelineState
+
+    env = get_env("go2_stand", device=device, scene="go2_pair_kinds")
+    m = env.model
+    check(not env.on_fused_path and not fused.supported(m),
+          "the pair-kinds model is not on the physics pipeline")
+    rng = np.random.default_rng(0)
+    qpos, qvel = pair_kinds_states(m, rng, 2049)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=device) for a in
+            (qpos, qvel, np.zeros_like(qvel), rng.uniform(-10.0, 10.0, (2049, m.nu)))]
+    dist = collision.collide(m, kinematics.kinematics(m, args[0])).dist
+    active = (dist < torch.as_tensor(collision.contact_params(m).includemargin,
+                                     dtype=dist.dtype, device=device)).sum(0).tolist()
+    counts, k = {}, 0
+    for kind in sorted(m.pairs):
+        n = m.pairs[kind].geom1.shape[0] * m.pairs[kind].ncon
+        counts[kind] = int(sum(active[k:k + n]))
+        k += n
+    print("[physics go2_pair_kinds] B=2049 active contacts per kind: " + ", ".join(
+        f"{NEW_KINDS.get(kind, KIND_NAMES.get(kind))} {n}" for kind, n in counts.items()))
+    check(all(counts.get(kind, 0) > 0 for kind in NEW_KINDS),
+          "a pair kind the fused substep lacks has no active contact")
+    sub = [a[::REF_STRIDE].cpu().double() for a in args]
+    for n in (1, N_SUBSTEPS):
+        card = pipeline.step(m, LeanPipelineState(*args[:3]), args[3], n)
+        ref = pipeline.step(m, LeanPipelineState(*sub[:3]), sub[3], n)
+        got = _named(env, card)
+        hold_physics(f"[physics go2_pair_kinds] n_substeps={n} card float32 vs CPU float64:",
+                     {k: x[::REF_STRIDE] for k, x in got.items()}, _named(env, ref), n)
+
+
+def phase_no_syncs(env, device):
+    """One torch.profiler window over a warm pipeline.step (8 substeps,
+    B=2049): no host synchronisation and no host-to-device copy; the device
+    kernels it launches per substep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_dialmpc_torch.dynamics import pipeline
+    from tpu_dialmpc_torch.envs.base import LeanPipelineState
+
+    m = env.model
+    args = near_home_inputs(m, 2049, 3, device)
+    state = LeanPipelineState(*args[:3])
+    pipeline.step(m, state, args[3], N_SUBSTEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("pipeline.step"):
+            pipeline.step(m, state, args[3], N_SUBSTEPS)
+        torch.cuda.synchronize()  # after the step's range: the window's end
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    window = next(ev.time_range for ev in events
+                  if ev.name == "pipeline.step" and str(ev.device_type).endswith("CPU"))
+    syncs = [ev.name for ev in events if "Synchronize" in ev.name
+             and window.start <= ev.time_range.start <= window.end]
+    copies = [ev.name for ev in events if "HtoD" in ev.name or "DtoH" in ev.name]
+    kernels = [ev for ev in events if str(ev.device_type).endswith("CUDA")
+               and ev.name != "pipeline.step"]
+    device_ms = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3
+    n = len(kernels)
+    print(f"[physics no-syncs] warm pipeline.step, {N_SUBSTEPS} substeps at B=2049 on "
+          f"{env.config.scene}: {len(syncs)} synchronising calls in the step's range "
+          f"{sorted(set(syncs))}, {len(copies)} host-device copies in the window; {n} device "
+          f"kernels ({n / N_SUBSTEPS:.0f} per substep), {device_ms:.1f} ms of device time in "
+          f"{wall_ms:.1f} ms of wall (idle {1.0 - device_ms / wall_ms:.3f}; wall includes the "
+          f"profiler's own cost)")
+    check(not syncs and not copies, "pipeline.step synchronises with the host")
+    check(n > 0, "the profiler recorded no device kernel")
+    return n / N_SUBSTEPS
+
+
+def phase_xla_path(fused_env, device, all_envs):
+    """go2_stand with fused="off" at full width (Nsample=2048, Hsample=20,
+    Hnode=5, 8 substeps) through get_env, MBDPI and make_control_step:
+    reset, one reverse_once with injected noise, its rewards (2049, 21) and
+    Ybar held against the fused path's on the same noise and state; then one
+    timed reverse_once and one control step (Ndiffuse=2, executed by
+    env.step).  The 10-iteration warm start (`reverse`, Ndiffuse_init=10)
+    is skipped: ten more reverse_once of several seconds each on this path
+    would not fit the script's time limit, and it adds no code path."""
+    import torch
+
+    from tpu_dialmpc_torch.envs import dial_defaults, get_env
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    t0 = time.perf_counter()
+    env = get_env("go2_stand", device=device, fused="off")
+    cfg = DialConfig(**dial_defaults("go2_stand"))
+    check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == (2048, 20, 5, 8),
+          "go2_stand is not at its full width")
+    check(not env.on_fused_path, "fused='off' did not pick the physics pipeline")
+    for e in all_envs:  # every count to 0 just before this path
+        e.fused_step.launches = 0
+    mb, fmb = MBDPI(cfg, env), MBDPI(cfg, fused_env)
+    state = env.reset()
+    Y = torch.zeros((cfg.Hnode + 1, env.action_size), device=device)
+    scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
+    noise = torch.randn((cfg.Nsample, cfg.Hnode + 1, env.action_size), device=device,
+                        generator=torch.Generator(device=device).manual_seed(21))
+    # reverse_once's own steps, so that its reward matrix can be held too
+    all_Y0s = mb._candidates(None, Y, scale, noise)
+    rewss = mb.rollout_us_batch(state, mb.node2u(all_Y0s))
+    Ybar, _ = mb._score_update(rewss, all_Y0s, scale)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    ro_ms, _ = timed(lambda: mb.reverse_once(state, gen, Ybar, scale))
+    cs_ms, (state2, Y2, _) = timed(lambda: make_control_step(mb, cfg.Ndiffuse)(state, Ybar, gen))
+    launched = [e.fused_step.launches for e in all_envs]
+    check(env._fused_step is None and not any(launched),
+          f"the fused='off' path launched the fused kernel: {launched}")
+    check(bool(torch.isfinite(Y2).all()) and state2.pipeline.efc_force is not None,
+          "the control step did not execute through env.step")
+
+    # the fused path's rollouts of the same candidates from the same state
+    frewss = fmb.rollout_us_batch(to_lean(fused_env.reset()), mb.node2u(all_Y0s))
+    fYbar, _ = fmb._score_update(frewss, all_Y0s, scale)
+    e, rel = _sample_errors(rewss, frewss)
+    med, p99 = e.median().item(), torch.quantile(rel, 0.99).item()
+    dY = (Ybar - fYbar).abs().max().item()
+    print(f"[xla-path go2_stand] reverse_once, rewards {tuple(rewss.shape)} against the fused "
+          f"path's: per-candidate max abs error median {med:.2e} (tolerance 1e-3), p99 of "
+          f"relative {p99:.2e} (tolerance {P99_TOL:.0e}), max {e.max().item():.2e}; Ybar max abs "
+          f"diff {dY:.2e} (tolerance 5e-2: the softmax divides reward gaps by std x temp)")
+    check(bool(torch.isfinite(rewss).all()) and bool(torch.isfinite(Ybar).all()),
+          "non-finite rewards or Ybar on the physics pipeline")
+    check(med <= 1e-3 and p99 <= P99_TOL and dY <= 5e-2,
+          "the physics pipeline's reverse_once disagrees with the fused path's")
+    wall = time.perf_counter() - t0
+    print(f"[xla-path go2_stand] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
+          f"{env.config.n_substeps} on the physics pipeline: reverse_once {ro_ms:.1f} ms, control "
+          f"step (env.step + shift + {cfg.Ndiffuse} reverse_once) {cs_ms:.1f} ms; reward after "
+          f"the step {state2.reward.item():.5f}; path wall {wall:.1f} s")
+    return ro_ms, cs_ms
+
+
+def phase_compat(device):
+    """compat_q1 (reference quirk Q1) at Nsample=8, Hsample=4: the candidates
+    chained one after another through env.step, on the card in float32
+    against the CPU in float64.  The path is sequential over candidates by
+    design (a parity fixture, not for production): at full width it would
+    be 2049 x 21 sequential env.steps, so it runs small here."""
+    import dataclasses
+
+    import torch
+
+    from tpu_dialmpc_torch.envs import dial_defaults, get_env
+    from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
+
+    cfg = DialConfig(**dict(dial_defaults("go2_stand"), Nsample=8, Hsample=4, compat_q1=True))
+    noise = 0.2 * torch.randn((cfg.Nsample, cfg.Hnode + 1, 12),
+                              generator=torch.Generator().manual_seed(8), dtype=torch.float64)
+    out = []
+    for dev, dtype in ((device, "float32"), ("cpu", "float64")):
+        env = get_env("go2_stand", device=dev, dtype=dtype)
+        mb = MBDPI(cfg, env)
+        t0 = time.perf_counter()
+        Y = torch.zeros((cfg.Hnode + 1, 12), dtype=env._dtype, device=dev)
+        scale = torch.as_tensor(mb.sigma_control, dtype=env._dtype, device=dev)
+        res = mb.reverse_once_compat(env.reset(), None, Y, scale, noise=noise.to(dev, env._dtype))
+        out.append((res, time.perf_counter() - t0))
+    ((Y32, i32, p32), s32), ((Y64, i64, p64), s64) = out
+    drew = (i32.rews.double().cpu() - i64.rews).abs().max().item()
+    dq = (p32[0].double().cpu() - p64[0]).abs().max().item()
+    dY = (Y32.double().cpu() - Y64).abs().max().item()
+    print(f"[xla-path compat_q1] N{cfg.Nsample}/H{cfg.Hsample}, {cfg.Nsample + 1} candidates x "
+          f"{cfg.Hsample + 1} chained env.steps: card {s32:.1f} s, CPU float64 {s64:.1f} s; "
+          f"mean rewards max abs diff {drew:.2e} (tolerance 1e-3), final chained qpos {dq:.2e} "
+          f"(tolerance 1e-2), Ybar {dY:.2e} (tolerance 5e-2)")
+    check(drew <= 1e-3 and dq <= 1e-2 and dY <= 5e-2, "compat_q1 on the card disagrees with the CPU")
+
+
+def phase_cli_physics():
+    """The CLI's `replay` of the [cli] phase's trajectory (the fused path's)
+    through env.step on the physics pipeline, on the card, and `env-test`
+    for 20 steps."""
+    import contextlib
+    import io
+    import math
+
+    from tpu_dialmpc_torch.cli import main as cli
+
+    def run(*argv):
+        buf = io.StringIO()
+        print(f"[cli] main({list(argv)})", flush=True)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        for line in buf.getvalue().splitlines():
+            print(f"[cli]   {line}")
+        check(rc == 0, f"the CLI {argv[0]} failed")
+        return buf.getvalue().splitlines()
+
+    lines = run("replay", "--task", CLI_TASK, "--trajectory",
+                str(ROOT / "build" / "smoke_cli" / "full.npz"))
+    drift = float(lines[-1].rsplit(" ", 1)[1])
+    check(math.isfinite(drift), "the replay's qpos drift is not finite")
+    lines = run("env-test", "--task", CLI_TASK, "--n-steps", "20")
+    check(lines[-1].startswith("final qpos[:7]:"), "env-test did not finish")
+    return drift
+
+
 def main():
     try:
         import torch
@@ -723,6 +1048,22 @@ def main():
                 "library_ms": None,  # no PyTorch call computes this function
                 "ops_per_substep": ops,
             })
+        t0 = time.perf_counter()
+        by_scene = {path.scene: (path, env) for path, env, _ in envs}
+        physics_ms = {}
+        for scene, what in PHYSICS_MODELS:
+            path, env = by_scene[scene]
+            physics_ms[scene] = phase_physics(env, path.inputs, device, what)
+        phase_pair_kinds(device)
+        per_substep = phase_no_syncs(by_scene["go2_force"][1], device)
+        ro_ms, cs_ms = phase_xla_path(by_scene["go2_force"][1], device, all_envs)
+        phase_compat(device)
+        drift = phase_cli_physics()
+        print(f"[time physics] the physics pipeline's phases: wall {time.perf_counter() - t0:.1f} s")
+        summary.append("physics pipeline, 8 substeps at B=2049: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in physics_ms.items())
+            + f", {per_substep:.0f} kernels per substep; go2_stand fused='off' reverse_once "
+            f"{ro_ms:.1f} ms, control step {cs_ms:.1f} ms; replay drift {drift:.3e}")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

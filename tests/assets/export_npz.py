@@ -8,8 +8,10 @@ with its `save_model`:
 
 writes `tpu_dialmpc_torch/assets/<scene>.npz` for every scene in SCENES: the
 Go2 flat-ground scene with torque motors and with position servos, the Go2
-crate scene (crate at its XML pose), and the H1 push-crate, walking and
-arms-fixed (loco) scenes.  Each file also carries the joint names (entry
+crate scene (crate at its XML pose), the H1 push-crate, walking and
+arms-fixed (loco) scenes, and the pair-kinds scene (the Go2 robot with a
+free ball and two free sticks: the sphere-sphere, sphere-capsule and
+capsule-capsule kinds).  Each file also carries the joint names (entry
 `jnt_names`, "" for an unnamed joint), which `save_model` does not write and
 the H1 env reads to size its arm actions.  `tests/test_torch_model.py` and
 `tests/test_torch_h1_model.py` check that each committed file equals a fresh
@@ -24,7 +26,10 @@ import numpy as np
 
 ASSETS = Path(__file__).resolve().parent
 OUT_DIR = ASSETS.parent.parent / "tpu_dialmpc_torch" / "assets"
-SCENES = ("go2_force", "go2_force_crate", "go2_position", "h1_push_crate", "h1_walk", "h1_loco")
+SCENES = ("go2_force", "go2_force_crate", "go2_position", "h1_push_crate", "h1_walk", "h1_loco",
+          "go2_pair_kinds")
+# scenes of this repository's own, which the JAX package's registry does not name
+OWN_SCENES = {"go2_pair_kinds": "pairs/mjx_scene_pair_kinds.xml"}
 TIMESTEP = 0.0025  # the envs' default timestep (envs/go2.py, envs/h1.py config)
 
 
@@ -36,7 +41,7 @@ def load_standin(scene: str):
     """The stand-in scene's MjModel, at TIMESTEP."""
     from tpu_dialmpc.dynamics import assets
 
-    mj = assets.load_mj_model(str(ASSETS / assets.SCENES[scene]))
+    mj = assets.load_mj_model(str(ASSETS / (OWN_SCENES.get(scene) or assets.SCENES[scene])))
     mj.opt.timestep = TIMESTEP
     return mj
 

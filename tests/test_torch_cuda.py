@@ -2,8 +2,10 @@
 (plane-sphere contacts), the crate stand-in (all six contact kinds), the
 H1 push-crate stand-in (all six kinds, and contact rows that couple the
 robot's and the crate's kinematic trees), the Go2 position stand-in (the
-servos' affine-bias branch) and the arms-fixed H1 (h1_loco): marked
-`cuda`, and each test skips without a CUDA device.
+servos' affine-bias branch) and the arms-fixed H1 (h1_loco); the physics
+pipeline's step on the card without a host synchronisation; a CPU
+checkpoint refused on the card: marked `cuda`, and each test skips without
+a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -229,3 +231,56 @@ def test_new_scene_kernels_bit_equal_to_plain_on_card(card, scene):
     assert fs.launches == 1
     for o, r in zip(out, ref):
         assert bool(torch.isfinite(o).all()) and torch.equal(o, r)
+
+
+def test_pipeline_step_on_the_card_makes_no_host_sync(card):
+    """A warm pipeline.step (8 substeps, B=64) on the card: no
+    synchronising call inside the step's range of the profiler's trace
+    (torch's sync debug mode raises on one too; the profiler synchronises
+    the device on its own when it stops), no copy between host and device
+    in the trace, and finite results."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_dialmpc_torch.dynamics import pipeline
+    from tpu_dialmpc_torch.envs.base import LeanPipelineState
+
+    m = load_model(str(PORT_NPZ.with_name("go2_force_crate.npz")))
+    qpos, qvel = crate_states(m, np.random.default_rng(0), 64)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=card) for a in
+            (qpos, qvel, np.zeros_like(qvel), np.random.default_rng(1).uniform(-10, 10, (64, m.nu)))]
+    state = LeanPipelineState(*args[:3])
+    pipeline.step(m, state, args[3], 8)  # builds the model's device constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("pipeline.step"):
+                out = pipeline.step(m, state, args[3], 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    events = prof.events()
+    window = next(ev.time_range for ev in events
+                  if ev.name == "pipeline.step" and str(ev.device_type).endswith("CPU"))
+    syncs = [ev.name for ev in events if "Synchronize" in ev.name
+             and window.start <= ev.time_range.start <= window.end]
+    copies = [ev.name for ev in events if "HtoD" in ev.name or "DtoH" in ev.name]
+    assert not syncs and not copies, (syncs, copies)
+    assert bool(torch.isfinite(out.qpos).all()) and out.efc_force.shape[0] == 64
+
+
+def test_cpu_checkpoint_refuses_to_resume_on_the_card(card, tmp_path):
+    """A checkpoint written with a CPU generator raises on a CUDA env, and
+    names the devices, instead of loading a CPU generator's bytes into a
+    CUDA generator."""
+    from tpu_dialmpc_torch import checkpoint
+    from tpu_dialmpc_torch.envs import dial_defaults, get_env
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    cfg = DialConfig(**dict(dial_defaults("go2_stand"), Nsample=4, Hsample=2, Hnode=1))
+    cpu_env = get_env("go2_stand", device="cpu")
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, cpu_env.reset(), torch.zeros(2, 12), torch.Generator().manual_seed(0),
+                    cfg, 0)
+    with pytest.raises(ValueError, match="saved on 'cpu' and cannot resume on 'cuda'"):
+        checkpoint.load(path, get_env("go2_stand", device=card))

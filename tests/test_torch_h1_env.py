@@ -202,9 +202,22 @@ H1_OPTIONS = {
 
 @pytest.mark.parametrize("option", sorted(H1_OPTIONS))
 def test_unported_h1_options_raise(monkeypatch, option):
-    """randomize_tasks, the XLA physics path and unknown range sources are
-    not ported and raise.  Position leg control is: its ctrl map (the
-    action's joint targets) matches the JAX env's."""
+    """randomize_tasks and unknown range sources are not ported and raise.
+    Position leg control is: its ctrl map (the action's joint targets)
+    matches the JAX env's.  The XLA physics path (fused="off") is too: the
+    executed step runs the physics pipeline, as env.step does (its parity
+    with the JAX env.step: test_torch_h1_slice.py)."""
+    if option == "fused_off":
+        env = get_env(TASK, device="cpu", n_substeps=1, **H1_OPTIONS[option])
+        assert not env.on_fused_path
+        state = env.reset()
+        act = torch.as_tensor(np.random.default_rng(4).uniform(-0.5, 0.5, env.action_size),
+                              dtype=torch.float32)
+        lean, full = env.step_lean(state, act), env.step(state, act)
+        assert torch.isfinite(full.pipeline.qpos).all() and env._fused_step is None
+        for f in ("qpos", "qvel", "qacc_warmstart"):
+            assert torch.equal(getattr(lean.pipeline, f), getattr(full.pipeline, f)), f
+        return
     if option != "position":
         with pytest.raises(NotImplementedError):
             get_env(TASK, device="cpu", **H1_OPTIONS[option])

@@ -179,3 +179,20 @@ def test_h1_control_step_matches_jax(slice_):
     _close(ts.reward, js.reward, 1e-9)
     _close(tinfos.rews, np.stack(jrews), 1e-9)
     _close(tY, jY, 1e-7)
+
+
+def test_h1_env_step_on_the_physics_pipeline_matches_jax(slice_):
+    """env.step with fused="off", the hands on the crate (rows coupling the
+    two trees), against the JAX env.step (the JAX package's CPU path)."""
+    tenv = get_env(TASK, device="cpu", n_substeps=N_SUB, dtype="float64", fused="off")
+    a = _action()
+    js = slice_["jstep"](slice_["jcrate"], jnp.asarray(a))
+    ts = tenv.step(slice_["tcrate"], torch.as_tensor(a))
+    for f in ("qpos", "qvel", "qacc_warmstart", "xpos", "site_xpos", "cvel", "qfrc_actuator",
+              "efc_force"):
+        _close(getattr(ts.pipeline, f), getattr(js.pipeline, f), 1e-10)
+    _close(ts.obs, js.obs, 1e-10)
+    _close(ts.reward, js.reward, 1e-10)
+    assert bool(ts.done) == bool(js.done)
+    for f in ("pos_tar", "vel_tar", "z_feet", "feet_air_time"):
+        _close(getattr(ts.info, f), getattr(js.info, f), 1e-10)

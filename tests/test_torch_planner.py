@@ -171,11 +171,26 @@ def test_run_is_the_control_loop_written_out():
 
 @pytest.mark.parametrize("flag", ["compat_q1", "diag_states"])
 def test_unported_flags_raise(flag):
-    """compat_q1 is not ported and raises.  diag_states is: the weighted
-    rollout states match the JAX planner's, and Ybar is the plain one."""
+    """Both flags are ported now.  compat_q1: the candidates chained through
+    env.step match the JAX planner's reverse_once_compat (rewards, Ybar and
+    the final chained physics).  diag_states: the weighted rollout states
+    match the JAX planner's, and Ybar is the plain one."""
     if flag == "compat_q1":
-        with pytest.raises(NotImplementedError):
-            tdial.MBDPI(tdial.DialConfig(**{flag: True}), TorchStubEnv())
+        jmb, tmb = _planners(compat_q1=True)
+        rng = np.random.default_rng(10)
+        qpos = rng.normal(size=4)
+        Y = rng.uniform(-0.5, 0.5, size=(CFG["Hnode"] + 1, 4))
+        noise = rng.normal(size=(CFG["Nsample"], CFG["Hnode"] + 1, 4))
+        scale = np.linspace(0.2, 1.0, CFG["Hnode"] + 1)
+        jY, jinfo, jphys = jmb.reverse_once_compat(_jax_state(qpos), None, jnp.asarray(Y),
+                                                   jnp.asarray(scale), noise=jnp.asarray(noise))
+        tY, tinfo, tphys = tmb.reverse_once_compat(_torch_state(qpos), None, torch.as_tensor(Y),
+                                                   torch.as_tensor(scale),
+                                                   noise=torch.as_tensor(noise))
+        _close(tY, jY)
+        _close(tinfo.rews, jinfo.rews)
+        for got, want in zip(tphys, jphys):
+            _close(got, want)
         return
     jmb, tmb = _planners(diag_states=True)
     _, plain = _planners()

@@ -154,3 +154,17 @@ def test_servo_kernel_source_host_build_bit_equal_to_plain(tmp_path, monkeypatch
     # the servos' actuator forces are among the derived outputs
     der = fused.split_derived(m, spec, plain[3])
     assert der["qfrc_actuator"][:, 6:].abs().max() > 1.0
+
+
+def test_position_env_step_on_the_physics_pipeline_matches_jax(slice_):
+    """env.step with fused="off": the servos through the physics pipeline,
+    against the JAX env.step (the JAX package's CPU path)."""
+    tenv = get_env(TASK, device="cpu", n_substeps=N_SUB, dtype="float64", fused="off")
+    a = np.random.default_rng(0).uniform(-0.9, 0.9, size=NU)
+    js = slice_["jstep"](slice_["jstate"], jnp.asarray(a))
+    ts = tenv.step(slice_["tstate"], torch.as_tensor(a))
+    for f in ("qpos", "qvel", "qacc_warmstart", "xpos", "cvel", "qfrc_actuator", "efc_force"):
+        _close(getattr(ts.pipeline, f), getattr(js.pipeline, f), 1e-10)
+    _close(ts.obs, js.obs, 1e-10)
+    _close(ts.reward, js.reward, 1e-10)
+    assert bool(ts.done) == bool(js.done)

@@ -37,7 +37,7 @@ from tpu_dialmpc.envs.base import EnvState as JEnvState
 from tpu_dialmpc.envs.registry import dial_defaults as jdial_defaults
 from tpu_dialmpc.planner import dial as jdial
 from tpu_dialmpc_torch.envs import dial_defaults, get_env
-from tpu_dialmpc_torch.envs.base import to_lean
+from tpu_dialmpc_torch.envs.base import EnvState, map_tensors, to_lean
 from tpu_dialmpc_torch.planner import dial as tdial
 from tpu_dialmpc_torch.planner import runner as trunner
 
@@ -281,16 +281,22 @@ def test_crate_control_step_matches_jax(crate_slice):
 
 def test_port_imports_neither_jax_nor_mujoco():
     """At run time the port imports torch and numpy only, also with the CLI,
-    checkpoint and telemetry modules loaded and the H1 and position envs
-    built."""
+    checkpoint, telemetry and physics pipeline modules loaded, the H1 and
+    position envs built, and a go2_stand env on the physics pipeline
+    stepped."""
     code = (
-        "import sys\n"
+        "import sys, torch\n"
         "import tpu_dialmpc_torch, tpu_dialmpc_torch.envs, tpu_dialmpc_torch.planner.runner\n"
         "import tpu_dialmpc_torch.dynamics.fused_cuda, tpu_dialmpc_torch.envs.h1\n"
         "import tpu_dialmpc_torch.cli.main, tpu_dialmpc_torch.checkpoint\n"
         "import tpu_dialmpc_torch.telemetry\n"
+        "from tpu_dialmpc_torch.dynamics import (collision, constraint, kinematics, linalg,\n"
+        "                                        pipeline, smooth, solver)\n"
         "for task in ('h1_push_crate', 'go2_trot_position', 'h1_loco'):\n"
         "    tpu_dialmpc_torch.envs.get_env(task, device='cpu')  # reads no mujoco\n"
+        "env = tpu_dialmpc_torch.envs.get_env('go2_stand', fused='off', device='cpu')\n"
+        "state = env.step(env.reset(), torch.zeros(env.action_size))\n"
+        "assert torch.isfinite(state.pipeline.qpos).all() and not env.on_fused_path\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mujoco', 'tpu_dialmpc'))\n"
         "print(bad)\n"
@@ -301,3 +307,102 @@ def test_port_imports_neither_jax_nor_mujoco():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---- the physics pipeline (fused="off") against the JAX package's XLA path,
+# which is what the JAX package runs on the CPU: the same JAX compiles as
+# above, no new one ----
+
+
+class StepOnlyEnv:
+    """An env object that exposes `step` and no `rollout_batch`: MBDPI rolls
+    its candidates out with `env.step` over the batch-broadcast state."""
+
+    def __init__(self, env):
+        self._env = env
+        self.action_size, self.device = env.action_size, env.device
+
+    def step(self, state, action):
+        return self._env.step(state, action)
+
+
+@pytest.fixture(scope="module")
+def off(slice_):
+    kw = dict(dial_defaults("go2_stand"), **SIZE)
+    tenv = get_env("go2_stand", device="cpu", n_substeps=N_SUB, dtype="float64", fused="off")
+    return dict(tenv=tenv, tmb=tdial.MBDPI(tdial.DialConfig(**kw), tenv),
+                step_only=tdial.MBDPI(tdial.DialConfig(**kw), StepOnlyEnv(tenv)))
+
+
+def test_env_step_on_the_physics_pipeline_matches_jax(slice_, off):
+    """env.step (fused="off" too, and any other mode: step always runs the
+    pipeline) against the JAX env.step, on one state and on a batch."""
+    a = _action(12)
+    js = slice_["jstep"](slice_["jstate"], jnp.asarray(a))
+    tenv = off["tenv"]
+    assert not tenv.on_fused_path
+    ts = tenv.step(slice_["tstate"], torch.as_tensor(a))
+    for f in ("qpos", "qvel", "qacc_warmstart", "xpos", "xquat", "site_xpos", "subtree_com",
+              "cvel", "qfrc_actuator", "efc_force"):
+        _close(getattr(ts.pipeline, f), getattr(js.pipeline, f), 1e-10)
+    _close(ts.obs, js.obs, 1e-10)
+    _close(ts.reward, js.reward, 1e-10)
+    assert bool(ts.done) == bool(js.done)
+    for f in ("vel_tar", "ang_vel_tar", "yaw_tar", "z_feet", "z_feet_tar", "feet_air_time"):
+        _close(getattr(ts.info, f), getattr(js.info, f), 1e-10)
+    assert int(ts.info.step) == 1
+    # a batch of three copies steps as the one state (batched products may
+    # round differently by batch size: 1e-12)
+    tb = tenv.step(map_tensors(slice_["tstate"], lambda x: x.expand((3,) + x.shape)),
+                   torch.as_tensor(a).expand(3, -1))
+    for f in ("qpos", "qvel", "efc_force"):
+        _close(getattr(tb.pipeline, f)[2], getattr(ts.pipeline, f), 1e-12)
+    _close(tb.reward[1], ts.reward, 1e-12)
+    _close(tb.obs[0], ts.obs, 1e-12)
+
+
+@pytest.mark.parametrize("planner", ["off", "step_only"])
+def test_reverse_once_on_the_physics_pipeline_matches_jax(slice_, off, planner):
+    """reverse_once under injected noise: the fused="off" env's rollouts
+    (the pipeline, batched), and MBDPI's env.step fallback on an env object
+    that has no rollout_batch; JAX on the CPU takes the same fallback."""
+    Y = np.random.default_rng(1).uniform(-0.3, 0.3, size=(SIZE["Hnode"] + 1, 12))
+    mb = off["tmb" if planner == "off" else "step_only"]
+    scale = mb.sigma_control
+    noise = _noise(2)
+    jY, jinfo = slice_["jreverse_once"](
+        slice_["jstate"], jnp.asarray(Y), jnp.asarray(scale), jnp.asarray(noise)
+    )
+    tY, tinfo = mb.reverse_once(slice_["tstate"], None, torch.as_tensor(Y),
+                                torch.as_tensor(scale), noise=torch.as_tensor(noise))
+    _close(tinfo.rews, jinfo.rews, 1e-9)
+    _close(tinfo.rew_Ybar, jinfo.rew_Ybar, 1e-9)
+    _close(tinfo.weights, jinfo.weights, 1e-7)
+    _close(tY, jY, 1e-7)
+
+
+def test_control_step_on_the_physics_pipeline_executes_with_env_step(slice_, off):
+    """make_control_step on the fused="off" env executes Y0[0] through
+    env.step (a full EnvState, as the JAX runner off the fused path), then
+    shifts and improves: against the JAX control step."""
+    jmb, tmb = slice_["jmb"], off["tmb"]
+    n_diffuse = tmb.args.Ndiffuse
+    Y0 = np.random.default_rng(3).uniform(-0.3, 0.3, size=(SIZE["Hnode"] + 1, 12))
+    noises = [_noise(10 + i) for i in range(n_diffuse)]
+    js = slice_["jstep"](slice_["jstate"], jnp.asarray(Y0[0]))
+    jY = jmb.shift(jnp.asarray(Y0))
+    for i in range(n_diffuse):
+        scale = jmb.sigma_control * jmb.args.traj_diffuse_factor**i
+        jY, _ = slice_["jreverse_once"](js, jY, jnp.asarray(scale), jnp.asarray(noises[i]))
+    it = iter(noises)
+    orig = tmb._candidates
+    tmb._candidates = lambda gen, Y, scale, noise: orig(gen, Y, scale, torch.as_tensor(next(it)))
+    try:
+        ts, tY, _ = trunner.make_control_step(tmb, n_diffuse)(slice_["tstate"],
+                                                              torch.as_tensor(Y0), None)
+    finally:
+        del tmb._candidates
+    assert isinstance(ts, EnvState) and ts.pipeline.efc_force is not None
+    _close(ts.pipeline.qpos, js.pipeline.qpos, 1e-10)
+    _close(ts.reward, js.reward, 1e-10)
+    _close(tY, jY, 1e-7)

@@ -1,5 +1,6 @@
 """torch port, envs/registry.py: all 13 of the JAX registry's tasks, their
-planner defaults, the env config fields both packages have and what each
+planner defaults, the env config fields (the same set in both packages, with
+the same values), `fused="off"` for each task, and what each
 env derives from its model (action ranges, torque and termination ranges,
 sizes), against the JAX package on the stand-in scenes; and `register_env`
 with `dial_defaults`' warning for a task registered without planner
@@ -36,10 +37,10 @@ def test_task_matches_jax(monkeypatch, task):
     # the derived ranges in the JAX env's float64 (the port keeps them in
     # the env's dtype)
     tenv = get_env(task, device="cpu", dtype="float64")
-    shared = sorted(set(jc) & set(tc))
-    assert set(tc) <= set(jc)  # the JAX Go2 config's `fused` switch is not ported
-    assert {k: tc[k] for k in shared} == {k: jc[k] for k in shared}
-    assert tc["dtype"] == "float32"
+    # the same config fields, each with the JAX task's value
+    assert set(tc) == set(jc)
+    assert tc == jc
+    assert tc["dtype"] == "float32" and tc["fused"] == "auto"
     assert (tenv.action_size, tenv.observation_size, tenv.dt) == (
         jenv.action_size, jenv.observation_size, jenv.dt)
     assert (tenv.model.nq, tenv.model.nv, tenv.model.nu) == (
@@ -51,6 +52,9 @@ def test_task_matches_jax(monkeypatch, task):
         want = jenv.termination_joint_range
         np.testing.assert_array_equal(tenv.termination_joint_range.numpy(),
                                       jenv.joint_range if want is None else want)
+    # every task builds on the physics pipeline too (the JAX package's XLA path)
+    off = get_env(task, device="cpu", fused="off")
+    assert not off.on_fused_path and get_env(task, device="cpu").on_fused_path
 
 
 def test_register_env_and_the_default_planner_warning():

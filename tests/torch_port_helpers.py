@@ -16,6 +16,9 @@ PORT_NPZ = ASSETS.parents[1] / "tpu_dialmpc_torch" / "assets" / "go2_force.npz"
 CRATE_NPZ = PORT_NPZ.with_name("go2_force_crate.npz")
 H1_NPZ = PORT_NPZ.with_name("h1_push_crate.npz")
 TIMESTEP = 0.0025
+# scenes of this repository's own, which the JAX package's registry does not
+# name: reached by path
+OWN_SCENES = {"go2_pair_kinds": ASSETS / "pairs" / "mjx_scene_pair_kinds.xml"}
 
 
 def use_standin_assets(monkeypatch):
@@ -29,7 +32,7 @@ def jax_standin_model(monkeypatch, scene="go2_force"):
     from tpu_dialmpc.dynamics.model import compile_model
 
     use_standin_assets(monkeypatch)
-    mj = assets.load_mj_model(scene)
+    mj = assets.load_mj_model(str(OWN_SCENES.get(scene, scene)))
     mj.opt.timestep = TIMESTEP
     return compile_model(mj).with_options(timestep=TIMESTEP)
 
@@ -51,7 +54,7 @@ def standin_joint_names(monkeypatch, scene):
     from tpu_dialmpc.dynamics import assets
 
     use_standin_assets(monkeypatch)
-    mj = assets.load_mj_model(scene)
+    mj = assets.load_mj_model(str(OWN_SCENES.get(scene, scene)))
     return tuple(mujoco.mj_id2name(mj, mujoco.mjtObj.mjOBJ_JOINT, j) or ""
                  for j in range(mj.njnt))
 
@@ -322,6 +325,68 @@ def h1_floor_states(model, rng, n):
     return qpos, qvel
 
 
+def pair_kinds_states(model, rng, n):
+    """States on the pair-kinds scene (tests/assets/pairs) where every contact
+    kind is active.  The robot stands near home (joints perturbed), the ball
+    and both sticks rest 1-2 mm in the floor (plane-sphere, plane-capsule);
+    by thirds:
+    - the ball leans on the front-left foot (sphere-sphere);
+    - stick 1 lies across the front of the front-right foot, the ball
+      against its far side (sphere-capsule, twice);
+    - the sticks cross, stick 2 on top of stick 1 (capsule-capsule).
+    The robot's foot positions come from the plain forward kinematics of
+    each sample; each contact overlaps by 1-4 mm (a foot too high to reach
+    the object leaves it just below, out of contact).  Returns (qpos, qvel),
+    velocities of scale 0.1."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import fused
+
+    r_ball, r_stick, r_foot = 0.05, 0.02, 0.0175
+    assert model.nq == 40 and [float(model.geom_size[g, 0]) for g in (5, 6, 7)] == [
+        r_ball, r_stick, r_stick], "not the pair-kinds scene"
+    ball, stick1, stick2 = 19, 26, 33  # the free joints' qpos addresses
+    along_x = np.array([np.cos(np.pi / 4), 0.0, np.sin(np.pi / 4), 0.0])
+    along_y = np.array([np.cos(np.pi / 4), -np.sin(np.pi / 4), 0.0, 0.0])
+    qpos = np.tile(np.asarray(model.key_qpos["home"], np.float64), (n, 1))
+    qpos[:, 7:19] += rng.normal(scale=0.03, size=(n, 12))
+    fk = fused._fk(model, list(torch.as_tensor(qpos).unbind(-1)))
+    foot = [np.stack([np.broadcast_to(np.asarray(x, np.float64), (n,)) for x in fk["geom_xpos"][g]],
+                     -1) for g in range(1, 5)]  # FL, FR, RL, RR: the geoms after the floor
+    depth = rng.uniform(0.001, 0.004, n)
+    ball_z = r_ball - rng.uniform(0.001, 0.002, n)
+    stick_z = r_stick - rng.uniform(0.001, 0.002, n)
+    g = np.arange(n) * 3 // n
+    # objects apart on the floor, then moved into contact by group
+    qpos[:, ball : ball + 3] = np.stack([np.full(n, 0.8), np.zeros(n), ball_z], -1)
+    qpos[:, stick1 : stick1 + 3] = np.stack([np.full(n, 0.8), np.full(n, 0.5), stick_z], -1)
+    qpos[:, stick2 : stick2 + 3] = np.stack([np.full(n, -0.6), np.zeros(n), stick_z], -1)
+    qpos[:, stick1 + 3 : stick1 + 7] = along_y
+    qpos[:, stick2 + 3 : stick2 + 7] = along_x
+    # the ball against the front-left foot, ahead of it
+    k = g == 0
+    dz = ball_z[k] - foot[0][k, 2]
+    dx = np.sqrt(np.maximum((r_ball + r_foot - depth[k]) ** 2 - dz**2, 0.0))
+    qpos[k, ball : ball + 3] = np.stack([foot[0][k, 0] + dx, foot[0][k, 1], ball_z[k]], -1)
+    # stick 1 (along y) across the front of the front-right foot, the ball
+    # behind it on the far side
+    k = g == 1
+    dz = stick_z[k] - foot[1][k, 2]
+    dx = np.sqrt(np.maximum((r_stick + r_foot - depth[k]) ** 2 - dz**2, 0.0))
+    x1 = foot[1][k, 0] + dx
+    qpos[k, stick1 : stick1 + 3] = np.stack([x1, foot[1][k, 1], stick_z[k]], -1)
+    dz = ball_z[k] - stick_z[k]
+    qpos[k, ball : ball + 3] = np.stack(
+        [x1 + np.sqrt(np.maximum((r_ball + r_stick - depth[k]) ** 2 - dz**2, 0.0)), foot[1][k, 1],
+         ball_z[k]], -1)
+    # stick 2 (along x) on top of stick 1 (along y), crossing at right angles
+    k = g == 2
+    qpos[k, stick2 : stick2 + 3] = np.stack(
+        [np.full(k.sum(), 0.8), np.full(k.sum(), 0.5), stick_z[k] + 2 * r_stick - depth[k]], -1)
+    qvel = rng.normal(scale=0.1, size=(n, model.nv))
+    return qpos, qvel
+
+
 class TorchStubEnv:
     """Torch copy of tests/stub_env.py's StubFusedEnv: linear dynamics
     qpos' = 0.9 qpos + 0.1 u, so the planner is tested without physics."""
@@ -375,3 +440,5 @@ class TorchStubEnv:
             pipeline=dataclasses.replace(state.pipeline, qpos=qpos2, qvel=qvel2),
             obs=qpos2, reward=r,
         )
+
+    step = step_lean  # the stub's one step, as StubFusedEnv.step (compat_q1 chains it)

@@ -9,13 +9,15 @@ compiled from MJCF.
 - `core/`      spline matrices (numpy) and batched quaternion ops
 - `dynamics/`  the model container, the plain PyTorch substep chain
                (`fused.py`) and its CUDA kernel (`fused_cuda.py`,
-               `csrc/fused_step.cu`)
+               `csrc/fused_step.cu`), and the physics pipeline (the JAX
+               package's XLA path, batched: `kinematics`, `smooth`,
+               `linalg`, `collision`, `constraint`, `solver`, `pipeline`)
 - `envs/`      the Go2 and H1 environments, their batched rollouts and the
                13-task registry
 - `planner/`   the MBDPI planner and the receding-horizon drivers
 - `checkpoint.py`, `telemetry/`  checkpoints of the control loop, and its
                JSONL telemetry stream
-- `cli/`       `python -m tpu_dialmpc_torch.cli.main run --task <task>`
+- `cli/`       `python -m tpu_dialmpc_torch.cli.main run|replay|env-test --task <task>`
 """
 
 import torch

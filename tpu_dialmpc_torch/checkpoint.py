@@ -7,7 +7,10 @@ JAX package's entry names (`meta` = JSON of the DialConfig and the step,
 `qpos`, `qvel`, `qacc_warmstart`, `Y0`, `reward`, `done`, `info_<field>`).
 The JAX file's PRNG key (`key`, and `info_rng`, which the port's StateInfo
 does not carry) is replaced by `generator`, the bytes of
-`torch.Generator.get_state()`.
+`torch.Generator.get_state()`, and `meta` also names the generator's device
+type (`generator_device`): a CPU generator's state and a CUDA generator's
+are different things, so a checkpoint resumes only on an env whose device
+has the generator's type.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def save(path: str, state, Y0: torch.Tensor, generator: torch.Generator,
     ps = state.pipeline
     np.savez(
         path,
-        meta=json.dumps({"dial": dataclasses.asdict(dial_cfg), "step": int(step)}),
+        meta=json.dumps({"dial": dataclasses.asdict(dial_cfg), "step": int(step),
+                         "generator_device": generator.device.type}),
         qpos=_np(ps.qpos),
         qvel=_np(ps.qvel),
         qacc_warmstart=_np(ps.qacc_warmstart),
@@ -51,9 +55,18 @@ def load(path: str, env) -> Tuple[EnvState, torch.Tensor, torch.Generator, DialC
     """(EnvState, Y0, generator, DialConfig, step) from a checkpoint, on the
     env's device.  The derived fields are rebuilt at the stored (qpos,
     qvel) by the forward stages `reset` uses (`env.full_state`); the
-    warmstart and everything else are restored as stored."""
+    warmstart and everything else are restored as stored.  A checkpoint
+    whose generator lived on another device type than the env's raises
+    ValueError."""
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["meta"]))
+        saved = meta.get("generator_device")
+        here = torch.device(env.device).type
+        if saved != here:
+            raise ValueError(
+                f"checkpoint {path!r}: its noise generator was saved on {saved!r} and cannot "
+                f"resume on {here!r} (a CPU and a CUDA generator keep different states); "
+                f"resume it on a {saved!r} env")
 
         def t(name):
             return torch.as_tensor(data[name], device=env.device)

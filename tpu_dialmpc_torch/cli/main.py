@@ -1,21 +1,28 @@
-"""CLI: run a DIAL-MPC task in closed loop from the registry, YAML or flags.
+"""CLI: run a DIAL-MPC task in closed loop from the registry, YAML or flags;
+replay a saved trajectory; smoke-test an env.
 
-Counterpart of `tpu_dialmpc/cli/main.py`'s `run` subcommand, with its flags,
-its config precedence (the task's registry defaults < the YAML file's
-`dial:` / `env:` sections < flags), its printed lines and its `--out`
-trajectory keys; plus `--device` (default `cuda`, the card; `cpu` runs the
-plain PyTorch version).
+Counterpart of `tpu_dialmpc/cli/main.py`'s `run`, `replay` and `env-test`
+subcommands, with their flags, the config precedence (the task's registry
+defaults < the YAML file's `dial:` / `env:` sections < flags), their printed
+lines and `run`'s `--out` trajectory keys; plus `--device` (default `cuda`,
+the card; `cpu` runs the plain PyTorch versions).
 
   python -m tpu_dialmpc_torch.cli.main run --task go2_trot --n-steps 100
   python -m tpu_dialmpc_torch.cli.main run --config configs/h1_walk.yaml
   python -m tpu_dialmpc_torch.cli.main run --task go2_stand --device cpu \\
       --nsample 16 --hsample 4 --n-steps 3
+  python -m tpu_dialmpc_torch.cli.main replay --task go2_stand --trajectory out.npz
+  python -m tpu_dialmpc_torch.cli.main env-test --task h1_walk --n-steps 20
 
-`--checkpoint` writes the loop's state every 50 steps and at the end,
+`run`: `--checkpoint` writes the loop's state every 50 steps and at the end,
 `--resume` continues from such a file, `--telemetry` streams one JSONL
 record per step, and `--scan` runs the bare loop (`runner.run_scan`: `run`
-with nothing attached), which takes none of those three.  The JAX CLI's other subcommands (bench, replay,
-plot, render, env-test, ik, profile, scaling) are not ported yet.
+with nothing attached), which takes none of those three.  `replay` steps a
+`run --out` file's actions through `env.step` (the physics pipeline) from
+its saved start state (`qpos0`, `qvel0`, `warmstart0`) and prints the final
+qpos drift; `env-test` steps zero actions from the reset state.  The JAX
+CLI's other subcommands (bench, plot, render, ik, profile, scaling) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -122,23 +129,83 @@ def cmd_run(args):
     return 0
 
 
+def cmd_replay(args):
+    """Replay a saved trajectory through the physics, print the qpos drift."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import pipeline
+
+    env, _, _ = _build(args)
+    with np.load(args.trajectory) as f:
+        data = {k: f[k] for k in f.files}
+    state = env.reset()
+
+    def t(x):
+        return torch.as_tensor(x, dtype=state.obs.dtype, device=env.device)
+
+    if "qpos0" in data:
+        # us[0] was executed from the saved start state (a resumed run's is
+        # its checkpoint's), with its warmstart: the truncated Newton solve's
+        # starting point is observable, and pipeline.init zeroes it
+        ps = pipeline.init(env.model, t(data["qpos0"]), t(data["qvel0"]))
+        if "warmstart0" in data:
+            ps = dataclasses.replace(ps, qacc_warmstart=t(data["warmstart0"]))
+        state = dataclasses.replace(state, pipeline=ps)
+    us, qpos = t(data["us"]), t(data["qpos"])
+    drift = []
+    for k in range(us.shape[0]):
+        state = env.step(state, us[k])
+        drift.append(torch.linalg.vector_norm(state.pipeline.qpos - qpos[k]))
+    drift = _host(torch.stack(drift))
+    print(f"replayed {len(drift)} steps; final qpos drift {drift[-1]:.3e}")
+    return 0
+
+
+def cmd_env_test(args):
+    """Env smoke test: reset, then zero-action steps, printing the torso
+    height, reward and termination (the reference's go2_env_test loop,
+    headless)."""
+    import torch
+
+    env, _, _ = _build(args)
+    state = env.reset()
+    zero = torch.zeros(env.action_size, dtype=state.obs.dtype, device=env.device)
+    n = args.n_steps or 100
+    for t in range(n):
+        state = env.step(state, zero)
+        if t % max(1, n // 10) == 0:
+            print(f"step {t}: z={float(state.pipeline.qpos[2]):.4f} "
+                  f"reward={float(state.reward):+.4f} done={bool(state.done)}")
+        if bool(state.done):
+            print(f"terminated at step {t}")
+            break
+    print(f"final qpos[:7]: {_host(state.pipeline.qpos[:7]).round(4)}")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu_dialmpc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("run", help="run a task in closed loop")
-    sp.add_argument("--task", default="go2_stand")
-    sp.add_argument("--config", default=None, help="YAML file: task, env:, dial:")
-    sp.add_argument("--nsample", type=int, default=None)
-    sp.add_argument("--hsample", type=int, default=None)
-    sp.add_argument("--n-steps", type=int, default=None)
-    sp.add_argument("--substeps", type=int, default=None)
+    parsers = {}
+    for name, fn, help_ in (("run", cmd_run, "run a task in closed loop"),
+                            ("replay", cmd_replay, "replay a run's --out trajectory"),
+                            ("env-test", cmd_env_test, "step an env with zero actions")):
+        sp = parsers[name] = sub.add_parser(name, help=help_)
+        sp.add_argument("--task", default="go2_stand")
+        sp.add_argument("--config", default=None, help="YAML file: task, env:, dial:")
+        sp.add_argument("--nsample", type=int, default=None)
+        sp.add_argument("--hsample", type=int, default=None)
+        sp.add_argument("--n-steps", type=int, default=None)
+        sp.add_argument("--substeps", type=int, default=None)
+        sp.add_argument("--device", default="cuda", help="torch device (default: the card)")
+        sp.set_defaults(fn=fn)
+    sp = parsers["run"]
     sp.add_argument("--scan", action="store_true", help="the bare loop, records on the device")
     sp.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
     sp.add_argument("--resume", default=None, help="resume from checkpoint")
     sp.add_argument("--telemetry", default=None, help="JSONL output path")
     sp.add_argument("--out", default=None, help="trajectory .npz output")
-    sp.add_argument("--device", default="cuda", help="torch device (default: the card)")
-    sp.set_defaults(fn=cmd_run)
+    parsers["replay"].add_argument("--trajectory", required=True, help="a run --out .npz")
     args = p.parse_args(argv)
     return args.fn(args)
 

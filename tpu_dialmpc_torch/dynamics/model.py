@@ -153,6 +153,21 @@ class PhysicsModel:
         return sum(p.geom1.shape[0] * p.ncon for p in self.pairs.values())
 
 
+def cached(model: PhysicsModel, key, build):
+    """`build()`, made once per model and `key` and kept on the model object
+    (as the JAX package keeps `_cparams_cache`): the physics stages keep
+    their model constants here as tensors on one device, in one dtype, so a
+    step makes no host-to-device copy.  A model from `with_options` starts
+    with an empty cache."""
+    cache = model.__dict__.get("_torch_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(model, "_torch_cache", cache)
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 
 # the compiled scenes the port ships (tests/assets/export_npz.py)
@@ -163,6 +178,9 @@ SCENES = {
     "h1_push_crate": "h1_push_crate.npz",
     "h1_walk": "h1_walk.npz",
     "h1_loco": "h1_loco.npz",
+    # the Go2 robot with a free ball and two free sticks: the sphere-sphere,
+    # sphere-capsule and capsule-capsule pair kinds (physics pipeline only)
+    "go2_pair_kinds": "go2_pair_kinds.npz",
 }
 
 

@@ -1,8 +1,10 @@
 """Environment state containers, as dataclasses of tensors.
 
-Counterpart of `tpu_dialmpc/envs/base.py`.  JAX's NamedTuple pytrees become
-dataclasses; `map_tensors` plays the part of `jax.tree_util.tree_map` for the
-one place that needs it (broadcasting a state to a batch of candidates).
+Counterpart of `tpu_dialmpc/envs/base.py`; `PipelineState` is the physics
+pipeline's (`dynamics/pipeline.py`), as in the JAX package.  JAX's
+NamedTuple pytrees become dataclasses; `map_tensors` plays the part of
+`jax.tree_util.tree_map` (broadcasting a state to a batch of candidates,
+adding or taking off a batch axis).
 """
 
 from __future__ import annotations
@@ -11,6 +13,11 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from tpu_dialmpc_torch.dynamics.pipeline import PipelineState
+
+__all__ = ["EnvState", "LeanEnvState", "LeanPipelineState", "PipelineState", "StateInfo",
+           "map_tensors", "to_lean"]
 
 
 def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
@@ -44,21 +51,6 @@ class StateInfo:
     z_feet_tar: torch.Tensor  # (..., n_feet)
     last_contact: torch.Tensor  # (..., n_feet) bool
     feet_air_time: torch.Tensor  # (..., n_feet)
-
-
-@dataclasses.dataclass(frozen=True)
-class PipelineState:
-    """Physics state plus the derived quantities of its last forward pass."""
-
-    qpos: torch.Tensor  # (nq,)
-    qvel: torch.Tensor  # (nv,)
-    qacc_warmstart: torch.Tensor  # (nv,)
-    xpos: torch.Tensor  # (nbody, 3)
-    xquat: torch.Tensor  # (nbody, 4)
-    site_xpos: torch.Tensor  # (nsite, 3)
-    subtree_com: torch.Tensor  # (nbody, 3)
-    cvel: torch.Tensor  # (nbody, 6) [ang; lin] com-anchored
-    qfrc_actuator: torch.Tensor  # (nv,)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,18 +1,27 @@
-"""Batched rollouts and the executed step through the fused substep.
+"""Batched rollouts and the executed step, on the physics the env's config
+picks.
 
 Counterpart of `tpu_dialmpc/envs/fused_rollout.py`:
 
 - `rollout_batch(state, all_us)` rolls every candidate control sequence
-  (B, T, nu) through the substep chain and the env's reward stack and
-  returns the (B, T) reward matrix the planner scores — one kernel launch
-  per horizon step for all B candidates, the horizon a Python loop; with
+  (B, T, nu) through the physics and the env's reward stack and returns the
+  (B, T) reward matrix the planner scores, the horizon a Python loop; with
   `want_states` also the rollouts' qpos, qvel and torso positions (the
   planner's `diag_states` diagnostics).
 - `step_lean(state, action)` is the executed control step: the same chain at
   B=1.
 
-On CUDA tensors the chain is the CUDA kernel (`dynamics/fused_cuda.py`); on
-CPU tensors it is the plain PyTorch version, in the env's dtype.
+The physics (`on_fused_path`, from the config's `fused`):
+- "on": the fused substep (`dynamics/fused_cuda.py`: the CUDA kernel on
+  CUDA tensors, its plain PyTorch version on CPU tensors, one launch per
+  horizon step for all B candidates); a model `fused.supported` rejects
+  raises when the env is built;
+- "off": the physics pipeline (`dynamics/pipeline.step`, batched PyTorch
+  ops), the JAX package's XLA path;
+- "auto": the fused substep where `fused.supported(model)` holds, the
+  pipeline where it does not.
+A kernel that fails to build or launch raises; it never gives way to the
+pipeline.
 
 Requires the host env to provide:
   model, config, device, _torso_idx, _dtype,
@@ -26,13 +35,35 @@ from __future__ import annotations
 
 import torch
 
-from tpu_dialmpc_torch.dynamics import fused
+from tpu_dialmpc_torch.dynamics import fused, pipeline
 from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
 from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState, map_tensors
+
+FUSED_MODES = ("auto", "on", "off")
+
+
+def pick_physics(model, mode: str) -> bool:
+    """True for the fused substep, False for the physics pipeline, as the
+    config's `fused` mode asks (see the module docstring)."""
+    if mode not in FUSED_MODES:
+        raise ValueError(f"fused={mode!r}: expected one of {FUSED_MODES}")
+    if mode == "off":
+        return False
+    ok = fused.supported(model)
+    if mode == "on" and not ok:
+        raise ValueError("fused='on', but the fused substep does not support this model "
+                         "(fused.supported); use 'auto' or 'off' for the physics pipeline")
+    return ok
 
 
 class FusedRolloutMixin:
     _fused_step = None
+
+    @property
+    def on_fused_path(self) -> bool:
+        """Whether `step_lean` and `rollout_batch` run the fused substep
+        (else the physics pipeline); fixed when the env is built."""
+        return self._on_fused
 
     @property
     def fused_step(self) -> FusedStep:
@@ -45,25 +76,38 @@ class FusedRolloutMixin:
             self._fused_step = FusedStep(self.model, self.config.n_substeps, spec)
         return self._fused_step
 
-    def _step_batch(self, qpos, qvel, ws, info, action):
-        """One env step for a batch: (B, ...) state, (B, nu) action."""
-        fs = self.fused_step
-        ctrl = self._ctrl_batch(action, qpos, qvel)
-        qpos2, qvel2, ws2, der_flat = fs(qpos, qvel, ws, ctrl)
-        der = fused.split_derived(self.model, fs.spec, der_flat)
-        reward, done, info2 = self._post_physics(
-            qpos=qpos2,
-            qvel=qvel2,
-            site_xpos=der["site_xpos"],
-            torso_xpos=der["torso_xpos"],
-            torso_xquat=der["torso_xquat"],
-            torso_cvel=der["torso_cvel"],
-            root_com=der["root_com"],
-            qfrc_actuator=der["qfrc_actuator"],
-            info=info,
-            ctrl=ctrl,
+    def _derived(self, ps) -> dict:
+        """The reward inputs of a (batched) PipelineState, by name."""
+        b = self._torso_idx
+        return dict(
+            site_xpos=ps.site_xpos,
+            torso_xpos=ps.xpos[..., b, :],
+            torso_xquat=ps.xquat[..., b, :],
+            torso_cvel=ps.cvel[..., b, :],
+            root_com=ps.subtree_com[..., int(self.model.body_rootid[b]), :],
+            qfrc_actuator=ps.qfrc_actuator,
         )
-        return qpos2, qvel2, ws2, der, ctrl, reward, done, info2
+
+    def _physics(self, qpos, qvel, ws, ctrl, use_fused):
+        """n_substeps of physics for a batch: (qpos', qvel', ws', the reward
+        inputs by name, the pipeline's state or None)."""
+        if use_fused:
+            fs = self.fused_step
+            qpos2, qvel2, ws2, der_flat = fs(qpos, qvel, ws, ctrl)
+            return qpos2, qvel2, ws2, fused.split_derived(self.model, fs.spec, der_flat), None
+        ps = pipeline.step(self.model, LeanPipelineState(qpos=qpos, qvel=qvel, qacc_warmstart=ws),
+                           ctrl, self.config.n_substeps)
+        return ps.qpos, ps.qvel, ps.qacc_warmstart, self._derived(ps), ps
+
+    def _step_batch(self, qpos, qvel, ws, info, action, use_fused=None):
+        """One env step for a batch: (B, ...) state, (B, nu) action, on the
+        env's physics unless `use_fused` says which."""
+        ctrl = self._ctrl_batch(action, qpos, qvel)
+        qpos2, qvel2, ws2, der, ps = self._physics(
+            qpos, qvel, ws, ctrl, self._on_fused if use_fused is None else use_fused)
+        reward, done, info2 = self._post_physics(qpos=qpos2, qvel=qvel2, **der, info=info,
+                                                 ctrl=ctrl)
+        return qpos2, qvel2, ws2, der, ctrl, reward, done, info2, ps
 
     def step_lean(self, state, action) -> LeanEnvState:
         """The executed control step (B=1).  Accepts an EnvState or a
@@ -76,7 +120,7 @@ class FusedRolloutMixin:
             return x.to(dtype)[None].contiguous()
 
         info = map_tensors(state.info, lambda x: x[None])
-        qpos2, qvel2, ws2, der, ctrl, reward, done, info2 = self._step_batch(
+        qpos2, qvel2, ws2, der, ctrl, reward, done, info2, _ = self._step_batch(
             one(ps.qpos), one(ps.qvel), one(ps.qacc_warmstart), info,
             one(action),
         )
@@ -112,7 +156,7 @@ class FusedRolloutMixin:
         us = all_us.to(dtype)
         rews, qss, qdss, xss = [], [], [], []
         for t in range(T):
-            qpos, qvel, ws, der, _, reward, _, info = self._step_batch(
+            qpos, qvel, ws, der, _, reward, _, info, _ = self._step_batch(
                 qpos, qvel, ws, info, us[:, t]
             )
             rews.append(reward)

@@ -2,10 +2,12 @@
 
 Counterpart of `tpu_dialmpc/envs/go2.py`: the same config fields, action
 maps, reward stack (with the crate tasks' terrain-aware targets),
-termination and observation.  The physics of every step
-runs through the fused substep (`envs/fused_rollout.py`), so the env has no
-single-sample `step` of its own: the executed step is `step_lean` and the
-planner's rollouts are `rollout_batch`, as on the JAX package's TPU path.
+termination and observation.  `step` runs the physics pipeline
+(`dynamics/pipeline.py`, the JAX package's XLA path) on one state or a
+batch; the executed step `step_lean` and the planner's rollouts
+`rollout_batch` run the physics the config's `fused` picks
+(`envs/fused_rollout.py`): the fused substep, as on the JAX package's TPU
+path, or the pipeline.
 
 Legs are torque-controlled (the PD map onto `<motor>`s) or, with
 `leg_control="position"`, position-controlled: the action's joint targets go
@@ -26,6 +28,7 @@ from tpu_dialmpc_torch.core import rotations as rot
 from tpu_dialmpc_torch.dynamics.model import JNT_HINGE, PhysicsModel, load_scene
 from tpu_dialmpc_torch.envs import gait
 from tpu_dialmpc_torch.envs.base import EnvState, StateInfo
+from tpu_dialmpc_torch.envs.fused_rollout import pick_physics
 from tpu_dialmpc_torch.envs.legged import LeggedEnv
 
 
@@ -49,6 +52,7 @@ class UnitreeGo2EnvConfig:
     scene: str = "go2_force"
     energy_weight: float = 0.0
     dtype: str = "float32"
+    fused: str = "auto"  # "auto" | "on" | "off" (envs/fused_rollout.py)
     joint_range_source: str = "upstream"  # "upstream" | "model" | "model_eigen"
     termination_range_source: str = "action"  # "action" | "physical"
     turn_period: int = 0
@@ -127,6 +131,7 @@ class UnitreeGo2Env(LeggedEnv):
         self.joint_torque_range = self._tensor(torque_range)
         self.termination_joint_range = self._tensor(termination)
         self._gait_phases = self._tensor(gait.GAIT_PHASES[gait_name])
+        self._on_fused = pick_physics(self.model, config.fused)
 
     def _place_crate(self, model: PhysicsModel, config) -> PhysicsModel:
         """Move the mocap crate `box_body` as the JAX env does before

@@ -4,9 +4,10 @@ Counterpart of `tpu_dialmpc/envs/h1.py`: the same config fields, action
 ranges (home-centered, with narrower arm and torso authority), PD torque
 map, reward stack (gait, upright, yaw, velocity, height, the xy position
 anchor with its leash or crate mode, energy, the capped crate velocity),
-termination and observation.  As in the Go2 env, every physics step runs
-through the fused substep (`envs/fused_rollout.py`): the executed step is
-`step_lean` and the planner's rollouts are `rollout_batch`.
+termination and observation.  As in the Go2 env, `step` runs the physics
+pipeline (`dynamics/pipeline.py`) on one state or a batch, and the executed
+step `step_lean` and the planner's rollouts `rollout_batch` run the physics
+the config's `fused` picks (`envs/fused_rollout.py`).
 
 Two things the JAX env reads through mujoco come from the compiled model
 file instead: the joint names (its `jnt_names` entry, written by
@@ -19,8 +20,7 @@ JAX env.  The walking and arms-fixed scenes (h1_walk, h1_loco) have no
 crate: the env finds no unactuated slide joint, so the crate terms stay
 inert and the crate anchor falls back to the integrated one.
 
-Not ported yet (they raise NotImplementedError): `randomize_tasks` and the
-XLA physics path (`fused="off"`).
+Not ported yet (it raises NotImplementedError): `randomize_tasks`.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from tpu_dialmpc_torch.dynamics import fused
 from tpu_dialmpc_torch.dynamics.model import JNT_SLIDE, PhysicsModel, load_scene
 from tpu_dialmpc_torch.envs import gait
 from tpu_dialmpc_torch.envs.base import EnvState, StateInfo
+from tpu_dialmpc_torch.envs.fused_rollout import pick_physics
 from tpu_dialmpc_torch.envs.legged import LeggedEnv
 
 
@@ -58,7 +59,7 @@ class UnitreeH1EnvConfig:
     scene: str = "h1_walk"
     pos_tar_z: float = 0.98
     dtype: str = "float32"
-    fused: str = "auto"  # "auto" | "on": the fused substep; "off" (XLA path) not ported
+    fused: str = "auto"  # "auto" | "on" | "off" (envs/fused_rollout.py)
     joint_range_source: str = "centered"  # "centered" | "model"
     action_halfwidth: float = 0.7
     arm_halfwidth: float = 0.25
@@ -87,8 +88,6 @@ class UnitreeH1Env(LeggedEnv):
     ):
         if config.randomize_tasks:
             raise NotImplementedError("randomize_tasks is not ported yet")
-        if config.fused == "off":
-            raise NotImplementedError("the XLA physics path (fused='off') is not ported yet")
         self.config = config
         self.device = torch.device(device)
         self._dtype = {"float32": torch.float32, "float64": torch.float64}[config.dtype]
@@ -166,6 +165,7 @@ class UnitreeH1Env(LeggedEnv):
         self._duty = self._tensor(self._gait_params[0])
         self._up_global = self._tensor([0.0, 0.0, 1.0])
         self._foot_contact_z = self._tensor(foot_contact_z)
+        self._on_fused = pick_physics(m, config.fused)
 
     # ------------------------------------------------------------------
     def reset(self) -> EnvState:

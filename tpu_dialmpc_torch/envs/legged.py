@@ -1,7 +1,8 @@
 """What the Go2 and H1 envs share: the reset state from the plain forward
-stages, the PD torque map, the torso's body-frame velocities and the
-observation.  The JAX package writes these out in each env
-(`tpu_dialmpc/envs/go2.py`, `h1.py`) with the same formulas."""
+stages, `step` through the physics pipeline, the PD torque map, the torso's
+body-frame velocities and the observation.  The JAX package writes these
+out in each env (`tpu_dialmpc/envs/go2.py`, `h1.py`) with the same
+formulas."""
 
 from __future__ import annotations
 
@@ -10,14 +11,15 @@ import torch
 
 from tpu_dialmpc_torch.core import rotations as rot
 from tpu_dialmpc_torch.dynamics import fused
-from tpu_dialmpc_torch.envs.base import EnvState, PipelineState, StateInfo
+from tpu_dialmpc_torch.envs.base import EnvState, PipelineState, StateInfo, map_tensors
 from tpu_dialmpc_torch.envs.fused_rollout import FusedRolloutMixin
 
 
 class LeggedEnv(FusedRolloutMixin):
     """Needs from the subclass: model, config (kp, kd, action_scale,
-    timestep, n_substeps), device, _dtype, _torso_idx, _init_q, FEET_SITES,
-    and the tensors joint_range, physical_joint_range, joint_torque_range."""
+    timestep, n_substeps, fused), device, _dtype, _torso_idx, _init_q,
+    FEET_SITES, _on_fused (`fused_rollout.pick_physics`), and the tensors
+    joint_range, physical_joint_range, joint_torque_range."""
 
     @property
     def action_size(self) -> int:
@@ -75,6 +77,28 @@ class LeggedEnv(FusedRolloutMixin):
             info, self._zeros(m.nu),
         )
         return EnvState(pipeline=ps, obs=obs, reward=reward, done=done, info=info)
+
+    def step(self, state, action) -> EnvState:
+        """One env step through the physics pipeline (`dynamics/pipeline.py`,
+        the JAX envs' `step`), whatever the config's `fused`: the action's
+        ctrl, n_substeps of physics, then the reward stack.  `state` is one
+        state or a batch (an EnvState or a LeanEnvState: only
+        .pipeline.{qpos,qvel,qacc_warmstart} and .info are read), `action`
+        (nu,) or (B, nu); returns an EnvState with the pipeline's derived
+        fields, of the same shape."""
+        dtype = self._dtype
+        single = state.pipeline.qpos.dim() == 1
+        add = (lambda x: x[None]) if single else (lambda x: x)
+        ps = state.pipeline
+        qpos, qvel, ws = (add(x.to(dtype)) for x in (ps.qpos, ps.qvel, ps.qacc_warmstart))
+        qpos2, qvel2, _, der, ctrl, reward, done, info2, ps2 = self._step_batch(
+            qpos, qvel, ws, map_tensors(state.info, add), add(torch.as_tensor(action, dtype=dtype, device=self.device)),
+            use_fused=False,
+        )
+        obs = self._get_obs(qpos2, qvel2, der["torso_xpos"], der["torso_xquat"],
+                            der["torso_cvel"], der["root_com"], info2, ctrl)
+        out = EnvState(pipeline=ps2, obs=obs, reward=reward, done=done, info=info2)
+        return map_tensors(out, lambda x: x[0]) if single else out
 
     def _reset_state(self, pos_tar) -> EnvState:
         """Keyframe "home" at rest, zero warmstart (as after

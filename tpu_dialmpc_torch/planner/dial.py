@@ -9,15 +9,16 @@ Counterpart of `tpu_dialmpc/planner/dial.py`, in PyTorch:
   injected noise, which is how the tests hold the port against the JAX
   package on the same draws;
 - rollouts go through the env's `rollout_batch` (one substep-kernel launch per
-  horizon step for all Nsample+1 candidates);
+  horizon step for all Nsample+1 candidates); an env without one is stepped
+  with its `step` over the batch-broadcast state, horizon step by horizon
+  step, as the JAX package's vmap(scan(env.step)) fallback does;
 - `reverse` and `improve` are Python loops over `reverse_once`;
 - `diag_states` (quirk Q4) adds the softmax-weighted rollout states
   qbar/qdbar/xbar to each iteration's info, from the same weights as the
-  control update, which it leaves unchanged.
-
-Not ported yet (it raises NotImplementedError): `compat_q1` (sequentially
-chained rollouts, reference quirk Q1), which steps candidates one by one
-with the env's single-sample `step` (the XLA physics path).
+  control update, which it leaves unchanged;
+- `compat_q1` (reference quirk Q1) chains the candidates' physics: each
+  starts where the one before ended, one `env.step` at a time.  A parity
+  fixture, sequential over candidates by design, not for production.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from tpu_dialmpc_torch.core import spline
+from tpu_dialmpc_torch.envs.base import map_tensors, to_lean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +53,9 @@ class DialConfig:
     # "sample" (default): scalar std of the mean rewards across samples, the
     # upstream semantics; "time": per-sample std across time, the C++ (Q9)
     score_std: str = "sample"
-    compat_q1: bool = False  # not ported yet
+    # Q1 compat: candidate i starts from candidate i-1's final physics state
+    # (the C++'s shared mjData); a sequential parity fixture
+    compat_q1: bool = False
     # Q4: softmax-weighted rollout qpos/qvel/torso position in ReverseInfo
     # (the C++ ships (1,1) zero placeholders, which False keeps)
     diag_states: bool = False
@@ -81,8 +85,6 @@ class MBDPI:
     """Model-Based Diffusion Planner on the env's device."""
 
     def __init__(self, args: DialConfig, env):
-        if args.compat_q1:
-            raise NotImplementedError("compat_q1 (reference quirk Q1) is not ported yet")
         self.args = args
         self.env = env
         self.nu = env.action_size
@@ -116,15 +118,66 @@ class MBDPI:
         return torch.einsum("qn,...nu->...qu", self._shift.to(Y.dtype), Y)
 
     # ------------------------------------------------------------------
+    def _lean(self, state):
+        """The live part of a physics env's state (qpos, qvel, warmstart,
+        info): `env.step` reads nothing else.  A state with no `pipeline` is
+        live as a whole."""
+        return to_lean(state) if hasattr(state, "pipeline") else state
+
+    def _step_rollouts(self, state, all_us, want_states=False):
+        """`env.step` over the batch-broadcast state, horizon step by horizon
+        step: rewards (B, T), and with `want_states` also the states (qss,
+        qdss, xss), xss the torso's world position (qpos[:3] where the env
+        names no torso)."""
+        B = all_us.shape[0]
+        s = map_tensors(self._lean(state), lambda x: x.expand((B,) + tuple(x.shape)))
+        torso = getattr(self.env, "_torso_idx", None)
+        outs = []
+        for t in range(all_us.shape[1]):
+            s = self.env.step(s, all_us[:, t])
+            if want_states:
+                ps = s.pipeline
+                x = ps.xpos[:, torso] if torso is not None else ps.qpos[:, :3]
+                outs.append((s.reward, ps.qpos, ps.qvel, x))
+            else:
+                outs.append((s.reward,))
+            s = self._lean(s)
+        stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
+        return stacked if want_states else stacked[0]
+
     def rollout_us_batch(self, state, all_us: torch.Tensor) -> torch.Tensor:
         """(B, Hsample+1, nu) -> rewards (B, Hsample+1); every rollout starts
-        from `state`."""
-        return self.env.rollout_batch(state, all_us)
+        from `state`: the env's `rollout_batch`, else `env.step`."""
+        if hasattr(self.env, "rollout_batch"):
+            return self.env.rollout_batch(state, all_us)
+        return self._step_rollouts(state, all_us)
 
     def rollout_us_batch_diag(self, state, all_us: torch.Tensor):
         """Rollouts that also return their states (Q4 diagnostics):
         (rewss (B,T), qss (B,T,nq), qdss (B,T,nv), xss (B,T,3))."""
-        return self.env.rollout_batch(state, all_us, want_states=True)
+        if hasattr(self.env, "rollout_batch"):
+            return self.env.rollout_batch(state, all_us, want_states=True)
+        return self._step_rollouts(state, all_us, want_states=True)
+
+    def rollout_us_batch_compat_q1(self, state, all_us: torch.Tensor):
+        """Reference-quirk-Q1 rollouts: the candidates chained one after
+        another through `env.step`.  The physics (qpos, qvel, warmstart)
+        carries over from candidate to candidate, as the C++'s shared mjData
+        does; StateInfo restarts from `state`'s for each candidate.  Returns
+        (rewss (B, T), the final physics (qpos, qvel, warmstart)); the C++
+        executes its next control from that state."""
+        lean = self._lean(state)
+        phys = lean.pipeline
+        rewss = []
+        for us in all_us:
+            s = dataclasses.replace(lean, pipeline=phys)
+            rews = []
+            for u in us:
+                s = self.env.step(s, u)
+                rews.append(s.reward)
+            rewss.append(torch.stack(rews))
+            phys = to_lean(s).pipeline
+        return torch.stack(rewss), (phys.qpos, phys.qvel, phys.qacc_warmstart)
 
     def _candidates(self, generator, Ybar_i, noise_scale, noise):
         """Noisy node-trajectory candidates + appended anchor (dial-core.h:477-514)."""
@@ -189,11 +242,29 @@ class MBDPI:
         all_Y0s = self._candidates(generator, Ybar_i, noise_scale, noise)
         all_us = self.node2u(all_Y0s)  # (Nsample+1, Hsample+1, nu)
         diag = None
-        if self.args.diag_states and hasattr(state, "pipeline"):
+        if self.args.compat_q1:
+            rewss, _ = self.rollout_us_batch_compat_q1(state, all_us)
+        elif self.args.diag_states and hasattr(state, "pipeline"):
             rewss, *diag = self.rollout_us_batch_diag(state, all_us)
         else:
             rewss = self.rollout_us_batch(state, all_us)  # (Nsample+1, Hsample+1)
         return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)
+
+    def reverse_once_compat(
+        self,
+        state,
+        generator: Optional[torch.Generator],
+        Ybar_i: torch.Tensor,
+        noise_scale: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+    ):
+        """The Q1-compat annealing step, which also returns the final chained
+        physics (qpos, qvel, warmstart): the C++ executes its next control
+        from exactly that state.  A parity fixture."""
+        all_Y0s = self._candidates(generator, Ybar_i, noise_scale, noise)
+        rewss, phys_final = self.rollout_us_batch_compat_q1(state, self.node2u(all_Y0s))
+        Ybar, info = self._score_update(rewss, all_Y0s, noise_scale)
+        return Ybar, info, phys_final
 
     # ------------------------------------------------------------------
     def reverse(self, state, YN: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

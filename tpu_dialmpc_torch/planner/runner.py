@@ -1,8 +1,10 @@
 """Receding-horizon DIAL-MPC driver (counterpart of
 `tpu_dialmpc/planner/runner.py`).
 
-`make_control_step` is one control step: execute Y0[0] through the env's
-`step_lean`, shift the plan, then `improve` it.  `run` drives it from the
+`make_control_step` is one control step: execute Y0[0], shift the plan,
+then `improve` it.  The executed step is the env's `step_lean` where the env
+is on the fused path (the loop then carries a LeanEnvState), else its
+`step` (the physics pipeline, and a full EnvState), as in the JAX runner.  `run` drives it from the
 reset state and the `reverse` warm start, the first control step with
 `Ndiffuse_init` annealing iterations and the rest with `Ndiffuse`, all noise
 drawn from one `torch.Generator` on the env's device seeded with cfg.seed.
@@ -43,11 +45,19 @@ class RunResult(NamedTuple):
     warmstart0: torch.Tensor
 
 
+def _lean_capable(env) -> bool:
+    """Whether the env executes its control step through `step_lean` (an env
+    on the fused path, or one with no `step`)."""
+    return (getattr(env, "step_lean", None) is not None
+            and getattr(env, "on_fused_path", True))
+
+
 def make_control_step(mbdpi: MBDPI, n_diffuse: int):
     """One receding-horizon step: execute, shift, anneal (dial-core-test.cpp:64-99)."""
+    execute = mbdpi.env.step_lean if _lean_capable(mbdpi.env) else mbdpi.env.step
 
     def control_step(state, Y0: torch.Tensor, generator: torch.Generator):
-        state2 = mbdpi.env.step_lean(state, Y0[0])
+        state2 = execute(state, Y0[0])
         Y1 = mbdpi.shift(Y0)
         Y2, infos = mbdpi.improve(state2, Y1, generator, n_diffuse)
         return state2, Y2, infos
@@ -77,12 +87,13 @@ def run(
     determine the continuation, and the replayed steps equal the lost ones.
     """
     mbdpi = MBDPI(cfg, env)
+    carried = to_lean if _lean_capable(env) else (lambda s: s)
     if resume is not None:
         state, Y0, generator, t0 = resume
-        state = to_lean(state)
+        state = carried(state)
     else:
         generator = torch.Generator(device=mbdpi.device).manual_seed(cfg.seed)
-        state = to_lean(env.reset())
+        state = carried(env.reset())
         Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=state.obs.dtype,
                          device=mbdpi.device)
         Y0 = mbdpi.reverse(state, Y0, generator)
@@ -112,7 +123,7 @@ def run(
             ck_state, Y0, generator, _, t_ck = checkpoint.load(checkpoint_path, env)
             if not t0 <= t_ck <= t:
                 raise  # a stale checkpoint of another run
-            state = to_lean(ck_state)
+            state = carried(ck_state)
             del records[t_ck - t0:]  # replay from the checkpoint
             t = t_ck
             continue

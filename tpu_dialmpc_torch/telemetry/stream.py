@@ -1,6 +1,7 @@
 """Asynchronous telemetry stream: one JSONL record per control step.
 
-Counterpart of `tpu_dialmpc/telemetry/stream.py`, with its record keys.  The
+Counterpart of `tpu_dialmpc/telemetry/stream.py`, with its record keys.
+`emit(record)` queues any JSON-serialisable dict as it is.  The
 control loop hands `emit_step` its step's state and planner infos; the
 values it records stay on the device, packed into one small tensor, and a
 writer thread reads them back and writes the JSONL line, so the loop never
@@ -66,9 +67,19 @@ class TelemetryStream:
         except queue.Full:
             self.dropped += 1  # drop rather than stall the control loop
 
+    def emit(self, record: dict) -> None:
+        """Queue one record as it is (a dict the writer serialises to a JSONL
+        line); dropped, and counted in `dropped`, when the queue is full."""
+        try:
+            self._q.put_nowait(record)
+        except queue.Full:
+            self.dropped += 1
+
     # ------------------------------------------------------------------
     @staticmethod
     def _record(item) -> dict:
+        if isinstance(item, dict):  # from emit: written as given
+            return item
         t, stamp, planner, diag, packed = item
         vals = packed.tolist()  # the one read back, on this thread
         rec = {"t": t, "time": stamp, **dict(zip(_BASE, vals))}
