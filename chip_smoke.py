@@ -41,9 +41,11 @@ result), after the card as nvidia-smi reports its name and power limit:
      kernel's launch count checked, then timings: on the first four paths a
      small reverse_once checked against the plain substep chain (on the
      crate tasks from a state at the crate), 5 timed `reverse_once` and
-     control steps and a torch.profiler window over 3 and 2 of them (wall
+     control steps and a torch.profiler window over 3 and 2 of them, after
+     a pre-roll of spin kernels that is left out of the counts (wall
      ms, device busy ms and idle share, the fused kernel's device ms and
      launches, the trace's count of them held against the launch counter,
+     the counted launches with no device record,
      the other kernels', and the host's cudaStreamSynchronize calls and
      wait; wall includes the profiler's own cost); on h1_walk and
      h1_loco one timed `reverse_once` and control step; and the path's wall
@@ -72,6 +74,23 @@ package's XLA path as batched PyTorch ops, which has no kernel of its own):
     card against CPU float64;
   - [cli] `replay` of the [cli] phase's trajectory through `env.step`, and
     `env-test` for 20 steps.
+Then the single-device tools:
+  - [profile] the CLI's `profile` on go2_stand at full width (N2048/H20/sub8):
+    the four phase times, the fused kernel's roofline, the measured fp32
+    peak (the FMA-chain kernel, csrc/fp32_peak.cu, whose launches in this
+    run are counted) and memory rate, each checked against 1.05 x the data
+    sheet's, and a profiler trace of one reverse_once that must hold
+    fused-kernel records; then the microbench kernel against its plain
+    version at the run's shape, and both timed;
+  - [ik] the feet IK on the card against its CPU float64 result;
+  - [native] a 6-step CLI `run` with telemetry through the native sink and
+    through the Python writer: the same records;
+  - [randomize] go2_stand with randomize_tasks at full width from a state at
+    step 498, 3 control steps: every candidate's command and the executed
+    one equal at step 500, the CPU's draw for the same seed;
+  - [cost_dial] a pendulum swing-up on the card against the CPU (float64,
+    the same draws), and one timed LeggedRobot `improve` (256 samples,
+    H=20, 3 levels).
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
@@ -244,12 +263,17 @@ def phase_card():
 
 
 def phase_build_all(envs):
-    """Every path's kernel, built at once: one nvcc process per model."""
+    """Every path's kernel and the fp32 microbench, built at once: one nvcc
+    process per model and one for fp32_peak.cu."""
+    from tpu_dialmpc_torch.dynamics import _build
+    from tpu_dialmpc_torch.telemetry import profile as prof
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(envs)) as pool:
-        list(pool.map(lambda e: e.fused_step.compile(), envs))
-    print(f"[build] {len(envs)} builds of fused_step.cu for sm_90a in parallel: "
-          f"{time.perf_counter() - t0:.2f} s")
+    jobs = [e.fused_step.compile for e in envs] + [lambda: _build.build(prof.FmaChain.SOURCE, {})]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: job(), jobs))
+    print(f"[build] {len(envs)} builds of fused_step.cu and fp32_peak.cu for sm_90a in "
+          f"parallel: {time.perf_counter() - t0:.2f} s")
 
 
 def phase_build(env, device, tag):
@@ -486,17 +510,32 @@ def check_small_against_plain(env, cfg, path, device):
         check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
 
 
-def _profile_window(fn, n, fused_step):
+# the profile window's pre-roll: spin kernels (torch.cuda._sleep, ATen's
+# `spin_kernel`) of about 20 us each, launched and waited for before the
+# window counts anything
+PREROLL_LAUNCHES = 256
+PREROLL_CYCLES = 40_000
+
+
+def _profile_window(fn, n, fused_step, preroll=PREROLL_LAUNCHES):
     """fn() n times under torch.profiler: where the window's time went.  The
     trace's count of fused-kernel records is held against the launch
     counter: a record lost from the trace is reported, with the window's
-    kernel launches that have no device record and where they fall."""
+    kernel launches that have no device record and where they fall.
+
+    The launches at the start of a trace can miss their CUPTI device record
+    (PERF.md section 5).  So the window opens with `preroll` spin kernels
+    and a synchronize: they take that loss, and the spin kernels and all
+    that precedes the synchronize are left out of every count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    launched = fused_step.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(preroll):
+            torch.cuda._sleep(PREROLL_CYCLES)
+        torch.cuda.synchronize()
+        launched = fused_step.launches
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -510,30 +549,38 @@ def _profile_window(fn, n, fused_step):
             dev = ev.self_cuda_time_total
         if ev.key == "cudaStreamSynchronize":
             syncs.append((ev.count, ev.cpu_time_total / 1e3))
-        elif dev > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        elif (dev > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA")
+              and "spin_kernel" not in ev.key):
             kernels.append((ev.key, ev.count, dev / 1e3))
     fused = [k for k in kernels if "fused_step_kernel" in k[0]]
     others = [k for k in kernels if "fused_step_kernel" not in k[0]]
     busy = sum(k[2] for k in kernels)
     traced = sum(k[1] for k in fused)
-    if traced != launched:
-        raw = list(prof.profiler.kineto_results.events())
-        on_device = {e.correlation_id() for e in raw if not str(e.device_type()).endswith("CPU")}
-        lost = [e for e in raw if "LaunchKernel" in e.name() and e.correlation_id() not in on_device]
-        start = min(e.start_ns() for e in raw)
+    raw = list(prof.profiler.kineto_results.events())
+    on_device = {e.correlation_id() for e in raw if not str(e.device_type()).endswith("CPU")}
+    lost = [e for e in raw if "LaunchKernel" in e.name() and e.correlation_id() not in on_device]
+    start = min(e.start_ns() for e in raw)
+    # the window's counted part begins where the pre-roll's synchronize ends
+    counted = min((e.end_ns() for e in raw if e.name() == "cudaDeviceSynchronize"),
+                  default=start) if preroll else start
+    lost_counted = [e for e in lost if e.start_ns() >= counted]
+    if traced != launched or lost_counted:
         print(f"[profile] the trace holds {traced} of the window's {launched} fused-kernel "
               f"launches ({sum('fused_step_kernel' in e.name() for e in raw)} raw device "
-              f"records); {len(lost)} kernel launches have no device record, at "
+              f"records); {len(lost)} kernel launches have no device record, "
+              f"{len(lost) - len(lost_counted)} of them in the pre-roll of {preroll}, at "
               f"{[round((e.start_ns() - start) / 1e6, 3) for e in lost[:8]]} ms into the "
-              f"{(max(e.end_ns() for e in raw) - start) / 1e6:.1f} ms window")
-    # one record lost per window was seen on the card (PERF.md section 5): it
-    # undercounts device time by one kernel call, and no more is accepted
+              f"{(max(e.end_ns() for e in raw) - start) / 1e6:.1f} ms window (counted from "
+              f"{(counted - start) / 1e6:.3f} ms)")
+    # one record lost per window was seen on the card before the pre-roll
+    # (PERF.md section 5): it undercounts device time by one kernel call, and
+    # no more is accepted
     check(launched - 1 <= traced <= launched,
           f"the profile window traced {traced} fused-kernel launches of the {launched} made")
     return {
         "calls": n, "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
         "fused_ms": sum(k[2] for k in fused), "fused_launches": launched,
-        "fused_traced": traced,
+        "fused_traced": traced, "untraced_launches": len(lost_counted),
         "other_kernels": sum(k[1] for k in others), "other_ms": sum(k[2] for k in others),
         "stream_syncs": sum(s[0] for s in syncs), "sync_wait_ms": sum(s[1] for s in syncs),
     }
@@ -987,6 +1034,241 @@ def phase_cli_physics():
     return drift
 
 
+# ----------------------------------------------------------------------
+# The single-device tools: the profiler (with the fp32 microbench kernel),
+# IK, the native telemetry sink, randomize_tasks and the cost-based planner.
+# ----------------------------------------------------------------------
+
+H100_HBM = 3.35e12  # the data sheet's memory rate (its fp32 rate: FP32_FLOPS)
+PEAK_REL_TOL = 1e-5  # the plain chain rounds a float64 multiply-add once per step
+
+
+def _cli_lines(tag, argv):
+    """cli.main(argv) in this process; its printed lines, echoed."""
+    import contextlib
+    import io
+
+    from tpu_dialmpc_torch.cli import main as cli
+
+    buf = io.StringIO()
+    print(f"{tag} main({argv})", flush=True)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"{tag}   {line}")
+    check(rc == 0, f"{tag} the CLI {argv[0]} failed")
+    return buf.getvalue().splitlines()
+
+
+def phase_profile(device):
+    """The CLI's `profile` at go2_stand's full width, with the microbench's
+    launch count set to 0 just before and read just after; then the
+    microbench kernel against its plain version at the same shape.
+    Returns the kernel's JSON record."""
+    import torch
+
+    from tpu_dialmpc_torch.telemetry import profile as prof
+
+    out = ROOT / "build" / "smoke_profile"
+    shutil.rmtree(out, ignore_errors=True)
+    prof.fp32_peak_ops_per_sec.cache_clear()
+    prof.hbm_copy_bytes_per_sec.cache_clear()
+    prof.FMA_CHAIN.launches = 0
+    t0 = time.perf_counter()
+    lines = _cli_lines("[profile]", ["profile", "--task", "go2_stand", "--out", str(out)])
+    launches = prof.FMA_CHAIN.launches
+    wall = time.perf_counter() - t0
+    phases = dict(line.strip().split(": ") for line in lines[1:5])
+    check(set(phases) == {"reverse_once_ms", "sample_spline_ms", "rollout_ms",
+                          "score_update_ms"}, "profile printed other phases")
+    check("fused kernel roofline:" in lines, "profile printed no roofline")
+    roof = dict(line.strip().split(": ", 1) for line in
+                lines[lines.index("fused kernel roofline:") + 1:] if line.startswith("  "))
+    check(0.0 < float(roof["fraction_of_roof"]) <= 1.0, "the roofline's fraction is not in (0, 1]")
+    peak, hbm = prof.fp32_peak_ops_per_sec(), prof.hbm_copy_bytes_per_sec()  # cached: no launch
+    print(f"[profile] measured fp32 peak {peak / 1e12:.3f} T ops/s ({peak / FP32_FLOPS:.4f} of the "
+          f"data sheet's 67 TFLOP/s), memory rate {hbm / 1e12:.3f} TB/s ({hbm / H100_HBM:.4f} of "
+          f"3.35 TB/s); fp32_peak launches {launches}; phase wall {wall:.1f} s")
+    check(0.0 < peak <= 1.05 * FP32_FLOPS, "the measured fp32 peak is above the card's")
+    check(0.0 < hbm <= 1.05 * H100_HBM, "the measured memory rate is above the card's")
+    check(launches > 0, "the profile did not launch the fp32_peak kernel")
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    fused_records = [ev for ev in events if "fused_step_kernel" in ev.get("name", "")
+                     and ev.get("cat") == "kernel"]
+    print(f"[profile] trace of one reverse_once (21 horizon steps, one launch each): "
+          f"{len(events)} events, {len(fused_records)} fused-kernel records")
+    check(len(fused_records) > 0, "the profile's trace holds no fused-kernel record")
+
+    # the microbench kernel against its plain version, at the run's shape
+    x0, a, b = prof.fp32_peak_inputs(device)
+    n, k = x0.shape[0], prof.PEAK_STEPS
+    got = prof.FMA_CHAIN(x0, a, b, k)
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(prof.FMA_CHAIN.plain(x0, a, b, k)), 1)
+    err = ((got - want[0]).abs() / want[0].abs()).max().item()
+    check(bool(torch.isfinite(got).all()), "non-finite microbench output")
+    ms = cuda_ms(lambda: prof.FMA_CHAIN.launch(x0, a, b, k), 20)
+    bound = prof.FMA_CHAIN.ops(n, k) / FP32_FLOPS * 1e3
+    print(f"[profile] fp32_peak n={n} k={k}: kernel vs plain max relative diff {err:.3e} "
+          f"(tolerance {PEAK_REL_TOL:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound:.4f} ms ({prof.FMA_CHAIN.ops(n, k):.4e} fp32 ops at 67 TFLOP/s), share "
+          f"{bound / ms:.4f}")
+    check(err <= PEAK_REL_TOL, "the fp32_peak kernel disagrees with its plain version")
+    return {
+        "name": "fp32_peak",
+        "route": "cuda",
+        "source": "tpu_dialmpc_torch/csrc/fp32_peak.cu",
+        "replaces": "tpu_dialmpc/telemetry/profile.py:106",
+        "launches": launches,
+        "max_abs_err": (got - want[0]).abs().max().item(),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations",
+        "share": bound / ms,
+        "library_ms": None,  # no PyTorch call computes a dependent FMA chain
+        "measured_peak_ops_per_sec": peak,
+        "measured_hbm_bytes_per_sec": hbm,
+    }, phases, roof
+
+
+def phase_ik(device):
+    """The feet IK (base 3 cm down) on the card in float32 against the CPU
+    in float64."""
+    from tpu_dialmpc_torch.envs import get_env
+    from tpu_dialmpc_torch.tools import ik
+
+    offset = [0.0, 0.0, -0.03]
+    q, res = ik.solve_feet_ik(get_env("go2_stand", device=device), offset)
+    q64, res64 = ik.solve_feet_ik(get_env("go2_stand", device="cpu", dtype="float64"), offset)
+    diff = (q.double().cpu() - q64).abs().max().item()
+    print(f"[ik] go2_stand base dz -0.03: residual {float(res):.2e} m on the card (CPU float64 "
+          f"{float(res64):.2e} m); joint angles max abs diff from the CPU {diff:.2e} rad "
+          f"(tolerance 1e-4)")
+    check(float(res) < 1e-4 and diff < 1e-4, "the IK on the card disagrees with the CPU")
+
+
+def phase_native(cfg):
+    """A 6-step CLI run with telemetry through the native sink, and the same
+    run through the Python writer: the same records."""
+    out = ROOT / "build" / "smoke_native"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    records = {}
+    for backend in ("native", "python"):
+        path = out / f"{backend}.jsonl"
+        _cli_lines("[native]", ["run", "--task", CLI_TASK, "--n-steps", "6", "--telemetry",
+                                str(path), "--telemetry-backend", backend])
+        records[backend] = [json.loads(line) for line in path.read_text().splitlines()]
+    same = all({k: v for k, v in a.items() if k != "time"} ==
+               {k: v for k, v in b.items() if k != "time"}
+               for a, b in zip(records["native"], records["python"]))
+    print(f"[native] N{cfg.Nsample}/H{cfg.Hsample}, 6 steps: native sink "
+          f"{len(records['native'])} records, Python writer {len(records['python'])}; the same "
+          f"values (time aside): {same}")
+    check(len(records["native"]) == len(records["python"]) == 6 and same,
+          "the native sink and the Python writer wrote other records")
+
+
+def phase_randomize(device):
+    """go2_stand with randomize_tasks at full width from a state at step 498:
+    3 control steps; at step 500 every rollout candidate's command and the
+    executed step's are the seed's draw, which the CPU draws too."""
+    import dataclasses
+
+    import torch
+
+    from tpu_dialmpc_torch.envs import dial_defaults, get_env
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    env = get_env("go2_stand", device=device, randomize_tasks=True)
+    cfg = DialConfig(**dial_defaults("go2_stand"))
+    mb = MBDPI(cfg, env)
+    gen = torch.Generator(device=device).manual_seed(7)
+    state = to_lean(env.reset(gen))
+    state = dataclasses.replace(state, info=dataclasses.replace(
+        state.info, step=torch.tensor(498, dtype=torch.int32, device=device)))
+    seen = {}  # batch size -> the commands at step 500 of every _post_physics call
+    post = env._post_physics
+
+    def recording(**kw):
+        reward, done, info2 = post(**kw)
+        at = kw["info"].step == 500
+        if bool(at.any()):
+            seen.setdefault(at.shape[0], []).append(
+                torch.cat([info2.vel_tar[at], info2.ang_vel_tar[at]], dim=-1))
+        return reward, done, info2
+
+    env._post_physics = recording
+    step = make_control_step(mb, cfg.Ndiffuse)
+    Y = torch.zeros((cfg.Hnode + 1, env.action_size), device=device)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, Y, infos = step(state, Y, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vel, ang = env.sample_command(state.info.seed.cpu(), torch.tensor(500))
+    want = torch.cat([vel, ang]).to(device)
+    cand = torch.cat(seen.get(cfg.Nsample + 1, []))
+    executed = torch.cat(seen.get(1, []))
+    print(f"[randomize] N{cfg.Nsample}/H{cfg.Hsample}, 3 control steps from step 498 "
+          f"({wall:.2f} s): step-500 commands of {cand.shape[0]} candidates and "
+          f"{executed.shape[0]} executed step(s); the draw {want.tolist()}; final step "
+          f"{int(state.info.step)}, reward {state.reward.item():.5f}")
+    # the rollouts of the first two control steps' 2 x Ndiffuse iterations
+    # pass step 500; the third control step executes it
+    check(cand.shape[0] == 2 * cfg.Ndiffuse * (cfg.Nsample + 1) and executed.shape[0] == 1,
+          "the rollouts or the executed step did not reach step 500")
+    check(bool((cand == want).all()) and bool((executed == want).all()),
+          "the candidates' and the executed command differ at the redraw")
+    check(bool(torch.isfinite(Y).all()), "non-finite plan under randomize_tasks")
+
+
+def phase_cost_dial(device):
+    """The pendulum swing-up on the card against the CPU (float64, the same
+    CPU generator's draws), and one LeggedRobot improve at 256 samples, H=20,
+    3 levels on the card, timed."""
+    import torch
+
+    from tpu_dialmpc_torch.planner.cost_dial import CostDialConfig, CostDialMPC
+    from tpu_dialmpc_torch.systems import InvertedPendulum, LeggedRobot
+
+    cfg = CostDialConfig(horizon=20, steps=60, diffusion_levels=3, num_samples=128)
+    runs = []
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        res = CostDialMPC(InvertedPendulum(device=dev, dtype=torch.float64), cfg).run(
+            [0.0, 0.0], generator=torch.Generator().manual_seed(0))
+        runs.append((res.trajectory.cpu(), time.perf_counter() - t0))
+    (card, s_card), (cpu, s_cpu) = runs
+    diff = (card - cpu).abs().max().item()
+    theta, theta_dot = card[-1].tolist()
+    print(f"[cost_dial] pendulum swing-up, 60 steps x 3 levels x 128 samples: card {s_card:.2f} s, "
+          f"CPU {s_cpu:.2f} s; trajectory max abs diff {diff:.2e} (tolerance 1e-5); final "
+          f"(theta, theta_dot) ({theta:.4f}, {theta_dot:.4f}), target (pi, 0)")
+    check(diff <= 1e-5, "the pendulum run on the card disagrees with the CPU's")
+    check(abs(theta - 3.141592653589793) < 0.35, "the pendulum did not swing up")
+
+    legged = LeggedRobot(device=device)
+    mpc = CostDialMPC(legged, CostDialConfig(horizon=20, diffusion_levels=3, num_samples=256))
+    x0 = legged.target_state.clone()
+    zero = torch.zeros((20, legged.control_dim), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    mpc.improve(x0, zero, gen)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = mpc.improve(x0, zero, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    c0, c1 = (mpc._rollout_cost(x0, s[None])[0].item() for s in (zero, seq))
+    print(f"[cost_dial] LeggedRobot (go2_force) improve, 256 samples x H20 x 3 levels "
+          f"(60 batched pipeline.step): {ms:.1f} ms; rollout cost {c0:.4f} -> {c1:.4f}")
+    check(bool(torch.isfinite(seq).all()), "non-finite LeggedRobot plan")
+    return ms
+
+
 def main():
     try:
         import torch
@@ -1064,6 +1346,21 @@ def main():
             f"{k} {v:.1f} ms" for k, v in physics_ms.items())
             + f", {per_substep:.0f} kernels per substep; go2_stand fused='off' reverse_once "
             f"{ro_ms:.1f} ms, control step {cs_ms:.1f} ms; replay drift {drift:.3e}")
+        t0 = time.perf_counter()
+        record, phases, roof = phase_profile(device)
+        records.append(record)
+        phase_ik(device)
+        phase_native(next(cfg for path, _, cfg in envs if path.task == CLI_TASK))
+        phase_randomize(device)
+        legged_ms = phase_cost_dial(device)
+        print(f"[time tools] the tools' phases: wall {time.perf_counter() - t0:.1f} s")
+        summary.append(
+            "go2_stand profile: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+            + f", roofline fraction {float(roof['fraction_of_roof']):.5f} of "
+            f"{float(roof['ideal_vpu_ms']):.4f} ms ideal over {float(roof['measured_ms']):.2f} ms; "
+            f"fp32 peak {record['measured_peak_ops_per_sec'] / 1e12:.3f} T ops/s, memory "
+            f"{record['measured_hbm_bytes_per_sec'] / 1e12:.3f} TB/s; fp32_peak {record['ms']:.4f} "
+            f"ms; LeggedRobot improve {legged_ms:.1f} ms")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

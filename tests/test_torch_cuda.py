@@ -4,7 +4,8 @@ H1 push-crate stand-in (all six kinds, and contact rows that couple the
 robot's and the crate's kinematic trees), the Go2 position stand-in (the
 servos' affine-bias branch) and the arms-fixed H1 (h1_loco); the physics
 pipeline's step on the card without a host synchronisation; a CPU
-checkpoint refused on the card: marked `cuda`, and each test skips without
+checkpoint refused on the card; the profiler's fp32 microbench kernel and
+the measured roof: marked `cuda`, and each test skips without
 a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
@@ -284,3 +285,33 @@ def test_cpu_checkpoint_refuses_to_resume_on_the_card(card, tmp_path):
                     cfg, 0)
     with pytest.raises(ValueError, match="saved on 'cpu' and cannot resume on 'cuda'"):
         checkpoint.load(path, get_env("go2_stand", device=card))
+
+
+def test_fp32_peak_kernel_matches_plain_on_card(card):
+    """The profiler's fp32 microbench (csrc/fp32_peak.cu) against its plain
+    version on the same inputs: 1e-5 relative (the plain version rounds a
+    float64 multiply-add to float32 once per step, as the FMA does; a rare
+    tie rounds twice); one step fewer moves the result by ~2.4e-4."""
+    from tpu_dialmpc_torch.telemetry import profile as prof
+
+    chain = prof.FmaChain()
+    x0, a, b = prof.fp32_peak_inputs(card, n=3000)
+    got = chain(x0, a, b, 256)
+    want = chain.plain(x0, a, b, 256)
+    torch.cuda.synchronize()
+    assert chain.launches == 1 and got.shape == (3000,) and bool(torch.isfinite(got).all())
+    assert ((got - want).abs() / want.abs()).max().item() <= 1e-5
+    fewer = chain.plain(x0, a, b, 255)
+    assert ((got - fewer).abs() / want.abs()).min().item() > 1e-4
+    with pytest.raises(TypeError):
+        chain(x0.double(), a, b, 8)
+    assert chain.launches == 1
+
+
+def test_profile_microbenchmarks_on_card(card):
+    """The measured roof is positive and within 5 % of the H100's data sheet
+    (67 TFLOP/s fp32, 3.35 TB/s) or below it."""
+    from tpu_dialmpc_torch.telemetry import profile as prof
+
+    peak, hbm = prof.fp32_peak_ops_per_sec(), prof.hbm_copy_bytes_per_sec()
+    assert 0 < peak <= 1.05 * 67e12 and 0 < hbm <= 1.05 * 3.35e12

@@ -105,7 +105,8 @@ def test_post_physics_matches_jax(monkeypatch, variant):
     )({k: jnp.asarray(v) for k, v in arrays.items()}, jinfo)
     tr, td, tinfo2 = tenv._post_physics(
         **{k: torch.as_tensor(v) for k, v in arrays.items()},
-        info=StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()}),
+        info=StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()},
+                       seed=torch.zeros(B, dtype=torch.int64)),
     )
     if tenv._crate is not None:
         cx, cy, hx, hy, _ = tenv._crate
@@ -123,6 +124,8 @@ def test_post_physics_matches_jax(monkeypatch, variant):
     else:
         assert td.any() and not td.all()  # both branches of termination exercised
     for f in dataclasses.fields(StateInfo):
+        if f.name == "seed":  # the port's in place of JAX's rng key
+            continue
         got = getattr(tinfo2, f.name).numpy()
         want = np.asarray(getattr(jinfo2, f.name))
         if got.dtype == bool or np.issubdtype(got.dtype, np.integer):
@@ -160,7 +163,6 @@ def test_foot_step_targets_match_jax(name):
 
 
 OPTIONS = {
-    "randomize_tasks": dict(randomize_tasks=True),
     "position": dict(leg_control="position", scene="go2_position"),
     "climb_ranges": dict(joint_range_source="climb"),
 }
@@ -168,8 +170,8 @@ OPTIONS = {
 
 @pytest.mark.parametrize("option", sorted(OPTIONS))
 def test_unported_options_raise(monkeypatch, option):
-    """randomize_tasks and the "climb" range table are not ported and raise.
-    Position leg control is: the env builds on the position scene, and its
+    """The "climb" range table is not ported and raises (randomize_tasks is
+    ported: test_torch_randomize.py).  Position leg control is: the env builds on the position scene, and its
     ctrl map (the action's joint targets) matches the JAX env's."""
     if option != "position":
         with pytest.raises(NotImplementedError):

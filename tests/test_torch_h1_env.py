@@ -126,7 +126,8 @@ def test_post_physics_matches_jax(monkeypatch, variant):
     )({k: jnp.asarray(v) for k, v in arrays.items()}, jinfo)
     tr, td, tinfo2 = tenv._post_physics(
         **{k: torch.as_tensor(v) for k, v in arrays.items()},
-        info=StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()}),
+        info=StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()},
+                       seed=torch.zeros(B, dtype=torch.int64)),
     )
     cfg = tenv.config
     if cfg.pos_anchor_leash > 0.0 and cfg.pos_anchor_mode == "integrate":
@@ -139,6 +140,8 @@ def test_post_physics_matches_jax(monkeypatch, variant):
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     assert td.any() and not td.all()  # both branches of termination exercised
     for f in dataclasses.fields(StateInfo):
+        if f.name == "seed":  # the port's in place of JAX's rng key
+            continue
         got = getattr(tinfo2, f.name).numpy()
         want = np.asarray(getattr(jinfo2, f.name))
         if got.dtype == bool or np.issubdtype(got.dtype, np.integer):
@@ -153,7 +156,8 @@ def test_crate_velocity_reward_is_capped(monkeypatch):
     _, tenv = _envs(monkeypatch, {})
     arrays, info = _inputs(tenv, seed=5)
     args = {k: torch.as_tensor(v) for k, v in arrays.items()}
-    info = StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()})
+    info = StateInfo(**{k: torch.as_tensor(v) for k, v in info.items()},
+                       seed=torch.zeros(B, dtype=torch.int64))
     fast = dict(args, qvel=args["qvel"].clone())
     fast["qvel"][:, 25] = 1.0
     slow = dict(args, qvel=args["qvel"].clone())
@@ -193,7 +197,6 @@ def test_biped_foot_step_targets_match_jax(name):
 
 
 H1_OPTIONS = {
-    "randomize_tasks": dict(randomize_tasks=True),
     "position": dict(leg_control="position"),
     "fused_off": dict(fused="off"),
     "other_ranges": dict(joint_range_source="other"),
@@ -202,7 +205,8 @@ H1_OPTIONS = {
 
 @pytest.mark.parametrize("option", sorted(H1_OPTIONS))
 def test_unported_h1_options_raise(monkeypatch, option):
-    """randomize_tasks and unknown range sources are not ported and raise.
+    """Unknown range sources are not ported and raise (randomize_tasks is
+    ported: test_torch_randomize.py).
     Position leg control is: its ctrl map (the action's joint targets)
     matches the JAX env's.  The XLA physics path (fused="off") is too: the
     executed step runs the physics pipeline, as env.step does (its parity

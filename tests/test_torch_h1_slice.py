@@ -99,6 +99,8 @@ def test_h1_reset_matches_jax(slice_):
               "subtree_com", "cvel", "qfrc_actuator"):
         _close(getattr(ts.pipeline, f), getattr(js.pipeline, f), 1e-12)
     for f in dataclasses.fields(ts.info):
+        if f.name == "seed":  # the port's in place of JAX's rng key
+            continue
         _close(getattr(ts.info, f.name), getattr(js.info, f.name), 1e-12)
 
 

@@ -92,17 +92,17 @@ def test_cli_replay_and_env_test_on_the_cpu(tmp_path):
 
 def test_telemetry_emit_writes_records_as_given(tmp_path):
     """The JAX test_telemetry.py cases: `emit` writes any dict as one JSONL
-    line; the native sink is not ported (it raises); a full queue drops
-    rather than blocks, and counts what it dropped."""
-    path = tmp_path / "t.jsonl"
-    with TelemetryStream(str(path), backend="python") as s:
-        for i in range(5):
-            s.emit({"t": i, "v": i * 2.0})
-        time.sleep(0.3)
-    assert [json.loads(line) for line in path.read_text().splitlines()] == [
-        {"t": i, "v": i * 2.0} for i in range(5)]
-    with pytest.raises(NotImplementedError):
-        TelemetryStream(str(tmp_path / "n.jsonl"), backend="native")
+    line, through the Python writer and through the native sink; a full
+    queue drops rather than blocks, and counts what it dropped."""
+    for backend in ("python", "native"):
+        path = tmp_path / f"{backend}.jsonl"
+        with TelemetryStream(str(path), backend=backend) as s:
+            for i in range(5):
+                s.emit({"t": i, "v": i * 2.0})
+            time.sleep(0.3)
+        assert s.backend == backend
+        assert [json.loads(line) for line in path.read_text().splitlines()] == [
+            {"t": i, "v": i * 2.0} for i in range(5)]
     s = TelemetryStream(str(tmp_path / "d.jsonl"), maxsize=2, backend="python")
     for i in range(1000):
         s.emit({"t": i})  # must never block the control loop

@@ -112,9 +112,9 @@ def test_fault_without_retries_raises(env, tmp_path, monkeypatch):
 
 
 def test_checkpoint_entries_are_the_jax_files_and_roundtrip(env, clean, tmp_path):
-    """The JAX checkpoint's entry names, but its PRNG key (`key`, and
-    `info_rng`, a field the port's StateInfo lacks) is the generator's
-    state; loading gives back the saved state, Y0 and generator, and the
+    """The JAX checkpoint's entry names, but its PRNG keys are the port's
+    own: `key` is the generator's state and `info_rng` the randomize_tasks
+    seed `info_seed`; loading gives back the saved state, Y0 and generator, and the
     derived fields of the forward stages `reset` uses."""
     import jax
     import jax.numpy as jnp
@@ -130,7 +130,8 @@ def test_checkpoint_entries_are_the_jax_files_and_roundtrip(env, clean, tmp_path
         obs=jnp.asarray(state.obs.numpy()), reward=jnp.asarray(state.reward.numpy()),
         done=jnp.asarray(state.done.numpy()),
         info=JInfo(rng=jax.random.PRNGKey(0), **{f.name: jnp.asarray(getattr(state.info, f.name).numpy())
-                                                 for f in dataclasses.fields(state.info)}),
+                                                 for f in dataclasses.fields(state.info)
+                                                 if f.name != "seed"}),
     )
     jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
     jcheckpoint.save(jpath, jstate, jnp.asarray(clean.final_Y0.numpy()), jax.random.PRNGKey(1),
@@ -139,12 +140,12 @@ def test_checkpoint_entries_are_the_jax_files_and_roundtrip(env, clean, tmp_path
     torch.randn(5, generator=gen)
     checkpoint.save(tpath, state, clean.final_Y0, gen, CFG, 6)
     with np.load(jpath) as j, np.load(tpath) as t:
-        assert set(t.files) - {"generator"} == set(j.files) - {"key", "info_rng"}
+        assert set(t.files) - {"generator", "info_seed"} == set(j.files) - {"key", "info_rng"}
         meta = json.loads(str(t["meta"]))
         # the port's own meta entry: the generator's device type
         assert meta.pop("generator_device") == "cpu"
         assert meta == json.loads(str(j["meta"]))
-        for name in set(t.files) - {"generator", "meta"}:
+        for name in set(t.files) - {"generator", "meta", "info_seed"}:
             np.testing.assert_array_equal(t[name], j[name], err_msg=name)
 
     loaded, Y0, gen2, cfg, step = checkpoint.load(tpath, env)
@@ -229,8 +230,8 @@ def test_telemetry_stream_drops_rather_than_blocks(clean, tmp_path, monkeypatch)
         stream.close()
     lines = [json.loads(line) for line in path.read_text().splitlines()]
     assert len(lines) == 20 - stream.dropped and lines[0]["t"] == 0
-    with pytest.raises(NotImplementedError):
-        TelemetryStream(backend="native")
+    with pytest.raises(ValueError):  # the backends are "auto", "native" and "python"
+        TelemetryStream(backend="ring")
 
 
 def _ns(**kw):

@@ -400,7 +400,7 @@ class TorchStubEnv:
     def action_size(self):
         return self.nu
 
-    def reset(self):
+    def reset(self, generator=None):
         import torch
 
         from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState

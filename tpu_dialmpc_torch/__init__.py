@@ -12,12 +12,21 @@ compiled from MJCF.
                `csrc/fused_step.cu`), and the physics pipeline (the JAX
                package's XLA path, batched: `kinematics`, `smooth`,
                `linalg`, `collision`, `constraint`, `solver`, `pipeline`)
-- `envs/`      the Go2 and H1 environments, their batched rollouts and the
-               13-task registry
-- `planner/`   the MBDPI planner and the receding-horizon drivers
-- `checkpoint.py`, `telemetry/`  checkpoints of the control loop, and its
-               JSONL telemetry stream
-- `cli/`       `python -m tpu_dialmpc_torch.cli.main run|replay|env-test --task <task>`
+- `envs/`      the Go2 and H1 environments (with `randomize_tasks`' command
+               redraws), their batched rollouts and the 13-task registry
+- `planner/`   the MBDPI planner and the receding-horizon drivers, and the
+               cost-based planner over generic systems (`cost_dial.py`:
+               `CostDialMPC`, reached as a library)
+- `systems/`   the generic systems for it: `InvertedPendulum`, `Cartpole`,
+               `LeggedRobot` (the physics pipeline)
+- `checkpoint.py`, `telemetry/`  checkpoints of the control loop; its JSONL
+               telemetry stream (the native C++ sink, `csrc/telemetry_sink.cpp`,
+               or the Python writer); the profiler and roofline
+               (`profile.py`, with the fp32 microbench kernel
+               `csrc/fp32_peak.cu`)
+- `tools/`     the feet IK and settle probe (`ik.py`)
+- `cli/`       `python -m tpu_dialmpc_torch.cli.main
+               run|replay|plot|env-test|ik|profile --task <task>`
 """
 
 import torch

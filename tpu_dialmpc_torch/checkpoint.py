@@ -5,9 +5,10 @@ solve, so a control run resumes exactly from (qpos, qvel, warmstart, Y0,
 StateInfo, the noise generator's state): a few KB in one `.npz`, with the
 JAX package's entry names (`meta` = JSON of the DialConfig and the step,
 `qpos`, `qvel`, `qacc_warmstart`, `Y0`, `reward`, `done`, `info_<field>`).
-The JAX file's PRNG key (`key`, and `info_rng`, which the port's StateInfo
-does not carry) is replaced by `generator`, the bytes of
-`torch.Generator.get_state()`, and `meta` also names the generator's device
+The JAX file's PRNG keys are replaced: `key` by `generator`, the bytes of
+`torch.Generator.get_state()`, and `info_rng` by `info_seed`, the
+randomize_tasks command seed (a file written before the port carried it
+loads with seed 0).  `meta` also names the generator's device
 type (`generator_device`): a CPU generator's state and a CUDA generator's
 are different things, so a checkpoint resumes only on an env whose device
 has the generator's type.
@@ -71,7 +72,10 @@ def load(path: str, env) -> Tuple[EnvState, torch.Tensor, torch.Generator, DialC
         def t(name):
             return torch.as_tensor(data[name], device=env.device)
 
-        info = StateInfo(**{f.name: t(f"info_{f.name}") for f in dataclasses.fields(StateInfo)})
+        fields = {f.name: f"info_{f.name}" for f in dataclasses.fields(StateInfo)}
+        info = StateInfo(**{k: t(v) for k, v in fields.items() if v in data.files},
+                         **({} if "info_seed" in data.files else  # written before the seed
+                            {"seed": torch.zeros((), dtype=torch.int64, device=env.device)}))
         state = env.full_state(t("qpos"), t("qvel"), t("qacc_warmstart"), info,
                                reward=t("reward"), done=t("done"))
         generator = torch.Generator(device=env.device)

@@ -1,11 +1,13 @@
 """CLI: run a DIAL-MPC task in closed loop from the registry, YAML or flags;
-replay a saved trajectory; smoke-test an env.
+replay or plot a saved trajectory; smoke-test an env; profile the planner;
+probe keyframes with IK.
 
-Counterpart of `tpu_dialmpc/cli/main.py`'s `run`, `replay` and `env-test`
-subcommands, with their flags, the config precedence (the task's registry
-defaults < the YAML file's `dial:` / `env:` sections < flags), their printed
-lines and `run`'s `--out` trajectory keys; plus `--device` (default `cuda`,
-the card; `cpu` runs the plain PyTorch versions).
+Counterpart of `tpu_dialmpc/cli/main.py`'s `run`, `replay`, `plot`,
+`env-test`, `ik` and `profile` subcommands, with their flags, the config
+precedence (the task's registry defaults < the YAML file's `dial:` / `env:`
+sections < flags), their printed lines and `run`'s `--out` trajectory keys;
+plus `--device` (default `cuda`, the card; `cpu` runs the plain PyTorch
+versions) and `run --telemetry-backend` (`auto`, `native`, `python`).
 
   python -m tpu_dialmpc_torch.cli.main run --task go2_trot --n-steps 100
   python -m tpu_dialmpc_torch.cli.main run --config configs/h1_walk.yaml
@@ -13,16 +15,25 @@ the card; `cpu` runs the plain PyTorch versions).
       --nsample 16 --hsample 4 --n-steps 3
   python -m tpu_dialmpc_torch.cli.main replay --task go2_stand --trajectory out.npz
   python -m tpu_dialmpc_torch.cli.main env-test --task h1_walk --n-steps 20
+  python -m tpu_dialmpc_torch.cli.main plot --trajectory out.npz --out plots.png
+  python -m tpu_dialmpc_torch.cli.main ik --task go2_stand --dz -0.03
+  python -m tpu_dialmpc_torch.cli.main profile --task go2_stand --out trace_dir
 
 `run`: `--checkpoint` writes the loop's state every 50 steps and at the end,
 `--resume` continues from such a file, `--telemetry` streams one JSONL
-record per step, and `--scan` runs the bare loop (`runner.run_scan`: `run`
-with nothing attached), which takes none of those three.  `replay` steps a
-`run --out` file's actions through `env.step` (the physics pipeline) from
-its saved start state (`qpos0`, `qvel0`, `warmstart0`) and prints the final
-qpos drift; `env-test` steps zero actions from the reset state.  The JAX
-CLI's other subcommands (bench, plot, render, ik, profile, scaling) are not
-ported yet.
+record per step (through the native sink where it builds, unless
+`--telemetry-backend` says otherwise), and `--scan` runs the bare loop
+(`runner.run_scan`: `run` with nothing attached), which takes none of those
+three.  `replay` steps a `run --out` file's actions through `env.step` (the
+physics pipeline) from its saved start state (`qpos0`, `qvel0`,
+`warmstart0`) and prints the final qpos drift; `plot` draws its state,
+reward and control charts (matplotlib); `env-test` steps zero actions from
+the reset state.  `ik` solves the feet IK for a base offset (`--mode ik`) or
+settles the PD-held home pose under the physics (`--mode settle`).
+`profile` prints the amortized phase timings of one annealing iteration and
+the fused kernel's roofline (`telemetry/profile.py`) and, with `--out`,
+writes a profiler trace of one `reverse_once`.  The JAX CLI's `bench`,
+`render` and `scaling` are not ported yet.
 """
 
 from __future__ import annotations
@@ -95,7 +106,8 @@ def cmd_run(args):
         if args.n_steps:
             dial_cfg = dataclasses.replace(dial_cfg, n_steps=args.n_steps)
         print(f"resumed from {args.resume} at step {step}")
-    stream = TelemetryStream(args.telemetry) if args.telemetry else None
+    stream = (TelemetryStream(args.telemetry, backend=args.telemetry_backend)
+              if args.telemetry else None)
     t0 = time.time()
     try:
         if args.scan:
@@ -183,13 +195,109 @@ def cmd_env_test(args):
     return 0
 
 
+def cmd_plot(args):
+    """The reference plotting fork's 6 state charts of a `run --out`
+    trajectory (base position and orientation, joint positions, base linear
+    and angular velocity, joint velocities), its per-step reward and the
+    executed controls, as one PNG (the JAX CLI's `plot`)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    with np.load(args.trajectory) as f:
+        data = {k: f[k] for k in f.files}
+    qpos, qvel = data["qpos"], data["qvel"]
+    fig, axes = plt.subplots(2, 4, figsize=(22, 9))
+    panels = [
+        ("Graph 1: Base Position (x,y,z)", qpos[:, 0:3], ("x", "y", "z")),
+        ("Graph 5: Base Orientation", qpos[:, 3:7], ("qw", "qx", "qy", "qz")),
+        ("Graph 2: Joints Position", qpos[:, 7:], None),
+        ("Graph 3: Base Velocity", qvel[:, 0:3], ("vx", "vy", "vz")),
+        ("Graph 6: Base Angular Velocity", qvel[:, 3:6], ("wx", "wy", "wz")),
+        ("Graph 4: Joints Velocity", qvel[:, 6:], None),
+        ("Reward", data["rewards"][:, None], ("reward",)),
+        ("Executed controls", data["us"], None),
+    ]
+    for ax, (title, series, labels) in zip(axes.ravel(), panels):
+        for i in range(series.shape[1]):
+            ax.plot(series[:, i], label=labels[i] if labels else f"{i}", linewidth=0.9)
+        ax.set_title(title)
+        ax.set_xlabel("control step")
+        if series.shape[1] <= 4:
+            ax.legend(fontsize=7)
+    fig.tight_layout()
+    out = args.out or "trajectory_plots.png"
+    fig.savefig(out, dpi=120)
+    plt.close(fig)
+    print(f"plots saved to {out}")
+    return 0
+
+
+def cmd_ik(args):
+    """IK / keyframe probe (the reference's legged_robot_ik.cpp): `--mode ik`
+    holds the feet while shifting the base; `--mode settle` shifts the base,
+    PD-holds the home pose and steps the physics to settle."""
+    from tpu_dialmpc_torch.tools import ik as ik_mod
+
+    env, _, _ = _build(args)
+    offset = [args.dx, args.dy, args.dz]
+    if args.mode == "ik":
+        q, res = ik_mod.solve_feet_ik(env, offset)
+        print(f"feet-position residual: {float(res):.2e} m")
+    else:
+        q = ik_mod.settle_probe(env, offset)
+    q = _host(q)
+    print(f"base: {q[:3].round(4)} quat: {q[3:7].round(4)}")
+    print(f"joint angles: {q[7:].round(4)}")
+    return 0
+
+
+def cmd_profile(args):
+    """Per-phase timings and the fused kernel's roofline
+    (telemetry/profile.py); with --out, a profiler trace of one
+    reverse_once after a warm call."""
+    import torch
+
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+    from tpu_dialmpc_torch.telemetry import profile as prof
+
+    width = dict(task=args.task, nsample=args.nsample or 2048, hsample=args.hsample or 20,
+                 n_substeps=args.substeps or 8, device=args.device)
+    print("phase timings (amortized, ms):")
+    for k, v in prof.phase_timings(**width).items():
+        print(f"  {k}: {v:.3f}")
+    try:
+        roof = prof.fused_kernel_roofline(**width)
+        print("fused kernel roofline:")
+        for k, v in roof.items():
+            print(f"  {k}: {v}")
+    except prof.FusedPathUnavailable as e:
+        print(f"roofline skipped: {e}")
+    if args.out:
+        env, dial_cfg, _ = _build(args)
+        mbdpi = MBDPI(dial_cfg, env)
+        state = to_lean(env.reset())
+        dtype = state.obs.dtype
+        Y0 = torch.zeros((dial_cfg.Hnode + 1, env.action_size), dtype=dtype, device=env.device)
+        scale = torch.as_tensor(mbdpi.sigma_control, dtype=dtype, device=env.device)
+        gen = torch.Generator(device=env.device).manual_seed(1)
+        mbdpi.reverse_once(state, gen, Y0, scale)  # warm: builds the kernel
+        prof.capture_trace(args.out, mbdpi.reverse_once, state, gen, Y0, scale)
+        print(f"profiler trace written to {args.out}")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu_dialmpc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     parsers = {}
     for name, fn, help_ in (("run", cmd_run, "run a task in closed loop"),
                             ("replay", cmd_replay, "replay a run's --out trajectory"),
-                            ("env-test", cmd_env_test, "step an env with zero actions")):
+                            ("env-test", cmd_env_test, "step an env with zero actions"),
+                            ("ik", cmd_ik, "feet IK or a settle probe for a base offset"),
+                            ("profile", cmd_profile, "phase timings and the kernel's roofline")):
         sp = parsers[name] = sub.add_parser(name, help=help_)
         sp.add_argument("--task", default="go2_stand")
         sp.add_argument("--config", default=None, help="YAML file: task, env:, dial:")
@@ -204,8 +312,20 @@ def main(argv=None):
     sp.add_argument("--checkpoint", default=None, help="checkpoint .npz path")
     sp.add_argument("--resume", default=None, help="resume from checkpoint")
     sp.add_argument("--telemetry", default=None, help="JSONL output path")
+    sp.add_argument("--telemetry-backend", default="auto", choices=("auto", "native", "python"),
+                    help="the native C++ sink, the Python writer, or the sink where it builds")
     sp.add_argument("--out", default=None, help="trajectory .npz output")
     parsers["replay"].add_argument("--trajectory", required=True, help="a run --out .npz")
+    sp = parsers["ik"]
+    sp.add_argument("--mode", default="ik", choices=("ik", "settle"))
+    sp.add_argument("--dx", type=float, default=0.0)
+    sp.add_argument("--dy", type=float, default=0.0)
+    sp.add_argument("--dz", type=float, default=0.0)
+    parsers["profile"].add_argument("--out", default=None, help="profiler trace directory")
+    sp = sub.add_parser("plot", help="plot a run's --out trajectory")
+    sp.add_argument("--trajectory", required=True, help="a run --out .npz")
+    sp.add_argument("--out", default=None, help="PNG path (default trajectory_plots.png)")
+    sp.set_defaults(fn=cmd_plot)
     args = p.parse_args(argv)
     return args.fn(args)
 

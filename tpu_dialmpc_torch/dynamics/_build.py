@@ -8,7 +8,8 @@ the compile flags and the caller's key (the model's sizes and constants), so
 a changed source or model builds anew and an unchanged one is reused.
 
 The same sources also build as host C++ with `g++` (`host=True`): the CPU
-tests use that build to check a kernel's arithmetic without a card.
+tests use that build to check a kernel's arithmetic without a card, and the
+telemetry sink (`csrc/telemetry_sink.cpp`, host code only) builds that way.
 """
 
 from __future__ import annotations
@@ -33,7 +34,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
+# -pthread: the telemetry sink (csrc/telemetry_sink.cpp) runs a writer thread
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+              "-pthread")
+HOST_CXX = "g++"
 
 
 def find_nvcc() -> str:
@@ -56,7 +60,7 @@ def build(
     compiler's log, whether it was built now rather than found)."""
     src = CSRC / source
     text = src.read_bytes()
-    compiler = "g++" if host else find_nvcc()
+    compiler = HOST_CXX if host else find_nvcc()
     flags = list(HOST_FLAGS if host else NVCC_FLAGS)
     dflags = [f"-D{k}={int(v)}" for k, v in sorted(defines.items())]
     digest = hashlib.sha256(

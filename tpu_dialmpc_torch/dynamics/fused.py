@@ -1431,22 +1431,28 @@ ARITH_ATEN = frozenset({
 
 
 def count_ops(model: PhysicsModel, spec: DerivedSpec | None = None,
-              exclude: Sequence[str] = ()) -> int:
+              exclude: Sequence[str] = (), arith_only: bool = True) -> int:
     """Arithmetic ops of one plain substep at B=1, less those named in
     `exclude`: each is one operation per sample, so B samples x n substeps
     take B * n * count_ops operations.  Model constants fold away as in the
     JAX graph, so without the selects (`where`, which count_fused_ops does
     not see: jnp.where traces into a nested jaxpr) this is the JAX
-    package's count of the same graph, from torch alone."""
+    package's count of the same graph, from torch alone.  With
+    `arith_only=False`: every dispatched op but views."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     counted = ARITH_ATEN - set(exclude)
+
+    def counts(func) -> bool:
+        if not arith_only:
+            return not func.is_view
+        return func.overloadpacket.__name__.rstrip("_") in counted
 
     class _Count(TorchDispatchMode):
         n = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.overloadpacket.__name__.rstrip("_") in counted:
+            if counts(func):
                 self.n += 1
             return func(*args, **(kwargs or {}))
 

@@ -37,10 +37,14 @@ def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
 class StateInfo:
     """Command targets and bookkeeping carried from step to step.
 
-    The JAX StateInfo also holds a PRNG key that `_post_physics` splits every
-    step; that key feeds only `randomize_tasks` (the command re-draw every
-    500 steps), which the port does not implement, so the port carries no key
-    in its place.  Fields have a leading batch shape (...) in rollouts."""
+    The JAX StateInfo holds a PRNG key that `_post_physics` splits every
+    step, feeding only `randomize_tasks` (the command redrawn every 500
+    steps).  In its place the port carries `seed`, an int64 drawn by `reset`
+    from the caller's generator: the redraw at step t is a counter-based hash
+    of (seed, t) (`envs/legged.py:command_uniforms`), so, as in JAX, it is a
+    function of the episode and the step alone, the same for every rollout
+    candidate and for the executed step.  Fields have a leading batch shape
+    (...) in rollouts."""
 
     pos_tar: torch.Tensor  # (..., 3)
     vel_tar: torch.Tensor  # (..., 3)
@@ -51,6 +55,7 @@ class StateInfo:
     z_feet_tar: torch.Tensor  # (..., n_feet)
     last_contact: torch.Tensor  # (..., n_feet) bool
     feet_air_time: torch.Tensor  # (..., n_feet)
+    seed: torch.Tensor  # (...) int64, the episode's command seed
 
 
 @dataclasses.dataclass(frozen=True)

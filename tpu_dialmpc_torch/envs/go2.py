@@ -13,8 +13,11 @@ Legs are torque-controlled (the PD map onto `<motor>`s) or, with
 `leg_control="position"`, position-controlled: the action's joint targets go
 to the model's `<position>` servos as ctrl (the go2_position scene).
 
-Not ported yet (they raise NotImplementedError): `randomize_tasks` and the
-"climb" joint-range table.
+With `randomize_tasks` the command is redrawn every 500 steps, uniform in
+lin x ±1.5, lin y ±0.5, yaw rate ±1.5 (the JAX env's ranges), from the
+episode's seed (`LeggedEnv.sample_command`); the draws are not the JAX
+package's threefry ones.  Not ported (it raises NotImplementedError): the
+"climb" joint-range table, which no task uses.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ class UnitreeGo2Env(LeggedEnv):
 
     FEET_SITES = ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
     TORSO_BODY = "base"
+    COMMAND_RANGE = (1.5, 0.5, 1.5)  # randomize_tasks: |lin x|, |lin y|, |yaw rate|
 
     def __init__(
         self,
@@ -78,8 +82,6 @@ class UnitreeGo2Env(LeggedEnv):
         device: torch.device | str = "cuda",
         model: PhysicsModel | None = None,
     ):
-        if config.randomize_tasks:
-            raise NotImplementedError("randomize_tasks is not ported yet")
         if config.joint_range_source not in ("upstream", "model", "model_eigen"):
             raise NotImplementedError(
                 f"joint_range_source={config.joint_range_source!r} is not ported"
@@ -161,9 +163,10 @@ class UnitreeGo2Env(LeggedEnv):
         return model.with_options(body_pos=body_pos)
 
     # ------------------------------------------------------------------
-    def reset(self) -> EnvState:
-        """Keyframe "home" at rest (`LeggedEnv._reset_state`)."""
-        return self._reset_state([0.282, 0.0, 0.3])
+    def reset(self, generator: torch.Generator | None = None) -> EnvState:
+        """Keyframe "home" at rest (`LeggedEnv._reset_state`; `generator`
+        draws the randomize_tasks seed)."""
+        return self._reset_state([0.282, 0.0, 0.3], generator)
 
     def _ctrl_batch(self, action, qpos, qvel):
         """Batched action (..., nu) -> ctrl (..., nu): the joint targets in
@@ -208,23 +211,28 @@ class UnitreeGo2Env(LeggedEnv):
         dtype = self._dtype
         dt = self.dt
 
-        # command schedule: exact reference ramp min(v·t/T, v)
-        t = info.step.to(dtype) * dt
-        frac = t / cfg.ramp_up_time
-        vx = torch.clamp(cfg.default_vx * frac, max=cfg.default_vx)
-        vy = torch.clamp(cfg.default_vy * frac, max=cfg.default_vy)
-        if cfg.turn_period:
-            sign = (1.0 - 2.0 * ((info.step // cfg.turn_period) % 2)).to(dtype)
-            mag = torch.clamp(abs(cfg.default_vyaw) * frac, max=abs(cfg.default_vyaw))
-            vyaw = mag * sign
+        # command schedule: the randomize_tasks redraw, or the exact
+        # reference ramp min(v·t/T, v)
+        if cfg.randomize_tasks:
+            vel_tar, ang_vel_tar = self._redrawn_command(info)
         else:
-            vyaw = torch.clamp(cfg.default_vyaw * frac, max=cfg.default_vyaw)
+            t = info.step.to(dtype) * dt
+            frac = t / cfg.ramp_up_time
+            vx = torch.clamp(cfg.default_vx * frac, max=cfg.default_vx)
+            vy = torch.clamp(cfg.default_vy * frac, max=cfg.default_vy)
+            if cfg.turn_period:
+                sign = (1.0 - 2.0 * ((info.step // cfg.turn_period) % 2)).to(dtype)
+                mag = torch.clamp(abs(cfg.default_vyaw) * frac, max=abs(cfg.default_vyaw))
+                vyaw = mag * sign
+            else:
+                vyaw = torch.clamp(cfg.default_vyaw * frac, max=cfg.default_vyaw)
+            vel_tar = torch.stack([vx, vy, info.vel_tar[..., 2]], dim=-1)
+            ang_vel_tar = torch.stack(
+                [info.ang_vel_tar[..., 0], info.ang_vel_tar[..., 1], vyaw], dim=-1
+            )
         if cfg.goal_x > 0.0:
-            vx = vx * (torso_xpos[..., 0] < cfg.goal_x).to(dtype)
-        vel_tar = torch.stack([vx, vy, info.vel_tar[..., 2]], dim=-1)
-        ang_vel_tar = torch.stack(
-            [info.ang_vel_tar[..., 0], info.ang_vel_tar[..., 1], vyaw], dim=-1
-        )
+            gate = (torso_xpos[..., 0] < cfg.goal_x).to(dtype)
+            vel_tar = torch.cat([vel_tar[..., :1] * gate[..., None], vel_tar[..., 1:]], dim=-1)
 
         # rewards
         feet = site_xpos[..., self._feet_site_id, :]
@@ -311,5 +319,6 @@ class UnitreeGo2Env(LeggedEnv):
             z_feet_tar=z_feet_tar,
             last_contact=contact,
             feet_air_time=feet_air_time,
+            seed=info.seed,
         )
         return reward, done, new_info

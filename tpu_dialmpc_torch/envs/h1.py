@@ -20,7 +20,10 @@ JAX env.  The walking and arms-fixed scenes (h1_walk, h1_loco) have no
 crate: the env finds no unactuated slide joint, so the crate terms stay
 inert and the crate anchor falls back to the integrated one.
 
-Not ported yet (it raises NotImplementedError): `randomize_tasks`.
+With `randomize_tasks` the command is redrawn every 500 steps, uniform in
+lin x ±1.0, lin y ±0.5, yaw rate ±1.0 (the JAX env's ranges), from the
+episode's seed (`LeggedEnv.sample_command`); the draws are not the JAX
+package's threefry ones.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ class UnitreeH1Env(LeggedEnv):
 
     FEET_SITES = ("left_foot", "right_foot")
     TORSO_BODY = "pelvis"
+    COMMAND_RANGE = (1.0, 0.5, 1.0)  # randomize_tasks: |lin x|, |lin y|, |yaw rate|
 
     def __init__(
         self,
@@ -86,8 +90,6 @@ class UnitreeH1Env(LeggedEnv):
         device: torch.device | str = "cuda",
         model: PhysicsModel | None = None,
     ):
-        if config.randomize_tasks:
-            raise NotImplementedError("randomize_tasks is not ported yet")
         self.config = config
         self.device = torch.device(device)
         self._dtype = {"float32": torch.float32, "float64": torch.float64}[config.dtype]
@@ -168,9 +170,10 @@ class UnitreeH1Env(LeggedEnv):
         self._on_fused = pick_physics(m, config.fused)
 
     # ------------------------------------------------------------------
-    def reset(self) -> EnvState:
-        """Keyframe "home" at rest (`LeggedEnv._reset_state`)."""
-        return self._reset_state([0.0, 0.0, self.config.pos_tar_z])
+    def reset(self, generator: torch.Generator | None = None) -> EnvState:
+        """Keyframe "home" at rest (`LeggedEnv._reset_state`; `generator`
+        draws the randomize_tasks seed)."""
+        return self._reset_state([0.0, 0.0, self.config.pos_tar_z], generator)
 
     def _ctrl_batch(self, action, qpos, qvel):
         """Batched action (..., nu) -> ctrl (..., nu): the joint targets in
@@ -201,18 +204,22 @@ class UnitreeH1Env(LeggedEnv):
         dt = self.dt
         step = info.step.to(dtype)
 
-        # command schedule: the ramp min(v·t/T, v)
-        frac = step * dt / cfg.ramp_up_time
-        vel_tar = torch.stack([
-            torch.clamp(cfg.default_vx * frac, max=cfg.default_vx),
-            torch.clamp(cfg.default_vy * frac, max=cfg.default_vy),
-            info.vel_tar[..., 2],
-        ], dim=-1)
-        ang_vel_tar = torch.stack([
-            info.ang_vel_tar[..., 0],
-            info.ang_vel_tar[..., 1],
-            torch.clamp(cfg.default_vyaw * frac, max=cfg.default_vyaw),
-        ], dim=-1)
+        # command schedule: the randomize_tasks redraw, or the ramp
+        # min(v·t/T, v)
+        if cfg.randomize_tasks:
+            vel_tar, ang_vel_tar = self._redrawn_command(info)
+        else:
+            frac = step * dt / cfg.ramp_up_time
+            vel_tar = torch.stack([
+                torch.clamp(cfg.default_vx * frac, max=cfg.default_vx),
+                torch.clamp(cfg.default_vy * frac, max=cfg.default_vy),
+                info.vel_tar[..., 2],
+            ], dim=-1)
+            ang_vel_tar = torch.stack([
+                info.ang_vel_tar[..., 0],
+                info.ang_vel_tar[..., 1],
+                torch.clamp(cfg.default_vyaw * frac, max=cfg.default_vyaw),
+            ], dim=-1)
 
         z_feet = site_xpos[..., self._feet_idx, 2]
         _, cadence, amplitude = self._gait_params
@@ -310,5 +317,6 @@ class UnitreeH1Env(LeggedEnv):
             z_feet_tar=z_feet_tar,
             last_contact=contact,
             feet_air_time=feet_air_time,
+            seed=info.seed,
         )
         return reward, done, new_info

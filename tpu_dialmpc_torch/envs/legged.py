@@ -15,11 +15,44 @@ from tpu_dialmpc_torch.envs.base import EnvState, PipelineState, StateInfo, map_
 from tpu_dialmpc_torch.envs.fused_rollout import FusedRolloutMixin
 
 
+# SplitMix64's constants, as int64 (torch has no uint64 arithmetic): the
+# products wrap modulo 2^64 as unsigned ones would
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+REDRAW_PERIOD = 500  # randomize_tasks: a new command every 500 steps
+
+
+def _lsr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 (torch's >> is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(z: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's output function: a bijective avalanche of 64 bits."""
+    z = (z ^ _lsr(z, 30)) * _MIX1
+    z = (z ^ _lsr(z, 27)) * _MIX2
+    return z ^ _lsr(z, 31)
+
+
+def command_uniforms(seed: torch.Tensor, step: torch.Tensor, n: int, dtype) -> list:
+    """n uniforms in [0, 1) for each (seed, step), elementwise over any
+    shape: a counter-based stream (SplitMix64 at counter step * n + k under
+    the mixed seed), integer ops on the tensors' device, no host sync.  Each
+    is a multiple of 2^-24, exact in float32 and float64, so the card and
+    the CPU draw the same values."""
+    base = _mix64(seed.to(torch.int64))
+    counter = step.to(torch.int64) * n
+    return [(_lsr(_mix64(base + (counter + k + 1) * _GOLDEN), 40).to(dtype) * 2.0**-24)
+            for k in range(n)]
+
+
 class LeggedEnv(FusedRolloutMixin):
     """Needs from the subclass: model, config (kp, kd, action_scale,
-    timestep, n_substeps, fused), device, _dtype, _torso_idx, _init_q,
-    FEET_SITES, _on_fused (`fused_rollout.pick_physics`), and the tensors
-    joint_range, physical_joint_range, joint_torque_range."""
+    timestep, n_substeps, fused, randomize_tasks), device, _dtype,
+    _torso_idx, _init_q, FEET_SITES, COMMAND_RANGE, _on_fused
+    (`fused_rollout.pick_physics`), and the tensors joint_range,
+    physical_joint_range, joint_torque_range."""
 
     @property
     def action_size(self) -> int:
@@ -100,11 +133,18 @@ class LeggedEnv(FusedRolloutMixin):
         out = EnvState(pipeline=ps2, obs=obs, reward=reward, done=done, info=info2)
         return map_tensors(out, lambda x: x[0]) if single else out
 
-    def _reset_state(self, pos_tar) -> EnvState:
+    def _reset_state(self, pos_tar, generator=None) -> EnvState:
         """Keyframe "home" at rest, zero warmstart (as after
-        mj_resetData)."""
+        mj_resetData).  Under `randomize_tasks` the episode's command seed
+        is drawn from `generator` (on the env's device; no draw without
+        one, and none without randomize_tasks, which reads no seed): 0
+        otherwise."""
         m = self.model
         n_feet = len(self.FEET_SITES)
+        if self.config.randomize_tasks and generator is not None:
+            seed = torch.randint(0, 2**62, (), generator=generator, device=self.device)
+        else:
+            seed = self._zeros(dtype=torch.int64)
         info = StateInfo(
             pos_tar=torch.tensor(pos_tar, dtype=self._dtype, device=self.device),
             vel_tar=self._zeros(3),
@@ -115,12 +155,31 @@ class LeggedEnv(FusedRolloutMixin):
             z_feet_tar=self._zeros(n_feet),
             last_contact=self._zeros(n_feet, dtype=torch.bool),
             feet_air_time=self._zeros(n_feet),
+            seed=seed,
         )
         qpos = torch.as_tensor(self._init_q, dtype=self._dtype, device=self.device)
         return self.full_state(
             qpos, self._zeros(m.nv), self._zeros(m.nv), info,
             reward=self._zeros(), done=self._zeros(dtype=torch.bool),
         )
+
+    def sample_command(self, seed: torch.Tensor, step: torch.Tensor):
+        """The `randomize_tasks` command for (seed, step), over any batch
+        shape: (vel_tar [lx, ly, 0], ang_vel_tar [0, 0, yaw rate]), each
+        uniform in the env's COMMAND_RANGE (the JAX env's sample_command)."""
+        u = command_uniforms(seed, step, 3, self._dtype)
+        lo_hi = [(-r, r) for r in self.COMMAND_RANGE]
+        lx, ly, yw = (lo + (hi - lo) * x for (lo, hi), x in zip(lo_hi, u))
+        zero = torch.zeros_like(lx)
+        return torch.stack([lx, ly, zero], dim=-1), torch.stack([zero, zero, yw], dim=-1)
+
+    def _redrawn_command(self, info: StateInfo):
+        """`randomize_tasks`' schedule: at step % 500 == 0 a new command,
+        else the carried one."""
+        redraw = ((info.step % REDRAW_PERIOD) == 0)[..., None]
+        new_vel, new_ang = self.sample_command(info.seed, info.step)
+        return (torch.where(redraw, new_vel, info.vel_tar),
+                torch.where(redraw, new_ang, info.ang_vel_tar))
 
     def act2joint(self, act: torch.Tensor) -> torch.Tensor:
         """Normalized action (..., nu) in [-1, 1] -> joint targets."""

@@ -93,7 +93,7 @@ def run(
         state = carried(state)
     else:
         generator = torch.Generator(device=mbdpi.device).manual_seed(cfg.seed)
-        state = carried(env.reset())
+        state = carried(env.reset(generator))
         Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=state.obs.dtype,
                          device=mbdpi.device)
         Y0 = mbdpi.reverse(state, Y0, generator)

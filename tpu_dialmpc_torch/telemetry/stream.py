@@ -8,9 +8,14 @@ writer thread reads them back and writes the JSONL line, so the loop never
 waits for a record.  The queue is bounded: when it is full a record is
 dropped (counted in `dropped`) rather than stall the loop.
 
-Only the Python writer is ported: `backend="native"` (the JAX package's C++
-ring-buffer sink) raises NotImplementedError, and "auto" means the Python
-writer.
+The writer thread hands each JSONL line to one of two backends, as in the
+JAX package: `"native"`, the C++ ring-buffer sink (`telemetry/native.py`,
+built from `csrc/telemetry_sink.cpp` at first use), which raises
+RuntimeError where it cannot be built; `"python"`, a file the thread writes
+itself; and `"auto"` (the default), the native sink where it builds and
+the Python writer where it does not.  Both write the same lines.  Without a
+path nothing is written and no sink is made; the records are kept
+(`records`) either way.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from tpu_dialmpc_torch.telemetry.native import NativeSink
+
 _BASE = ("reward", "done", "z")
 _PLANNER = ("ess", "entropy", "rew_mean", "rew_max", "rew_std")
 
@@ -31,15 +38,22 @@ class TelemetryStream:
     """JSONL telemetry writer with a background thread."""
 
     def __init__(self, path: Optional[str] = None, maxsize: int = 4096, backend: str = "auto"):
-        if backend == "native":
-            raise NotImplementedError("the native telemetry sink is not ported yet")
-        if backend not in ("auto", "python"):
+        if backend not in ("auto", "native", "python"):
             raise ValueError(f"unknown telemetry backend {backend!r}")
         self.path = path
-        self.dropped = 0
+        self._dropped = 0
         self._q: "queue.Queue" = queue.Queue(maxsize=maxsize)
         self._records = []
-        self._file = open(path, "w") if path else None
+        self._native = None
+        self._file = None
+        if path and backend in ("auto", "native"):
+            try:
+                self._native = NativeSink(path, capacity=maxsize)
+            except RuntimeError:
+                if backend == "native":
+                    raise
+        if path and self._native is None:
+            self._file = open(path, "w")
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._writer, daemon=True)
         self._thread.start()
@@ -65,7 +79,7 @@ class TelemetryStream:
         try:
             self._q.put_nowait((int(t), time.time(), infos is not None, diag, packed))
         except queue.Full:
-            self.dropped += 1  # drop rather than stall the control loop
+            self._dropped += 1  # drop rather than stall the control loop
 
     def emit(self, record: dict) -> None:
         """Queue one record as it is (a dict the writer serialises to a JSONL
@@ -73,7 +87,7 @@ class TelemetryStream:
         try:
             self._q.put_nowait(record)
         except queue.Full:
-            self.dropped += 1
+            self._dropped += 1
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -91,7 +105,9 @@ class TelemetryStream:
         return rec
 
     def _write(self, rec: dict) -> None:
-        if self._file:
+        if self._native is not None:
+            self._native.push(json.dumps(rec))
+        elif self._file:
             self._file.write(json.dumps(rec) + "\n")
 
     def _writer(self):
@@ -107,9 +123,24 @@ class TelemetryStream:
     def close(self):
         self._stop.set()
         self._thread.join(timeout=30.0)
+        if self._native is not None:
+            self._native.close()  # drains its ring to the file
         if self._file:
             self._file.close()
             self._file = None
+
+    @property
+    def backend(self) -> Optional[str]:
+        """"native" or "python": where the lines go (None without a path)."""
+        if self._native is not None:
+            return "native"
+        return "python" if self.path else None
+
+    @property
+    def dropped(self) -> int:
+        """Records dropped: by the full queue, and by the native sink's full
+        ring."""
+        return self._dropped + (self._native.dropped if self._native is not None else 0)
 
     @property
     def records(self):
