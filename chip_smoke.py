@@ -38,9 +38,8 @@ result), after the card as nvidia-smi reports its name and power limit:
      N8192); the kernel's bound (the plain substep's fp32 operations,
      fused.count_ops, at 67 TFLOP/s) and its share of the measured time;
   3. the main path: reset, the reverse warm start, 3 control steps, with the
-     kernel's launch count checked, then timings: on the first four paths a
-     small reverse_once checked against the plain substep chain (on the
-     crate tasks from a state at the crate), 5 timed `reverse_once` and
+     kernel's launch count checked, then timings: on the first four paths
+     5 timed `reverse_once` and
      control steps and a torch.profiler window over 3 and 2 of them, after
      a pre-roll of spin kernels that is left out of the counts (wall
      ms, device busy ms and idle share, the fused kernel's device ms and
@@ -50,6 +49,11 @@ result), after the card as nvidia-smi reports its name and power limit:
      wait; wall includes the profiler's own cost); on h1_walk and
      h1_loco one timed `reverse_once` and control step; and the path's wall
      seconds.
+After the six paths, [small]: on each of the first four, a small
+reverse_once (N64/H4/Hnode2) through the kernel and through the plain
+substep chain, the same injected noise, on the crate tasks from a state at
+the crate; the four run at once, each in a spawned process (the plain chain
+is host-bound, seconds per horizon step), while this process waits.
 After go2_trot_position, the [cli] phase runs the CLI's `run` on it at full
 width: 6 steps with telemetry and a trajectory file, 3 steps with a
 checkpoint and a resume to 6, and `--scan`, each with its launch count
@@ -91,17 +95,34 @@ Then the single-device tools:
   - [cost_dial] a pendulum swing-up on the card against the CPU (float64,
     the same draws), and one timed LeggedRobot `improve` (256 samples,
     H=20, 3 levels).
+Then the sample-parallel planner (`shard/`) and its measuring entry points,
+each rank a process spawned by `shard.distributed.run_group`:
+  - [shard nccl-1] go2_stand at full width through `ShardedMBDPI` in a
+    one-rank NCCL group: one `reverse_once` under injected noise and one
+    from the shared generator, each against `MBDPI` on the same inputs
+    (Ybar max abs diff and weights over the largest weight, 1e-5), the
+    fused launches of each (Hsample+1), and both planners timed;
+  - [shard gloo-2] the same on two gloo ranks sharing the card (NCCL refuses
+    two ranks on one device), 1025 candidates each: the ranks equal to the
+    bit, each against MBDPI, each rank's launches and time;
+  - [scaling] the CLI's `scaling` (one row: one card), then
+    `collective_overhead_report` with two gloo ranks on the card at the same
+    width, and `predicted_efficiency_rows` from the two;
+  - [bench] the CLI's `bench --full` at N2048/H20/sub8: the three rows of
+    the JAX package's benchmark schema, by name, finite, positive, on cuda.
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
 
+import contextlib
 import json
 import shutil
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
@@ -219,7 +240,7 @@ class SmokePath(NamedTuple):
     inputs: Callable  # (model, B, seed, device) -> kernel inputs for the compare
     at_crate: Optional[Callable]  # moves the reset qpos to the crate, in place
     big_batch: Optional[int]  # a larger batch the kernel is also timed at
-    # the small reverse_once against the plain chain, 5 timed repetitions
+    # [small]'s reverse_once against the plain chain, 5 timed repetitions
     # and the profile window; else one timed reverse_once and control step
     full: bool = True
 
@@ -471,10 +492,11 @@ def run_main_path(env, cfg, device, task, envs):
     return mbdpi, state, Y0, gen, step_rest, launches
 
 
-def check_small_against_plain(env, cfg, path, device):
+def small_against_plain(env, cfg, path, device):
     """One small reverse_once through the kernel and through the plain
     substep chain, same card, same injected noise; on the crate tasks from
-    a state at the crate, so the rollouts meet it."""
+    a state at the crate, so the rollouts meet it.  Returns (name, max abs
+    diff, tolerance) for the rewards and Ybar."""
     import dataclasses
 
     import torch
@@ -502,12 +524,45 @@ def check_small_against_plain(env, cfg, path, device):
         out.append(mb.reverse_once(start, None, Y, scale, noise=noise))
     (kY, kinfo), (pY, pinfo) = out
     torch.cuda.synchronize()
-    for name, a, b in (("rews", kinfo.rews, pinfo.rews), ("Ybar", kY, pY)):
-        err = (a - b).abs().max().item()
-        tol = REL_TOL * max(1.0, b.abs().max().item())
-        print(f"[main {path.task}] small reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
-              f"max abs diff {err:.3e} (tolerance {tol:.3e})")
-        check(err <= tol, f"small reverse_once disagrees with the plain chain: {name}")
+    return [(name, (a - b).abs().max().item(), REL_TOL * max(1.0, b.abs().max().item()))
+            for name, a, b in (("rews", kinfo.rews, pinfo.rews), ("Ybar", kY, pY))]
+
+
+def _small_in_child(i):
+    """[small] for PATHS[i], in a spawned process: its own env on the card
+    (the kernel loads from the parent's build)."""
+    import torch
+
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    device = torch.device("cuda", 0)
+    path = PATHS[i]
+    env, cfg = make_env(path.task, path.scene, path.width, device)
+    return path.task, small_against_plain(env, cfg, path, device)
+
+
+def phase_small_against_plain(timeout_s=900):
+    """[small] on every full path at once, one spawned process each; every
+    process is stopped before this returns."""
+    idx = [i for i, path in enumerate(PATHS) if path.full]
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(len(idx), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        results = list(pool.map(_small_in_child, idx, timeout=timeout_s))
+    except Exception as e:  # a child's failed check or traceback, or the timeout
+        raise SmokeError(f"[small] a check process failed: {type(e).__name__}: {e}") from e
+    finally:
+        procs = list(pool._processes.values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            proc.kill()
+            proc.join()
+    for task, rows in results:
+        for name, err, tol in rows:
+            print(f"[small {task}] reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
+                  f"max abs diff {err:.3e} (tolerance {tol:.3e})")
+            check(err <= tol, f"{task}: small reverse_once disagrees with the plain chain: {name}")
+    print(f"[time small] {len(idx)} paths at once, each in its own process: wall "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # the profile window's pre-roll: spin kernels (torch.cuda._sleep, ATen's
@@ -618,6 +673,25 @@ def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task, full):
     return ro_ms, cs_ms
 
 
+@contextlib.contextmanager
+def recording_envs():
+    """Every env `get_env` builds inside the block, in a list: entry points
+    build their own envs, and a kernel's launches are counted on its env."""
+    import tpu_dialmpc_torch.envs as envs_mod
+
+    made, get_env = [], envs_mod.get_env
+
+    def recording_get_env(*args, **kw):
+        made.append(get_env(*args, **kw))
+        return made[-1]
+
+    envs_mod.get_env = recording_get_env
+    try:
+        yield made
+    finally:
+        envs_mod.get_env = get_env
+
+
 OUT_KEYS = {"rewards", "qpos", "qvel", "us", "dones", "qpos0", "qvel0", "warmstart0", "dt"}
 RECORD_KEYS = ["t", "time", "reward", "done", "z", "ess", "entropy", "rew_mean", "rew_max",
                "rew_std"]
@@ -631,18 +705,11 @@ def phase_cli(cfg):
     the 6-step run's.  Returns (host loop s, --scan s) for the 6 steps."""
     import numpy as np
 
-    import tpu_dialmpc_torch.envs as envs_mod
     from tpu_dialmpc_torch.cli import main as cli
 
     out = ROOT / "build" / "smoke_cli"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    made = []  # the env each run builds, to read its kernel's launch count
-    get_env = envs_mod.get_env
-
-    def recording_get_env(*args, **kw):
-        made.append(get_env(*args, **kw))
-        return made[-1]
 
     def run(expected, *flags):
         argv = ["run", "--task", CLI_TASK, *flags]
@@ -655,8 +722,7 @@ def phase_cli(cfg):
         check(launches == expected, "the CLI run did not launch the kernel as expected")
         return secs
 
-    envs_mod.get_env = recording_get_env
-    try:
+    with recording_envs() as made:  # the env each run builds, for its launch count
         loop_s = run(expected_launches(cfg, 6), "--n-steps", "6",
                      "--telemetry", str(out / "t.jsonl"), "--out", str(out / "full.npz"))
         run(expected_launches(cfg, 3), "--n-steps", "3", "--checkpoint", str(out / "ck.npz"))
@@ -664,8 +730,6 @@ def phase_cli(cfg):
             "--out", str(out / "resumed.npz"))
         scan_s = run(expected_launches(cfg, 6), "--scan", "--n-steps", "6",
                      "--out", str(out / "scan.npz"))
-    finally:
-        envs_mod.get_env = get_env
 
     records = [json.loads(line) for line in (out / "t.jsonl").read_text().splitlines()]
     print(f"[cli] telemetry: {len(records)} records, keys {list(records[0]) if records else []}")
@@ -1269,6 +1333,130 @@ def phase_cost_dial(device):
     return ms
 
 
+# ----------------------------------------------------------------------
+# the sample-parallel planner (tpu_dialmpc_torch/shard/) and the two
+# measuring entry points, scaling and bench
+
+SHARD_WIDTH = (2048, 20, 5, 8)  # go2_stand's full width
+SHARD_TOL = 1e-5  # Ybar max abs diff, weights max abs diff over the largest weight
+
+
+def _hold_sharded(tag, outs, horizon):
+    """Every rank against the single-device planner, the ranks against each
+    other to the bit, and each rank's launches per reverse_once."""
+    import numpy as np
+
+    for how in ("injected", "generator"):
+        for rank, out in enumerate(outs):
+            o = out[how]
+            dy = float(np.abs(o["Ybar"] - o["single_Ybar"]).max())
+            dw = float(np.abs(o["weights"] - o["single_weights"]).max() / o["single_weights"].max())
+            print(f"[{tag}] rank {rank} ({out['backend']}, samples {out['block'][0]}-"
+                  f"{out['block'][1] - 1} + the anchor) {how}: Ybar max abs diff from MBDPI "
+                  f"{dy:.3e}, weights {dw:.3e} of the largest (tolerance {SHARD_TOL:.0e}); "
+                  f"fused launches {o['launches']} (expected {horizon})")
+            check(bool(np.isfinite(o["Ybar"]).all()), f"{tag}: non-finite Ybar")
+            check(dy <= SHARD_TOL and dw <= SHARD_TOL, f"{tag}: the sharded planner disagrees "
+                  "with MBDPI")
+            check(o["launches"] == horizon, f"{tag}: a rank did not launch the kernel once per "
+                  "horizon step")
+        if len(outs) > 1:
+            same = all(np.array_equal(out[how]["Ybar"], outs[0][how]["Ybar"])
+                       and np.array_equal(out[how]["weights"], outs[0][how]["weights"])
+                       for out in outs)
+            print(f"[{tag}] {how}: the ranks' Ybar and weights equal to the bit: {same}")
+            check(same, f"{tag}: the ranks disagree")
+
+
+def phase_shard():
+    """go2_stand at full width through ShardedMBDPI: one rank of NCCL, then
+    two gloo ranks sharing the card (NCCL refuses two ranks on one device),
+    each rank a spawned process.  Timed in turns: on one rank against
+    MBDPI, on two against MBDPI at each rank's block size (the same
+    rollouts, no collective).  Returns (NCCL ranks' ms by planner, gloo
+    ranks' ms by planner, each rank's launches per reverse_once)."""
+    import torch_shard_ranks as ranks
+    from tpu_dialmpc_torch.shard import distributed
+
+    horizon = SHARD_WIDTH[1] + 1
+    groups = {}
+    for tag, world, backend, compare in (("shard nccl-1", 1, "nccl", ("single",)),
+                                         ("shard gloo-2", 2, "gloo", ("block",))):
+        t0 = time.perf_counter()
+        outs = distributed.run_group(ranks.card_reverse_once, world, (SHARD_WIDTH, 7, compare),
+                                     backend=backend, device="cuda:0", timeout_s=300)
+        _hold_sharded(tag, outs, horizon)
+        check(all(o["backend"] == backend for o in outs), f"{tag}: the group is not {backend}")
+        for rank, o in enumerate(outs):
+            calls = ", ".join(f"{k} x{c} ({ms:.2f} ms host)" for k, (c, ms) in
+                              sorted(o["host_calls"].items()))
+            print(f"[{tag}] rank {rank}: median ms per reverse_once (7 calls in turns): "
+                  f"{json.dumps({k: round(v, 2) for k, v in o['ms'].items()})}; one sharded "
+                  f"call's {calls}")
+            check(o["host_calls"].get("c10d::allreduce_", (0,))[0] > 0,
+                  f"{tag}: the sharded call made no all-reduce")
+        print(f"[{tag}] N{SHARD_WIDTH[0]}/H{SHARD_WIDTH[1]}/Hnode{SHARD_WIDTH[2]}/sub"
+              f"{SHARD_WIDTH[3]}; phase wall {time.perf_counter() - t0:.1f} s")
+        groups[tag] = outs
+    nccl, gloo = groups["shard nccl-1"], groups["shard gloo-2"]
+    launches = [o["injected"]["launches"] for o in nccl + gloo]
+    return nccl[0]["ms"], gloo[0]["ms"], launches
+
+
+def phase_scaling(device):
+    """The CLI's `scaling` on the card (one row: one card), the collective
+    overhead of two gloo ranks sharing the card at go2_stand's full width,
+    and the predicted rows from both.  Returns (row, overhead)."""
+    from tpu_dialmpc_torch.shard import scaling
+
+    with recording_envs() as made:
+        lines = _cli_lines("[scaling]", ["scaling", "--task", "go2_stand"])
+    rows = [json.loads(line) for line in lines]
+    launches = sum(e.fused_step.launches for e in made)
+    print(f"[scaling] fused launches of the CLI's scaling: {launches}")
+    check(len(rows) == 1 and rows[0]["devices"] == 1, "scaling gave other rows than one card's")
+    check(rows[0]["ms_per_iteration"] > 0 and rows[0]["efficiency_vs_linear"] == 1.0,
+          "scaling's row is malformed")
+    check(launches > 0, "the CLI's scaling did not launch the fused kernel")
+    n, h, hnode, _ = SHARD_WIDTH
+    over = scaling.collective_overhead_report(task="go2_stand", nsample=n, hsample=h, hnode=hnode,
+                                              n_devices=2, device=device)
+    print(f"[scaling] collective_overhead_report: {json.dumps(over)}")
+    check(over["unsharded_ms"] > 0 and over["sharded_ms"] > 0, "the overhead report is malformed")
+    check(over["port_payload_bytes_per_iteration"] > over["payload_bytes_per_iteration"],
+          "the sharded ranks reduced fewer bytes than the update's partials")
+    # the port's payload: what the ranks all-reduced, not the JAX formula's
+    for r in scaling.predicted_efficiency_rows(rows[0]["ms_per_iteration"],
+                                               over["port_payload_bytes_per_iteration"]):
+        print(f"[scaling] predicted: {json.dumps(r)}")
+    return rows[0], over
+
+
+BENCH_METRICS = ("go2_stand_reverse_once_ms_N2048_H20_sub8",
+                 "go2_stand_control_step_ms_N2048_H20_sub8_d2",
+                 "go2_stand_fused_rollout_vpu_roofline_N2048")
+
+
+def phase_bench():
+    """The CLI's `bench --full` on go2_stand at N2048/H20/sub8: the three
+    rows of the JAX package's schema, by name, finite and positive, on the
+    card.  Returns the rows."""
+    import math
+
+    with recording_envs() as made:
+        lines = _cli_lines("[bench]", ["bench", "--task", "go2_stand", "--iters", "3", "--full"])
+    line = json.loads(lines[-1])
+    rows = [line] + line.get("extra", [])
+    launches = sum(e.fused_step.launches for e in made)
+    print(f"[bench] metrics {[r['metric'] for r in rows]}; fused launches {launches}")
+    check(tuple(r["metric"] for r in rows) == BENCH_METRICS, "bench's metric names differ")
+    for r in rows:
+        check(math.isfinite(r["value"]) and r["value"] > 0, f"{r['metric']}: value {r['value']}")
+        check(r["platform"] == "cuda", f"{r['metric']}: platform {r['platform']}")
+    check(launches > 0, "bench did not launch the fused kernel")
+    return rows
+
+
 def main():
     try:
         import torch
@@ -1301,8 +1489,6 @@ def main():
             ops, bound = phase_bound(env, ms, scene)
             mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
                 env, cfg, device, task, all_envs)
-            if path.full:
-                check_small_against_plain(env, cfg, path, device)
             ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task,
                                           path.full)
             print(f"[time {task}] path wall {time.perf_counter() - t0:.1f} s")
@@ -1330,6 +1516,7 @@ def main():
                 "library_ms": None,  # no PyTorch call computes this function
                 "ops_per_substep": ops,
             })
+        phase_small_against_plain()
         t0 = time.perf_counter()
         by_scene = {path.scene: (path, env) for path, env, _ in envs}
         physics_ms = {}
@@ -1361,6 +1548,23 @@ def main():
             f"fp32 peak {record['measured_peak_ops_per_sec'] / 1e12:.3f} T ops/s, memory "
             f"{record['measured_hbm_bytes_per_sec'] / 1e12:.3f} TB/s; fp32_peak {record['ms']:.4f} "
             f"ms; LeggedRobot improve {legged_ms:.1f} ms")
+        t0 = time.perf_counter()
+        nccl_ms, gloo_ms, shard_launches = phase_shard()
+        print(f"[time shard] wall {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        scaling_row, overhead = phase_scaling(device)
+        print(f"[time scaling] wall {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bench_rows = phase_bench()
+        print(f"[time bench] wall {time.perf_counter() - t0:.1f} s")
+        records[0]["sharded_launches_per_rank"] = shard_launches
+        summary.append(
+            f"go2_stand sharded reverse_once: 1 NCCL rank {nccl_ms['sharded']:.2f} ms (MBDPI "
+            f"{nccl_ms['single']:.2f} ms), 2 gloo ranks on the card {gloo_ms['sharded']:.2f} ms "
+            f"(MBDPI at 1024 in each {gloo_ms['block']:.2f} ms); scaling "
+            f"{scaling_row['ms_per_iteration']:.2f} ms per iteration on 1 card; overhead "
+            f"{overhead['unsharded_ms']:.2f} -> {overhead['sharded_ms']:.2f} ms; bench "
+            + ", ".join(f"{r['metric']} {r['value']}" for r in bench_rows))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

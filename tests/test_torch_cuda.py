@@ -5,8 +5,8 @@ robot's and the crate's kinematic trees), the Go2 position stand-in (the
 servos' affine-bias branch) and the arms-fixed H1 (h1_loco); the physics
 pipeline's step on the card without a host synchronisation; a CPU
 checkpoint refused on the card; the profiler's fp32 microbench kernel and
-the measured roof: marked `cuda`, and each test skips without
-a CUDA device.
+the measured roof; the sharded planner on one NCCL rank: marked `cuda`, and
+each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -315,3 +315,22 @@ def test_profile_microbenchmarks_on_card(card):
 
     peak, hbm = prof.fp32_peak_ops_per_sec(), prof.hbm_copy_bytes_per_sec()
     assert 0 < peak <= 1.05 * 67e12 and 0 < hbm <= 1.05 * 3.35e12
+
+
+def test_sharded_planner_one_nccl_rank_matches_mbdpi_on_card(card):
+    """ShardedMBDPI in a one-rank NCCL group (spawned), go2_stand at N64/H4,
+    8 substeps: Ybar and weights against MBDPI on the same inputs, injected
+    and from the shared generator (1e-5: float32, another summation order);
+    one fused launch per horizon step."""
+    import torch_shard_ranks as ranks
+    from tpu_dialmpc_torch.shard import distributed
+
+    [out] = distributed.run_group(ranks.card_reverse_once, 1, ((64, 4, 2, 8),), backend="nccl",
+                                  device=card, timeout_s=300)
+    assert out["backend"] == "nccl" and out["block"] == (0, 64)
+    assert out["host_calls"]["c10d::allreduce_"][0] == 5  # score_std="sample"
+    for how in ("injected", "generator"):
+        o = out[how]
+        assert np.abs(o["Ybar"] - o["single_Ybar"]).max() <= 1e-5
+        assert np.abs(o["weights"] - o["single_weights"]).max() <= 1e-5 * o["single_weights"].max()
+        assert o["launches"] == 4 + 1

@@ -24,9 +24,12 @@ compiled from MJCF.
                or the Python writer); the profiler and roofline
                (`profile.py`, with the fp32 microbench kernel
                `csrc/fp32_peak.cu`)
+- `shard/`     the sample-parallel planner on torch.distributed
+               (`ShardedMBDPI`, one process per rank) and its scaling reports
+- `bench.py`   the benchmark rows in the JAX package's schema
 - `tools/`     the feet IK and settle probe (`ik.py`)
 - `cli/`       `python -m tpu_dialmpc_torch.cli.main
-               run|replay|plot|env-test|ik|profile --task <task>`
+               run|replay|plot|env-test|ik|profile|bench|scaling --task <task>`
 """
 
 import torch

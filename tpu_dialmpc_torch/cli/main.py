@@ -18,6 +18,8 @@ versions) and `run --telemetry-backend` (`auto`, `native`, `python`).
   python -m tpu_dialmpc_torch.cli.main plot --trajectory out.npz --out plots.png
   python -m tpu_dialmpc_torch.cli.main ik --task go2_stand --dz -0.03
   python -m tpu_dialmpc_torch.cli.main profile --task go2_stand --out trace_dir
+  python -m tpu_dialmpc_torch.cli.main bench --task go2_stand --full
+  python -m tpu_dialmpc_torch.cli.main scaling --task go2_stand
 
 `run`: `--checkpoint` writes the loop's state every 50 steps and at the end,
 `--resume` continues from such a file, `--telemetry` streams one JSONL
@@ -32,14 +34,20 @@ the reset state.  `ik` solves the feet IK for a base offset (`--mode ik`) or
 settles the PD-held home pose under the physics (`--mode settle`).
 `profile` prints the amortized phase timings of one annealing iteration and
 the fused kernel's roofline (`telemetry/profile.py`) and, with `--out`,
-writes a profiler trace of one `reverse_once`.  The JAX CLI's `bench`,
-`render` and `scaling` are not ported yet.
+writes a profiler trace of one `reverse_once`.  `bench` prints the
+`reverse_once` row of the JAX package's benchmark schema as one JSON line
+(`tpu_dialmpc_torch/bench.py`), with `--full` also the control-step and
+roofline rows under `extra`; `scaling` prints the sample-parallel planner's
+strong-scaling rows (`shard/scaling.py`), one JSON line per mesh size (the
+card count's sizes on the card; one rank with `--device cpu`).  The JAX
+CLI's `render` is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 
@@ -289,6 +297,44 @@ def cmd_profile(args):
     return 0
 
 
+def cmd_bench(args):
+    """The benchmark's reverse_once row, with --full also the control step's
+    and the roofline's (tpu_dialmpc_torch/bench.py), as one JSON line."""
+    from tpu_dialmpc_torch import bench as bench_mod
+    from tpu_dialmpc_torch.telemetry.profile import FusedPathUnavailable
+
+    kw = dict(task=args.task, nsample=args.nsample or 2048, hsample=args.hsample or 20,
+              iters=args.iters, device=args.device)
+    if args.hnode is not None:
+        kw["hnode"] = args.hnode
+    if args.substeps is not None:
+        kw["n_substeps"] = args.substeps
+    line = bench_mod.run_bench(**kw)
+    if args.full:
+        extra = [bench_mod.run_control_step_bench(**kw)]
+        try:
+            extra.append(bench_mod.run_roofline(
+                task=kw["task"], nsample=kw["nsample"], hsample=kw["hsample"],
+                n_substeps=kw.get("n_substeps", 8), device=args.device))
+        except FusedPathUnavailable as e:  # the CPU: no kernel to hold to the roof
+            extra.append({"metric": "skipped", "error": str(e)[:200]})
+        line["extra"] = extra
+    print(json.dumps(line))
+    return 0
+
+
+def cmd_scaling(args):
+    """Strong-scaling report over mesh sizes (shard/scaling.py)."""
+    from tpu_dialmpc_torch.shard.scaling import scaling_report
+
+    rows = scaling_report(task=args.task, nsample=args.nsample or 2048,
+                          hsample=args.hsample or 20, hnode=args.hnode or 5,
+                          n_substeps=args.substeps or 8, device=args.device)
+    for r in rows:
+        print(json.dumps(r))
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpu_dialmpc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -297,7 +343,9 @@ def main(argv=None):
                             ("replay", cmd_replay, "replay a run's --out trajectory"),
                             ("env-test", cmd_env_test, "step an env with zero actions"),
                             ("ik", cmd_ik, "feet IK or a settle probe for a base offset"),
-                            ("profile", cmd_profile, "phase timings and the kernel's roofline")):
+                            ("profile", cmd_profile, "phase timings and the kernel's roofline"),
+                            ("bench", cmd_bench, "the benchmark's rows as one JSON line"),
+                            ("scaling", cmd_scaling, "strong scaling of the sharded planner")):
         sp = parsers[name] = sub.add_parser(name, help=help_)
         sp.add_argument("--task", default="go2_stand")
         sp.add_argument("--config", default=None, help="YAML file: task, env:, dial:")
@@ -322,6 +370,11 @@ def main(argv=None):
     sp.add_argument("--dy", type=float, default=0.0)
     sp.add_argument("--dz", type=float, default=0.0)
     parsers["profile"].add_argument("--out", default=None, help="profiler trace directory")
+    for name in ("bench", "scaling"):
+        parsers[name].add_argument("--hnode", type=int, default=None)
+    sp = parsers["bench"]
+    sp.add_argument("--iters", type=int, default=20, help="repetitions of each chain length")
+    sp.add_argument("--full", action="store_true", help="also the control-step and roofline rows")
     sp = sub.add_parser("plot", help="plot a run's --out trajectory")
     sp.add_argument("--trajectory", required=True, help="a run --out .npz")
     sp.add_argument("--out", default=None, help="PNG path (default trajectory_plots.png)")

@@ -89,6 +89,7 @@ class MBDPI:
         self.env = env
         self.nu = env.action_size
         self.device = torch.device(env.device)
+        self.block = slice(0, args.Nsample)  # the samples this planner scores
 
         # sigma schedule (dial-core.h:388-395)
         sigma0, sigma1 = 1e-2, 1.0
@@ -179,15 +180,18 @@ class MBDPI:
             phys = to_lean(s).pipeline
         return torch.stack(rewss), (phys.qpos, phys.qvel, phys.qacc_warmstart)
 
+    def draw_noise(self, generator, like: torch.Tensor) -> torch.Tensor:
+        """The candidates' standard normal noise, (Nsample, Hnode+1, nu), one
+        draw from `generator` in `like`'s dtype and on its device."""
+        args = self.args
+        return torch.randn((args.Nsample, args.Hnode + 1, self.nu),
+                           generator=generator, dtype=like.dtype, device=like.device)
+
     def _candidates(self, generator, Ybar_i, noise_scale, noise):
         """Noisy node-trajectory candidates + appended anchor (dial-core.h:477-514)."""
-        args = self.args
         dtype = Ybar_i.dtype
         if noise is None:
-            noise = torch.randn(
-                (args.Nsample, args.Hnode + 1, self.nu),
-                generator=generator, dtype=dtype, device=Ybar_i.device,
-            )
+            noise = self.draw_noise(generator, Ybar_i)
         eps = noise * noise_scale.to(dtype)[None, :, None]
         Y0s = Ybar_i[None] + eps
         # pin the first (currently executing) node (dial-core.h:493)
@@ -195,34 +199,86 @@ class MBDPI:
         all_Y0s = torch.cat([Y0s, Ybar_i[None]], dim=0)
         return torch.clamp(all_Y0s, -1.0, 1.0)
 
+    def _reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A partial over this planner's block of the samples, reduced over
+        every block ("sum" or "max"): the identity here, where the block is
+        every sample; `ShardedMBDPI` all-reduces over its ranks."""
+        return t
+
     def _score_update(self, rewss, all_Y0s, noise_scale, diag=None):
         """Score, softmax, weighted average (dial-core.h:529-592).
 
-        `diag` is an optional (qss, qdss, xss) of rollout states; when given,
-        the Q4 averages use the same softmax weights as the control update."""
+        `rewss` and `all_Y0s` hold the candidates of `self.block` (every
+        sample here, a rank's block in `ShardedMBDPI`) with the anchor last.
+        Each global quantity is a `_reduce` of the block's partial; the
+        anchor is added after the reduction, so it enters once whatever the
+        number of blocks.  `diag` is an optional (qss, qdss, xss) of rollout
+        states; when given, the Q4 averages use the same softmax weights as
+        the control update."""
         args = self.args
-        rews = rewss.mean(dim=-1)
-        rew_Ybar = rewss[-1].mean()
+        n_all = args.Nsample + 1
+        lo, hi = self.block.start, self.block.stop
+        rews_t, rews_y_t = rewss[:-1], rewss[-1]
+        rews = rews_t.mean(dim=-1)  # the block's mean rewards
+        rew_Ybar = rews_y_t.mean()
+        dtype, device = rews.dtype, rews.device
+
+        # the global (Nsample+1,) mean rewards, the anchor's slot last
+        rews_all = torch.zeros(n_all, dtype=dtype, device=device)
+        rews_all[lo:hi] = rews
         if args.score_std == "time":
-            var = torch.mean((rewss - rews[:, None]) ** 2, dim=-1)
+            # per-sample std across time (C++ quirk Q9): no reduction
+            var = torch.mean((rews_t - rews[:, None]) ** 2, dim=-1)
             std = torch.where(var > 1e-14, torch.sqrt(var), 1e-7)
+            var_y = torch.mean((rews_y_t - rew_Ybar) ** 2)
+            std_y = torch.where(var_y > 1e-14, torch.sqrt(var_y), 1e-7)
+            self._reduce(rews_all)
         else:
-            # population std, as jnp.std
-            std = torch.clamp(rews.std(correction=0), min=1e-7)
+            # population std of all Nsample+1 mean rewards, as jnp.std: the
+            # mean, then the mean squared deviation
+            head = self._reduce(torch.cat([rews.sum()[None], rews_all]))
+            rews_all = head[1:]
+            mean_all = (head[0] + rew_Ybar) / n_all
+            sq = self._reduce(((rews - mean_all) ** 2).sum()[None])[0]
+            var_all = (sq + (rew_Ybar - mean_all) ** 2) / n_all
+            std = std_y = torch.clamp(torch.sqrt(var_all), min=1e-7)
+        rews_all[-1] = rew_Ybar
         logp0 = (rews - rew_Ybar) / (std * args.temp_sample)
-        logp0 = logp0 - torch.max(logp0)
-        weights = torch.softmax(logp0, dim=0)
-        Ybar = torch.einsum("n,nij->ij", weights, all_Y0s)
+        logp_ybar = (rew_Ybar - rew_Ybar) / (std_y * args.temp_sample)
+
+        # the stable softmax: the max, then the sum of the exponentials
+        m = logp0.max()[None] if hi > lo else torch.full((1,), -torch.inf, dtype=dtype,
+                                                         device=device)
+        m = torch.maximum(self._reduce(m, "max")[0], logp_ybar)
+        e = torch.exp(logp0 - m)
+        e_ybar = torch.exp(logp_ybar - m)
+        denom = self._reduce(e.sum()[None])[0] + e_ybar
+        w = e / denom
+        w_ybar = e_ybar / denom
+
+        # the weighted update and the diag averages: one reduction of the
+        # partials and the zero-padded global weights
+        w_all = torch.zeros(n_all, dtype=dtype, device=device)
+        w_all[lo:hi] = w
+        parts = [torch.einsum("n,nij->ij", w, all_Y0s[:-1])]
         if diag is not None:
-            qbar, qdbar, xbar = (torch.einsum("n,ntj->tj", weights, x) for x in diag)
+            parts += [torch.einsum("n,ntj->tj", w, x[:-1]) for x in diag]
+        flat = self._reduce(torch.cat([p.reshape(-1) for p in parts] + [w_all]))
+        sums = list(torch.split(flat, [p.numel() for p in parts] + [n_all]))
+        w_all = sums.pop()
+        w_all[-1] = w_ybar
+        Ybar, *avgs = [s.view(p.shape) for s, p in zip(sums, parts)]
+        Ybar = Ybar + w_ybar * all_Y0s[-1]
+        if diag is not None:
+            qbar, qdbar, xbar = (a + w_ybar * x[-1] for a, x in zip(avgs, diag))
         else:
-            qbar = qdbar = xbar = torch.zeros((1, 1), dtype=rewss.dtype, device=rewss.device)
+            qbar = qdbar = xbar = torch.zeros((1, 1), dtype=dtype, device=device)
         info = ReverseInfo(
-            rews=rews,
+            rews=rews_all,
             rew_Ybar=rew_Ybar,
-            weights=weights,
-            ess=1.0 / torch.sum(weights**2),
-            entropy=-torch.sum(weights * torch.log(weights + 1e-30)),
+            weights=w_all,
+            ess=1.0 / torch.sum(w_all**2),
+            entropy=-torch.sum(w_all * torch.log(w_all + 1e-30)),
             new_noise_scale=noise_scale,
             qbar=qbar,
             qdbar=qdbar,
