@@ -49,11 +49,11 @@ result), after the card as nvidia-smi reports its name and power limit:
      wait; wall includes the profiler's own cost); on h1_walk and
      h1_loco one timed `reverse_once` and control step; and the path's wall
      seconds.
-After the six paths, [small]: on each of the first four, a small
-reverse_once (N64/H4/Hnode2) through the kernel and through the plain
-substep chain, the same injected noise, on the crate tasks from a state at
-the crate; the four run at once, each in a spawned process (the plain chain
-is host-bound, seconds per horizon step), while this process waits.
+Last, [small]: on each of the first four paths, a small reverse_once
+(N64/H4/Hnode2) through the kernel and through the plain substep chain,
+the same injected noise, on the crate tasks from a state at the crate; the
+four run at once, each in a spawned process (the plain chain is
+host-bound, seconds per horizon step), while this process runs [quality].
 After go2_trot_position, the [cli] phase runs the CLI's `run` on it at full
 width: 6 steps with telemetry and a trajectory file, 3 steps with a
 checkpoint and a resume to 6, and `--scan`, each with its launch count
@@ -72,8 +72,8 @@ package's XLA path as batched PyTorch ops, which has no kernel of its own):
   - [physics no-syncs] a profiler window over a warm `pipeline.step`: no
     synchronising call and no host-device copy, and its kernels per substep;
   - [xla-path go2_stand] go2_stand with fused="off" at full width: one
-    `reverse_once` under injected noise held against the fused path's, one
-    timed `reverse_once` and one control step executed by `env.step`;
+    timed `reverse_once` under injected noise held against the fused
+    path's, and one timed control step executed by `env.step`;
   - [xla-path compat_q1] the chained-candidate planner at a small width,
     card against CPU float64;
   - [cli] `replay` of the [cli] phase's trajectory through `env.step`, and
@@ -109,7 +109,21 @@ each rank a process spawned by `shard.distributed.run_group`:
     `collective_overhead_report` with two gloo ranks on the card at the same
     width, and `predicted_efficiency_rows` from the two;
   - [bench] the CLI's `bench --full` at N2048/H20/sub8: the three rows of
-    the JAX package's benchmark schema, by name, finite, positive, on cuda.
+    the JAX package's benchmark schema, by name, finite, positive, on cuda,
+    written with the card's name and power limit (`--out`,
+    build/smoke_bench/BENCH_TORCH_LAST_GOOD.json).
+Then [quality]: the quality harness (`tpu_dialmpc_torch.quality.main`) in
+this process, the quick lane of go2_trot (the go2_force kernel) and go2_jump
+(the crate build, the crate parked at x=30) at full width (N2048/H20/Hnode5,
+8 substeps, 150 control steps each): the artifact's keys, platform and card,
+every metric finite, each gate's fused launches equal to
+`expected_launches(cfg, 150)`, and go2_jump's foot-site metrics recomputed
+on the CPU in float64 equal to the card's (the same flight and on-crate
+counts, site positions within 1e-9 m).  A gate check that fails is a
+result (the thresholds were set on the published scenes, these are
+stand-ins): it is printed as passed=False and does not fail the run.
+go2_jump's kernel is built with the others at the start.  [small]'s
+processes (above) run beside [quality] and are checked after it.
 The last two lines are the kernels' JSON record and the result JSON.
 It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
@@ -540,29 +554,46 @@ def _small_in_child(i):
     return path.task, small_against_plain(env, cfg, path, device)
 
 
-def phase_small_against_plain(timeout_s=900):
-    """[small] on every full path at once, one spawned process each; every
-    process is stopped before this returns."""
+class SmallRun(NamedTuple):
+    pool: ProcessPoolExecutor
+    futures: list
+    t0: float
+
+
+def start_small_against_plain() -> SmallRun:
+    """[small] on every full path at once, one spawned process each, left
+    running: `finish_small_against_plain` collects and checks them."""
     idx = [i for i, path in enumerate(PATHS) if path.full]
-    t0 = time.perf_counter()
     pool = ProcessPoolExecutor(len(idx), mp_context=multiprocessing.get_context("spawn"))
+    return SmallRun(pool, [pool.submit(_small_in_child, i) for i in idx], time.perf_counter())
+
+
+def stop_small(run: SmallRun):
+    """Every [small] process stopped."""
+    procs = list(run.pool._processes.values())
+    run.pool.shutdown(wait=False, cancel_futures=True)
+    for proc in procs:
+        proc.kill()
+        proc.join()
+
+
+def finish_small_against_plain(run: SmallRun, timeout_s=900):
+    """[small]'s results, each checked; every process is stopped before this
+    returns."""
     try:
-        results = list(pool.map(_small_in_child, idx, timeout=timeout_s))
+        results = [f.result(timeout=max(1.0, timeout_s - (time.perf_counter() - run.t0)))
+                   for f in run.futures]
     except Exception as e:  # a child's failed check or traceback, or the timeout
         raise SmokeError(f"[small] a check process failed: {type(e).__name__}: {e}") from e
     finally:
-        procs = list(pool._processes.values())
-        pool.shutdown(wait=False, cancel_futures=True)
-        for proc in procs:
-            proc.kill()
-            proc.join()
+        stop_small(run)
     for task, rows in results:
         for name, err, tol in rows:
             print(f"[small {task}] reverse_once (N64/H4/Hnode2) kernel vs plain {name}: "
                   f"max abs diff {err:.3e} (tolerance {tol:.3e})")
             check(err <= tol, f"{task}: small reverse_once disagrees with the plain chain: {name}")
-    print(f"[time small] {len(idx)} paths at once, each in its own process: wall "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[time small] {len(results)} paths at once, each in its own process: wall "
+          f"{time.perf_counter() - run.t0:.1f} s")
 
 
 # the profile window's pre-roll: spin kernels (torch.cuda._sleep, ATen's
@@ -963,10 +994,9 @@ def phase_no_syncs(env, device):
 def phase_xla_path(fused_env, device, all_envs):
     """go2_stand with fused="off" at full width (Nsample=2048, Hsample=20,
     Hnode=5, 8 substeps) through get_env, MBDPI and make_control_step:
-    reset, one reverse_once with injected noise, its rewards (2049, 21) and
-    Ybar held against the fused path's on the same noise and state; then one
-    timed reverse_once and one control step (Ndiffuse=2, executed by
-    env.step).  The 10-iteration warm start (`reverse`, Ndiffuse_init=10)
+    reset, one timed reverse_once with injected noise, its rewards (2049,
+    21) and Ybar held against the fused path's on the same noise and state;
+    then one timed control step (Ndiffuse=2, executed by env.step).  The 10-iteration warm start (`reverse`, Ndiffuse_init=10)
     is skipped: ten more reverse_once of several seconds each on this path
     would not fit the script's time limit, and it adds no code path."""
     import torch
@@ -990,11 +1020,6 @@ def phase_xla_path(fused_env, device, all_envs):
     scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
     noise = torch.randn((cfg.Nsample, cfg.Hnode + 1, env.action_size), device=device,
                         generator=torch.Generator(device=device).manual_seed(21))
-    # reverse_once's own steps, so that its reward matrix can be held too
-    all_Y0s = mb._candidates(None, Y, scale, noise)
-    rewss = mb.rollout_us_batch(state, mb.node2u(all_Y0s))
-    Ybar, _ = mb._score_update(rewss, all_Y0s, scale)
-
     def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1002,8 +1027,14 @@ def phase_xla_path(fused_env, device, all_envs):
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3, out
 
+    def reverse_once():
+        # reverse_once's own steps, so that its reward matrix can be held too
+        all_Y0s = mb._candidates(None, Y, scale, noise)
+        rewss = mb.rollout_us_batch(state, mb.node2u(all_Y0s))
+        return all_Y0s, rewss, mb._score_update(rewss, all_Y0s, scale)[0]
+
+    ro_ms, (all_Y0s, rewss, Ybar) = timed(reverse_once)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    ro_ms, _ = timed(lambda: mb.reverse_once(state, gen, Ybar, scale))
     cs_ms, (state2, Y2, _) = timed(lambda: make_control_step(mb, cfg.Ndiffuse)(state, Ybar, gen))
     launched = [e.fused_step.launches for e in all_envs]
     check(env._fused_step is None and not any(launched),
@@ -1444,8 +1475,14 @@ def phase_bench():
     import math
 
     with recording_envs() as made:
-        lines = _cli_lines("[bench]", ["bench", "--task", "go2_stand", "--iters", "3", "--full"])
-    line = json.loads(lines[-1])
+        out = ROOT / "build" / "smoke_bench" / "BENCH_TORCH_LAST_GOOD.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        lines = _cli_lines("[bench]", ["bench", "--task", "go2_stand", "--iters", "3", "--full",
+                                       "--out", str(out)])
+    line = json.loads(lines[-2])
+    written = json.loads(out.read_text())
+    check({k: written[k] for k in line} == line and written["device"] and written["measured_at"],
+          "bench --out wrote another line than it printed")
     rows = [line] + line.get("extra", [])
     launches = sum(e.fused_step.launches for e in made)
     print(f"[bench] metrics {[r['metric'] for r in rows]}; fused launches {launches}")
@@ -1455,6 +1492,116 @@ def phase_bench():
         check(r["platform"] == "cuda", f"{r['metric']}: platform {r['platform']}")
     check(launches > 0, "bench did not launch the fused kernel")
     return rows
+
+
+QUALITY_GATES = ("go2_trot", "go2_jump")
+QUALITY_STEPS = 150  # the quick lane
+# a gate's result: the JAX run_gate's keys, then the card's name and limit
+GATE_KEYS = ["gate", "task", "n_steps", "lane", "seed", "measured_at", "wall_s", "metrics",
+             "joint_graze_rates", "checks", "passed", "recorded", "device", "power_limit"]
+FK_TOL = 1e-9  # m: float64 FK on the card against the CPU
+
+
+@contextlib.contextmanager
+def recording_runs():
+    """Every result `runner.run_scan` returns inside the block, in a list."""
+    from tpu_dialmpc_torch.planner import runner
+
+    made, run_scan = [], runner.run_scan
+
+    def recording_run_scan(*args, **kw):
+        made.append(run_scan(*args, **kw))
+        return made[-1]
+
+    runner.run_scan = recording_run_scan
+    try:
+        yield made
+    finally:
+        runner.run_scan = run_scan
+
+
+def phase_quality(card, device, all_envs):
+    """The quality harness's quick lane of go2_trot and go2_jump at full
+    width, in this process (it reuses the kernels built at the start): the
+    artifact, each gate's launches against `expected_launches`, and
+    go2_jump's FK metrics recomputed on the CPU.  Returns (artifact,
+    launches per gate)."""
+    import math
+
+    import torch
+
+    from tpu_dialmpc_torch import quality
+    from tpu_dialmpc_torch.envs import get_env
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    out = ROOT / "build" / "smoke_quality" / "QUALITY_TORCH_QUICK.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    argv = ["--quick", "--gates", *QUALITY_GATES, "--out", str(out)]
+    print(f"[quality] quality.main({argv})", flush=True)
+    for e in all_envs:  # every count to 0 just before this path
+        e.fused_step.launches = 0
+    t0 = time.perf_counter()
+    with recording_envs() as made, recording_runs() as runs:
+        rc = quality.main(argv)
+    wall = time.perf_counter() - t0
+    check(not any(e.fused_step.launches for e in all_envs),
+          "the gates launched another path's kernel")
+    doc = json.loads(out.read_text())
+    name, limit = (x.strip() for x in card.rsplit(",", 1))
+    check((doc["platform"], doc["device"], doc["power_limit"]) == ("cuda", name, limit),
+          f"the artifact's card is {doc['platform']}, {doc['device']}, {doc['power_limit']}")
+    check(rc == (0 if doc["all_passed"] else 1), f"quality.main returned {rc}")
+    check([g["gate"] for g in doc["gates"]] == list(QUALITY_GATES), "the artifact's gates differ")
+    check(len(made) == len(runs) == len(QUALITY_GATES), "one env and one run per gate expected")
+    launches = {}
+    for g, env, res in zip(doc["gates"], made, runs):
+        gate = quality.GATES[g["gate"]]
+        cfg = DialConfig(Hsample=gate.dial["Hsample"], Hnode=gate.dial["Hnode"], Nsample=2048,
+                         Ndiffuse=2, Ndiffuse_init=10)
+        expected = expected_launches(cfg, QUALITY_STEPS)
+        launches[g["gate"]] = env.fused_step.launches
+        check(list(g) == GATE_KEYS, f"{g['gate']}: keys {list(g)}")
+        check((g["lane"], g["n_steps"], g["device"], g["power_limit"]) ==
+              ("quick", QUALITY_STEPS, name, limit), f"{g['gate']}: lane, steps or card")
+        check(env.on_fused_path and env.config.n_substeps == N_SUBSTEPS,
+              f"{g['gate']} did not run the fused kernel at {N_SUBSTEPS} substeps")
+        check(tuple(res.qpos.shape) == (QUALITY_STEPS, env.model.nq), f"{g['gate']}: qpos shape")
+        bad = [k for k, v in g["metrics"].items() if not math.isfinite(v)]
+        check(not bad, f"{g['gate']}: non-finite metrics {bad}")
+        check(all(math.isfinite(c["measured"]) for c in g["checks"]), f"{g['gate']}: checks")
+        print(f"[quality {g['gate']}] N2048/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
+              f"{env.config.n_substeps} on {env.config.scene}, {QUALITY_STEPS} steps: "
+              f"passed={g['passed']}, wall {g['wall_s']} s; fused launches "
+              f"{launches[g['gate']]} (expected {expected})")
+        print(f"[quality {g['gate']}] metrics {json.dumps(g['metrics'])}")
+        for c in g["checks"]:
+            print(f"[quality {g['gate']}]   {c['metric']} {c['measured']:.4f} {c['op']} "
+                  f"{c['threshold']}: passed={c['passed']}")
+        check(launches[g["gate"]] == expected, f"{g['gate']}: the kernel's launches differ")
+
+    # go2_jump's foot-site metrics: float64 FK on the card against the CPU
+    jump = dict(zip(QUALITY_GATES, zip(made, runs)))["go2_jump"]
+    jump_metrics = doc["gates"][QUALITY_GATES.index("go2_jump")]["metrics"]
+    qpos = jump[1].qpos
+    cpu_jump = get_env("go2_jump", device="cpu")
+    sites = quality.foot_positions(jump[0], qpos)
+    check(sites.device.type == "cuda" and sites.dtype == torch.float64, "FK not on the card")
+    err = (sites.cpu() - quality.foot_positions(cpu_jump, qpos.cpu())).abs().max().item()
+    flight_cpu = quality._flight_metrics(cpu_jump, qpos.cpu())
+    climb_card = quality._climb_metrics(get_env("go2_crate_climb", device=device), qpos)
+    climb_cpu = quality._climb_metrics(get_env("go2_crate_climb", device="cpu"), qpos.cpu())
+    print(f"[quality go2_jump] float64 FK of the trajectory's feet, card vs CPU: max abs diff "
+          f"{err:.3e} m (tolerance {FK_TOL:.0e}); flight metrics on the CPU {flight_cpu}; "
+          f"on-crate metrics (go2_crate_climb's crate) card {climb_card}, CPU {climb_cpu}")
+    check(err <= FK_TOL, "the card's FK disagrees with the CPU's")
+    check(flight_cpu == {k: jump_metrics[k] for k in flight_cpu},
+          "the flight metrics differ between the card and the CPU")
+    check(climb_card == climb_cpu, "the on-crate metrics differ between the card and the CPU")
+    print(f"[quality] {len(doc['gates'])} gates, all passed: {doc['all_passed']}; phase wall "
+          f"{wall:.1f} s")
+    print(f"[quality] artifact {json.dumps(doc)}")
+    return doc, launches
 
 
 def main():
@@ -1480,7 +1627,11 @@ def main():
         card = phase_card()
         envs = [(path,) + make_env(path.task, path.scene, path.width, device) for path in PATHS]
         all_envs = [env for _, env, _ in envs]
-        phase_build_all(all_envs)
+        from tpu_dialmpc_torch.envs import get_env
+
+        # the [quality] phase's go2_jump: the crate scene with the crate at
+        # x=30, another build of the crate model
+        phase_build_all(all_envs + [get_env("go2_jump", device=device)])
         for path, env, cfg in envs:
             t0 = time.perf_counter()
             task, scene = path.task, path.scene
@@ -1516,7 +1667,6 @@ def main():
                 "library_ms": None,  # no PyTorch call computes this function
                 "ops_per_substep": ops,
             })
-        phase_small_against_plain()
         t0 = time.perf_counter()
         by_scene = {path.scene: (path, env) for path, env, _ in envs}
         physics_ms = {}
@@ -1557,7 +1707,20 @@ def main():
         t0 = time.perf_counter()
         bench_rows = phase_bench()
         print(f"[time bench] wall {time.perf_counter() - t0:.1f} s")
+        # [small]'s processes run beside [quality]: neither times anything
+        # but its own wall, and the plain chain is host-bound
+        small = start_small_against_plain()
+        try:
+            t0 = time.perf_counter()
+            gates, gate_launches = phase_quality(card, device, all_envs)
+            print(f"[time quality] wall {time.perf_counter() - t0:.1f} s")
+        except BaseException:
+            stop_small(small)
+            raise
+        finish_small_against_plain(small)
         records[0]["sharded_launches_per_rank"] = shard_launches
+        records[0]["quality_launches"] = {"go2_trot": gate_launches["go2_trot"]}
+        records[1]["quality_launches"] = {"go2_jump (crate at x=30)": gate_launches["go2_jump"]}
         summary.append(
             f"go2_stand sharded reverse_once: 1 NCCL rank {nccl_ms['sharded']:.2f} ms (MBDPI "
             f"{nccl_ms['single']:.2f} ms), 2 gloo ranks on the card {gloo_ms['sharded']:.2f} ms "
@@ -1565,6 +1728,9 @@ def main():
             f"{scaling_row['ms_per_iteration']:.2f} ms per iteration on 1 card; overhead "
             f"{overhead['unsharded_ms']:.2f} -> {overhead['sharded_ms']:.2f} ms; bench "
             + ", ".join(f"{r['metric']} {r['value']}" for r in bench_rows))
+        summary.append("quality quick lane: " + ", ".join(
+            f"{g['gate']} passed={g['passed']} ({sum(c['passed'] for c in g['checks'])}/"
+            f"{len(g['checks'])} checks, {g['wall_s']} s)" for g in gates["gates"]))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,8 +5,8 @@ robot's and the crate's kinematic trees), the Go2 position stand-in (the
 servos' affine-bias branch) and the arms-fixed H1 (h1_loco); the physics
 pipeline's step on the card without a host synchronisation; a CPU
 checkpoint refused on the card; the profiler's fp32 microbench kernel and
-the measured roof; the sharded planner on one NCCL rank: marked `cuda`, and
-each test skips without a CUDA device.
+the measured roof; the sharded planner on one NCCL rank; a quality gate's
+run on the card: marked `cuda`, and each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -334,3 +334,36 @@ def test_sharded_planner_one_nccl_rank_matches_mbdpi_on_card(card):
         assert np.abs(o["Ybar"] - o["single_Ybar"]).max() <= 1e-5
         assert np.abs(o["weights"] - o["single_weights"]).max() <= 1e-5 * o["single_weights"].max()
         assert o["launches"] == 4 + 1
+
+
+def test_run_gate_on_card(card, monkeypatch):
+    """run_gate on the card (its default device) for go2_jump's quick lane at
+    N64/H2/Hnode1, 3 steps, 8 substeps: the card's name in the result, one
+    fused launch per horizon step and per executed step, finite metrics,
+    and the flight metrics of the card's float64 FK equal to the CPU's."""
+    import dataclasses
+
+    import tpu_dialmpc_torch.envs as envs_mod
+    from tpu_dialmpc_torch import quality as q
+    from tpu_dialmpc_torch.planner import runner
+
+    made, runs, get, scan = [], [], envs_mod.get_env, runner.run_scan
+    monkeypatch.setattr(envs_mod, "get_env", lambda *a, **kw: made.append(get(*a, **kw))
+                        or made[-1])
+    monkeypatch.setattr(runner, "run_scan", lambda *a, **kw: runs.append(scan(*a, **kw))
+                        or runs[-1])
+    monkeypatch.setitem(q.GATES, "go2_jump", dataclasses.replace(
+        q.GATES["go2_jump"], dial=dict(Nsample=64, Hsample=2, Hnode=1), quick_n_steps=3))
+    r = q.run_gate("go2_jump", quick=True)
+    assert r["device"] == torch.cuda.get_device_name(0) and r["n_steps"] == 3
+    assert all(np.isfinite(v) for v in r["metrics"].values())
+    horizon = 3
+    first = 1 * horizon + (1 + 10 * horizon)
+    assert made[0].fused_step.launches == first + 2 * (1 + 2 * horizon)
+    qpos = runs[0].qpos
+    assert qpos.device.type == "cuda"
+    cpu_env = get("go2_jump", device="cpu")
+    cpu = q._flight_metrics(cpu_env, qpos.cpu())
+    assert cpu == {k: r["metrics"][k] for k in cpu}
+    diff = (q.foot_positions(made[0], qpos).cpu() - q.foot_positions(cpu_env, qpos.cpu())).abs()
+    assert diff.max().item() <= 1e-9

@@ -210,3 +210,33 @@ def test_unported_flags_raise(flag):
     assert tinfo.qbar.shape == (CFG["Hsample"] + 1, 4) and tinfo.xbar.shape == (CFG["Hsample"] + 1, 3)
     for f in ("qbar", "qdbar", "xbar"):
         _close(getattr(tinfo, f), getattr(jinfo, f))
+
+
+@pytest.mark.parametrize("score_std", ["sample", "time"])
+def test_a_diverged_rollout_weighs_nothing(score_std):
+    """A candidate whose rollout diverged (non-finite rewards: the physics
+    blew up under it, in the JAX package's engine too) gets no weight, and
+    the plan and the info stay finite; the other candidates' plan is the
+    one the planner makes without that candidate, to float64 rounding.
+    Finite inputs score as before, bit for bit (test_reverse_once_matches_jax)."""
+    _, tmb = _planners(score_std=score_std)
+    rng = np.random.default_rng(7)
+    n, h = CFG["Nsample"], CFG["Hsample"]
+    rewss = torch.as_tensor(rng.normal(-1.0, 0.3, (n + 1, h + 1)))
+    all_Y0s = torch.as_tensor(rng.normal(0.0, 1.0, (n + 1, CFG["Hnode"] + 1, tmb.nu)))
+    scale = torch.as_tensor(tmb.sigma_control)
+    bad = rewss.clone()
+    bad[3, 4:] = torch.nan
+    bad[5, 2] = -torch.inf
+    Ybar, info = tmb._score_update(bad, all_Y0s, scale)
+    assert bool(torch.isfinite(Ybar).all()) and bool(torch.isfinite(info.weights).all())
+    assert info.weights[3].item() < 1e-12 and info.weights[5].item() < 1e-12
+    keep = [i for i in range(n + 1) if i not in (3, 5)]
+    sub = dataclasses.replace(tmb.args, Nsample=n - 2)
+    smb = tdial.MBDPI(sub, TorchStubEnv())
+    if score_std == "time":  # no shared std: the other weights are exactly theirs
+        want, _ = smb._score_update(rewss[keep], all_Y0s[keep], scale)
+        _close(Ybar, want)
+    else:  # the worst score stays in the std: close, not equal
+        want, _ = smb._score_update(rewss[keep], all_Y0s[keep], scale)
+        np.testing.assert_allclose(Ybar.numpy(), want.numpy(), rtol=0, atol=0.05)

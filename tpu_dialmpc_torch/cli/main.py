@@ -1,9 +1,10 @@
 """CLI: run a DIAL-MPC task in closed loop from the registry, YAML or flags;
-replay or plot a saved trajectory; smoke-test an env; profile the planner;
-probe keyframes with IK.
+replay, plot or render a saved trajectory; smoke-test an env; profile and
+benchmark the planner; probe keyframes with IK.
 
 Counterpart of `tpu_dialmpc/cli/main.py`'s `run`, `replay`, `plot`,
-`env-test`, `ik` and `profile` subcommands, with their flags, the config
+`render`, `env-test`, `ik`, `profile`, `bench` and `scaling` subcommands,
+with their flags, the config
 precedence (the task's registry defaults < the YAML file's `dial:` / `env:`
 sections < flags), their printed lines and `run`'s `--out` trajectory keys;
 plus `--device` (default `cuda`, the card; `cpu` runs the plain PyTorch
@@ -20,6 +21,8 @@ versions) and `run --telemetry-backend` (`auto`, `native`, `python`).
   python -m tpu_dialmpc_torch.cli.main profile --task go2_stand --out trace_dir
   python -m tpu_dialmpc_torch.cli.main bench --task go2_stand --full
   python -m tpu_dialmpc_torch.cli.main scaling --task go2_stand
+  python -m tpu_dialmpc_torch.cli.main bench --task go2_stand --full \
+      --out BENCH_TORCH_LAST_GOOD.json
 
 `run`: `--checkpoint` writes the loop's state every 50 steps and at the end,
 `--resume` continues from such a file, `--telemetry` streams one JSONL
@@ -39,8 +42,17 @@ writes a profiler trace of one `reverse_once`.  `bench` prints the
 (`tpu_dialmpc_torch/bench.py`), with `--full` also the control-step and
 roofline rows under `extra`; `scaling` prints the sample-parallel planner's
 strong-scaling rows (`shard/scaling.py`), one JSON line per mesh size (the
-card count's sizes on the card; one rank with `--device cpu`).  The JAX
-CLI's `render` is not ported yet.
+card count's sizes on the card; one rank with `--device cpu`); `bench --out
+PATH` also writes the line, with its time, card and power limit, to PATH
+(BENCH_TORCH_LAST_GOOD.json at the repository root is what
+`tools/readme_table.py` reads).  `render` draws a `run --out` trajectory to
+MP4/GIF offscreen, or replays it in a window with `--interactive`, with
+the executed joint torques as arrows with `--torques`
+(`tools/render.py`): it runs on a host with mujoco and an EGL or GL
+display, not on the card's machine.
+
+  python -m tpu_dialmpc_torch.cli.main render --task go2_trot --device cpu \
+      --trajectory traj.npz --out traj.mp4 --torques
 """
 
 from __future__ import annotations
@@ -320,6 +332,86 @@ def cmd_bench(args):
             extra.append({"metric": "skipped", "error": str(e)[:200]})
         line["extra"] = extra
     print(json.dumps(line))
+    if args.out:
+        from tpu_dialmpc_torch.quality import device_identity
+
+        card, power = device_identity(args.device)
+        doc = dict(line, measured_at=time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+                   device=card, power_limit=power)
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1)
+        print(f"wrote {args.out}")
+    return 0
+
+
+def _executed_torques(env, data):
+    """Per-step executed joint torques (T, nu) from a saved trajectory.
+
+    `us[t]` was applied to the state BEFORE step t (the runner records the
+    post-step qpos with the pre-step action), so each action pairs with
+    (qpos[t-1], qvel[t-1]); the t=0 predecessor is the saved qpos0/qvel0
+    (the reset state, or the resume checkpoint's), falling back to the
+    reset state for files without them.  The action maps to ctrl through
+    the env's own `_ctrl_batch` (PD torque or position target), and the
+    actuator force is `smooth.actuator_force` (gain·ctrl + affine bias,
+    force and ctrl ranges, gear).  Torque mode is exact (ctrl IS the applied
+    force, constant over the control step); position mode is the
+    start-of-step servo force kp·(ctrl−q)−kv·qd, which drifts within the
+    step's substeps, so the arrows show the torque at step entry."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import smooth
+
+    if "qpos0" in data:
+        q0, v0 = data["qpos0"], data["qvel0"]
+    else:
+        ps0 = env.reset().pipeline
+        q0, v0 = _host(ps0.qpos), _host(ps0.qvel)
+    qpos_prev = np.concatenate([q0[None], np.asarray(data["qpos"])[:-1]])
+    qvel_prev = np.concatenate([v0[None], np.asarray(data["qvel"])[:-1]])
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=env.device)
+
+    us, qpos, qvel = t(data["us"]), t(qpos_prev), t(qvel_prev)
+    qfrc = smooth.actuator_force(env.model, env._ctrl_batch(us, qpos, qvel), qpos, qvel)
+    dofadr = torch.as_tensor(np.asarray(env.model.actuator_dofadr), dtype=torch.long,
+                             device=env.device)
+    return _host(qfrc.index_select(1, dofadr))
+
+
+def cmd_render(args):
+    """Offscreen-render a saved trajectory to MP4/GIF, or replay it in a
+    window (tools/render.py), on the env's host mujoco model: the scene the
+    port's model was exported from, with the task's crate placement."""
+    from tpu_dialmpc_torch.dynamics import assets
+    from tpu_dialmpc_torch.tools.render import render_trajectory, view_trajectory
+
+    if not args.trajectory:
+        raise SystemExit("render needs --trajectory <traj.npz>")
+    with np.load(args.trajectory) as f:
+        data = {k: f[k] for k in f.files}
+    env, _, _ = _build(args)
+    # the recording's own control period (saved by `run --out`): the rebuilt
+    # env's dt follows the current flags, which need not match the run's
+    dt = float(data["dt"]) if "dt" in data else env.dt
+    if args.interactive:
+        try:
+            view_trajectory(assets.host_mj_model(env), data["qpos"], dt)
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+        return 0
+    out = args.out or (args.trajectory.rsplit(".", 1)[0] + ".mp4")
+    tau = _executed_torques(env, data) if args.torques else None
+    written = render_trajectory(
+        assets.host_mj_model(env),
+        data["qpos"],
+        out,
+        fps=1.0 / max(dt, 1e-9),
+        track_body=env.TORSO_BODY,
+        tau=tau,
+    )
+    print(f"rendered {data['qpos'].shape[0]} frames to {written}")
     return 0
 
 
@@ -345,7 +437,8 @@ def main(argv=None):
                             ("ik", cmd_ik, "feet IK or a settle probe for a base offset"),
                             ("profile", cmd_profile, "phase timings and the kernel's roofline"),
                             ("bench", cmd_bench, "the benchmark's rows as one JSON line"),
-                            ("scaling", cmd_scaling, "strong scaling of the sharded planner")):
+                            ("scaling", cmd_scaling, "strong scaling of the sharded planner"),
+                            ("render", cmd_render, "draw a run's --out trajectory (mujoco)")):
         sp = parsers[name] = sub.add_parser(name, help=help_)
         sp.add_argument("--task", default="go2_stand")
         sp.add_argument("--config", default=None, help="YAML file: task, env:, dial:")
@@ -375,6 +468,14 @@ def main(argv=None):
     sp = parsers["bench"]
     sp.add_argument("--iters", type=int, default=20, help="repetitions of each chain length")
     sp.add_argument("--full", action="store_true", help="also the control-step and roofline rows")
+    sp.add_argument("--out", default=None, help="also write the line, with its time and card, here")
+    sp = parsers["render"]
+    sp.add_argument("--trajectory", default=None, help="a run --out .npz")
+    sp.add_argument("--out", default=None, help="MP4/GIF path (default: the trajectory's, .mp4)")
+    sp.add_argument("--torques", action="store_true",
+                    help="draw the executed joint torques as arrows")
+    sp.add_argument("--interactive", action="store_true",
+                    help="replay in a window (needs a display) instead of writing a video")
     sp = sub.add_parser("plot", help="plot a run's --out trajectory")
     sp.add_argument("--trajectory", required=True, help="a run --out .npz")
     sp.add_argument("--out", default=None, help="PNG path (default trajectory_plots.png)")

@@ -205,6 +205,31 @@ class MBDPI:
         every sample; `ShardedMBDPI` all-reduces over its ranks."""
         return t
 
+    @staticmethod
+    def _finite_scores(rews, rew_Ybar, rews_all, mean_all):
+        """Scores with every non-finite mean reward replaced by the worst
+        finite one, and the mean of all of them.
+
+        A rollout that diverges (the physics blows up under an extreme
+        candidate; the JAX package's engine does the same on the same
+        inputs) has a non-finite mean reward, which would make the std, and
+        so every weight and the plan, non-finite.  As the worst finite score
+        it keeps a weight of about exp(-gap / (std·temp)), nothing.  Every
+        rank computes the same values from the global (Nsample+1,) vector
+        `rews_all` (the anchor's slot not yet set); where every score is
+        finite, the inputs are returned as they are, bit for bit."""
+        ok, ok_y = torch.isfinite(rews_all[:-1]), torch.isfinite(rew_Ybar)
+        finite = torch.where(torch.cat([ok, ok_y[None]]),
+                             torch.cat([rews_all[:-1], rew_Ybar[None]]), torch.inf)
+        worst = finite.min()
+        worst = torch.where(torch.isfinite(worst), worst, 0.0)  # none finite: all equal
+        rews_s = torch.where(torch.isfinite(rews), rews, worst)
+        rew_Ybar_s = torch.where(ok_y, rew_Ybar, worst)
+        rews_all_s = torch.where(torch.isfinite(rews_all), rews_all, worst)
+        mean_s = (rews_all_s[:-1].sum() + rew_Ybar_s) / rews_all.shape[0]
+        mean_all = torch.where(ok.all() & ok_y, mean_all, mean_s)
+        return rews_s, rew_Ybar_s, rews_all_s, mean_all
+
     def _score_update(self, rewss, all_Y0s, noise_scale, diag=None):
         """Score, softmax, weighted average (dial-core.h:529-592).
 
@@ -239,12 +264,16 @@ class MBDPI:
             head = self._reduce(torch.cat([rews.sum()[None], rews_all]))
             rews_all = head[1:]
             mean_all = (head[0] + rew_Ybar) / n_all
+            rews, rew_Ybar, rews_all, mean_all = self._finite_scores(
+                rews, rew_Ybar, rews_all, mean_all)
             sq = self._reduce(((rews - mean_all) ** 2).sum()[None])[0]
             var_all = (sq + (rew_Ybar - mean_all) ** 2) / n_all
             std = std_y = torch.clamp(torch.sqrt(var_all), min=1e-7)
         rews_all[-1] = rew_Ybar
         logp0 = (rews - rew_Ybar) / (std * args.temp_sample)
         logp_ybar = (rew_Ybar - rew_Ybar) / (std_y * args.temp_sample)
+        # a non-finite score (a per-sample std of a diverged rollout) weighs 0
+        logp0 = torch.where(torch.isfinite(logp0), logp0, -torch.inf)
 
         # the stable softmax: the max, then the sum of the exponentials
         m = logp0.max()[None] if hi > lo else torch.full((1,), -torch.inf, dtype=dtype,
