@@ -60,7 +60,18 @@ checkpoint and a resume to 6, and `--scan`, each with its launch count
 checked, the resumed and scanned trajectories bit-equal to the host loop's;
 and one `reverse_once` with diag_states, whose Ybar must equal the plain
 one's to the bit.
-After the six paths, the physics pipeline (`dynamics/pipeline.py`, the JAX
+After the six paths, [mjcf]: the port's MJCF compiler (`dynamics/mjcf.py`,
+no mujoco, which the script checks is never imported) compiles the seven
+stand-in scenes of tests/assets, each held to its shipped .npz (integers
+and tables exactly, floats to 1e-12; host ms per compile); each path's env is
+built again from its XML (TPU_DIALMPC_ASSETS) and its packed kernel
+constants and build key compared with the .npz env's (an equal key reuses
+the kernel already built); then go2_stand (N2048/H20/Hnode5) and
+h1_push_crate (N2048/H32/Hnode8), built from XML, run one reverse_once under
+injected noise and one control step, each against the same calls on the .npz
+env (bit-equal where the keys are equal, else within REL_TOL), with their
+fused launches counted from 0 and checked.
+Then the physics pipeline (`dynamics/pipeline.py`, the JAX
 package's XLA path as batched PyTorch ops, which has no kernel of its own):
   - [physics] `pipeline.step` at B=2049, 1 and 8 substeps, on the go2_force,
     Go2 crate, H1 push-crate and go2_position models, with the inputs their
@@ -129,6 +140,7 @@ It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
 
 import contextlib
+import hashlib
 import json
 import shutil
 import statistics
@@ -419,6 +431,175 @@ def phase_bound(env, ms, tag):
               f"{N_SUBSTEPS} / {FP32_FLOPS / 1e12:.0f} TFLOP/s = bound_ms {bound:.4f}; "
               f"kernel {ms[B]:.3f} ms, share {bound / ms[B]:.5f}")
     return ops, bound_ms(2049, ops)
+
+
+MJCF_TIMESTEP = 0.0025  # the envs' timestep, as tests/assets/export_npz.py compiles at
+MJCF_TOL = 1e-12  # rtol = atol for float fields, XML compile against the shipped .npz
+MJCF_PATHS = ("go2_stand", "h1_push_crate")
+
+
+def _hold_models(tag, want, got):
+    """Every PhysicsModel field and pair table of `got` (compiled from XML
+    here) held to `want` (the shipped .npz): integers, bools, names and
+    tables exactly, floats to MJCF_TOL.  Returns (bit-equal float fields,
+    the float fields that are not, the fields whose float32 values differ)."""
+    import dataclasses
+
+    import numpy as np
+
+    bit, rest, f32 = [], [], []
+
+    def hold(name, a, b):
+        if isinstance(a, (np.ndarray, float)):
+            a, b = np.asarray(a), np.asarray(b)
+            check(a.shape == b.shape and a.dtype == b.dtype, f"[mjcf {tag}] {name}: shape or "
+                  f"dtype {b.shape} {b.dtype} != {a.shape} {a.dtype}")
+            if a.dtype.kind != "f":
+                check(np.array_equal(a, b), f"[mjcf {tag}] {name} differs")
+                return
+            check(np.allclose(b, a, rtol=MJCF_TOL, atol=MJCF_TOL),
+                  f"[mjcf {tag}] {name}: max abs diff {np.max(np.abs(a - b)):.3e}")
+            (bit if np.array_equal(a, b) else rest).append(name)
+            if not np.array_equal(a.astype(np.float32), b.astype(np.float32)):
+                f32.append(name)
+        else:
+            check(a == b, f"[mjcf {tag}] {name}: {b!r} != {a!r}")
+
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if f.name == "pairs":
+            check(sorted(a) == sorted(b), f"[mjcf {tag}] pair kinds differ")
+            for kind in a:
+                for pf in dataclasses.fields(a[kind]):
+                    hold(f"pairs{kind}.{pf.name}", getattr(a[kind], pf.name),
+                         getattr(b[kind], pf.name))
+        elif f.name == "key_qpos":
+            check(list(a) == list(b), f"[mjcf {tag}] keyframes differ")
+            for k in a:
+                hold(f"key_qpos[{k}]", a[k], b[k])
+        else:
+            hold(f.name, a, b)
+    return bit, rest, f32
+
+
+def phase_mjcf(envs, device, all_envs):
+    """[mjcf] The port's MJCF compiler (dynamics/mjcf.py, no mujoco) on the
+    card's host: the seven stand-in scenes compiled from tests/assets and
+    held to the shipped .npz files; each kernel model's packed constants and
+    build key from an env built from XML against the .npz env's; then
+    go2_stand and h1_push_crate built from their XML at full width: one
+    reverse_once under injected noise and one control step through the fused
+    kernel, each against the same call on the .npz env (bit-equal where the
+    build key is equal, else within REL_TOL), the XML envs' fused launches
+    checked.  Returns {task: launches} for the kernels' line."""
+    import os
+
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import assets, fused_cuda, mjcf
+    from tpu_dialmpc_torch.dynamics.model import ASSETS, SCENES, compile_model, load_model
+    from tpu_dialmpc_torch.envs import get_env
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    check("mujoco" not in sys.modules, "[mjcf] mujoco is imported")
+    standins = ROOT / "tests" / "assets"
+    for scene in SCENES:
+        t0 = time.perf_counter()
+        got = compile_model(mjcf.load(standins / assets.SCENES[scene]))
+        ms = (time.perf_counter() - t0) * 1e3
+        got = got.with_options(timestep=MJCF_TIMESTEP)
+        bit, rest, f32 = _hold_models(scene, load_model(str(ASSETS / SCENES[scene])), got)
+        print(f"[mjcf {scene}] compiled from {assets.SCENES[scene]} in {ms:.1f} ms (host); "
+              f"equals the shipped .npz: {len(bit)} float fields bit-equal, "
+              f"{len(rest)} within {MJCF_TOL:g} {rest}; float32 values differ in "
+              f"{f32 or 'no field'}")
+
+    key_equal = {}
+    xml_envs = {}
+    old = os.environ.get("TPU_DIALMPC_ASSETS")
+    os.environ["TPU_DIALMPC_ASSETS"] = str(standins)
+    try:
+        for path, env, cfg in envs:
+            xml_env = get_env(path.task, device=device)
+            check(xml_env.model is not env.model and xml_env.config == env.config,
+                  f"[mjcf {path.task}] the XML env is not a fresh env of the same config")
+            packed = [fused_cuda.pack_model(e.model, e.fused_step.meta, e.fused_step.spec)
+                      for e in (env, xml_env)]
+            (_, blob0, tab0), (_, blob1, tab1) = packed
+            key0, key1 = (hashlib.sha256(b + t).hexdigest() for _, b, t in packed)
+            key_equal[path.task] = key0 == key1
+            print(f"[mjcf {path.task}] XML env ({path.scene}): packed model "
+                  f"{'equal' if blob0 == blob1 else 'DIFFERENT'} ({len(blob1)} bytes), tables "
+                  f"{'equal' if tab0 == tab1 else 'DIFFERENT'}, build key {key1[:16]} "
+                  f"{'equals' if key_equal[path.task] else 'differs from'} the .npz env's")
+            if path.task in MJCF_PATHS:
+                xml_envs[path.task] = xml_env
+    finally:
+        if old is None:
+            del os.environ["TPU_DIALMPC_ASSETS"]
+        else:
+            os.environ["TPU_DIALMPC_ASSETS"] = old
+    check("mujoco" not in sys.modules, "[mjcf] mujoco is imported")
+
+    launches = {}
+    for path, env, cfg in envs:
+        if path.task not in MJCF_PATHS:
+            continue
+        xml_env, task = xml_envs[path.task], path.task
+        noise = torch.randn((cfg.Nsample, cfg.Hnode + 1, env.action_size),
+                            generator=torch.Generator(device=device).manual_seed(11),
+                            device=device)
+        outs, walls = [], []
+        for e in (env, xml_env):
+            mb = MBDPI(cfg, e)
+            scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
+            Y = torch.zeros((cfg.Hnode + 1, e.action_size), dtype=torch.float32, device=device)
+            state = to_lean(e.reset())
+            step = make_control_step(mb, cfg.Ndiffuse)
+            gen = torch.Generator(device=device).manual_seed(cfg.seed)
+            for x in all_envs + [xml_env]:  # every count to 0 just before this run
+                x.fused_step.launches = 0
+            Yb, info = mb.reverse_once(state, None, Y, scale, noise=noise)
+            s1, Y1, infos = step(state, Yb, gen)
+            torch.cuda.synchronize()
+            n = e.fused_step.launches
+            others = [x.fused_step.launches for x in all_envs + [xml_env] if x is not e]
+            # one reverse_once, then one control step (as from a resumed step 1)
+            expected = (cfg.Hsample + 1) + expected_launches(cfg, 2, t0=1)
+            check(n == expected and not any(others),
+                  f"[mjcf {task}] fused launches {n} (expected {expected}), others {others}")
+            if e is xml_env:
+                launches[task] = n
+            outs.append({"rews": info.rews, "Ybar": Yb, "step qpos": s1.pipeline.qpos,
+                         "step qvel": s1.pipeline.qvel, "step Ybar": Y1,
+                         "step rews": infos.rews})
+            walls.append([])
+            for fn in (lambda: mb.reverse_once(state, None, Y, scale, noise=noise),
+                       lambda: step(state, Yb, gen)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[-1].append((time.perf_counter() - t0) * 1e3)
+        exact = key_equal[task]
+        for name in outs[0]:
+            a, b = outs[1][name], outs[0][name]
+            check(bool(torch.isfinite(a).all()), f"[mjcf {task}] {name}: non-finite")
+            err = (a - b).abs().max().item()
+            tol = 0.0 if exact else REL_TOL * max(1.0, b.abs().max().item())
+            print(f"[mjcf {task}] XML env vs .npz env, {name}: max abs diff {err:.3e} "
+                  f"({'bit-equal required' if exact else f'tolerance {tol:.3e}'})")
+            check(err <= tol, f"[mjcf {task}] {name}: the XML env differs from the .npz env")
+        print(f"[mjcf {task}] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
+              f"{env.config.n_substeps}: reverse_once {walls[1][0]:.2f} ms (XML env) vs "
+              f"{walls[0][0]:.2f} ms (.npz env), control step {walls[1][1]:.2f} vs "
+              f"{walls[0][1]:.2f} ms (one more of each after the compared calls, host wall); "
+              f"XML env fused "
+              f"launches {launches[task]} = {cfg.Hsample + 1} + (1 + {cfg.Ndiffuse}x"
+              f"{cfg.Hsample + 1})")
+    return launches
 
 
 class _PlainSubsteps:
@@ -1667,6 +1848,14 @@ def main():
                 "library_ms": None,  # no PyTorch call computes this function
                 "ops_per_substep": ops,
             })
+        t0 = time.perf_counter()
+        mjcf_launches = phase_mjcf(envs, device, all_envs)
+        print(f"[time mjcf] phase wall {time.perf_counter() - t0:.1f} s")
+        for record, (path, _, _) in zip(records, envs):
+            if path.task in mjcf_launches:
+                record["mjcf_launches"] = mjcf_launches[path.task]
+        summary.append("built from MJCF by the port (no mujoco), fused launches: " + ", ".join(
+            f"{task} {n}" for task, n in mjcf_launches.items()))
         t0 = time.perf_counter()
         by_scene = {path.scene: (path, env) for path, env, _ in envs}
         physics_ms = {}

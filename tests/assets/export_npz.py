@@ -1,8 +1,11 @@
-"""Compile the stand-in scenes into the .npz model files the torch port loads.
+"""Compile the stand-in scenes into the .npz model files the torch port ships.
 
-The port reads models with numpy alone (no mujoco at run time), so the scenes
-are compiled here, once, by the JAX package's own `compile_model` and written
-with its `save_model`:
+The port compiles MJCF itself, with no mujoco (`tpu_dialmpc_torch/dynamics/
+mjcf.py` and `model.py:compile_model`; `load_scene` does so for a scene name
+when `TPU_DIALMPC_ASSETS` is set, and for any `.xml` path).  The shipped
+files are a cache of the reference's result: a scene name loads its file
+when the variable is unset.  They are compiled here, by the JAX package's own
+`compile_model` through mujoco, and written with its `save_model`:
 
     PYTHONPATH=. python tests/assets/export_npz.py
 
@@ -15,7 +18,8 @@ capsule-capsule kinds).  Each file also carries the joint names (entry
 `jnt_names`, "" for an unnamed joint), which `save_model` does not write and
 the H1 env reads to size its arm actions.  `tests/test_torch_model.py` and
 `tests/test_torch_h1_model.py` check that each committed file equals a fresh
-compile of its scene.
+compile of its scene, and `tests/test_torch_mjcf.py` that the port's own
+compile equals the JAX one.
 """
 
 from __future__ import annotations

@@ -67,12 +67,17 @@ def test_committed_npz_equals_fresh_compile(monkeypatch, scene):
 def test_crate_task_model_equals_jax_compile(monkeypatch, task):
     """The port moves the crate in the compiled model (crate_top_z: 0.30 for
     go2_crate_climb, crate_x: 30 for go2_jump); the JAX env moves it in the
-    MjModel and compiles.  The two models are equal field by field."""
+    MjModel and compiles.  The two models are equal field by field.  The
+    port's env loads the shipped model file here (TPU_DIALMPC_ASSETS unset):
+    with the variable set it compiles the XML itself, which
+    test_torch_mjcf.py holds to the JAX compile to 1e-12."""
     from tpu_dialmpc.envs import get_env as jget_env
     from tpu_dialmpc_torch.envs import get_env
 
     use_standin_assets(monkeypatch)
-    jenv, tenv = jget_env(task), get_env(task, device="cpu")
+    jenv = jget_env(task)
+    monkeypatch.delenv("TPU_DIALMPC_ASSETS")
+    tenv = get_env(task, device="cpu")
     assert_same_model(tenv.model, jenv.model)
     assert tenv._crate == jenv._crate
     crate = tenv.model.body_names.index("box_body")

@@ -282,8 +282,9 @@ def test_crate_control_step_matches_jax(crate_slice):
 def test_port_imports_neither_jax_nor_mujoco():
     """At run time the port imports torch and numpy only, also with the CLI,
     checkpoint, telemetry and physics pipeline modules loaded, the H1 and
-    position envs built, and a go2_stand env on the physics pipeline
-    stepped."""
+    position envs built, a go2_stand env on the physics pipeline
+    stepped, and scenes compiled from their MJCF (a path, and a name under
+    TPU_DIALMPC_ASSETS)."""
     code = (
         "import sys, torch\n"
         "import tpu_dialmpc_torch, tpu_dialmpc_torch.envs, tpu_dialmpc_torch.planner.runner\n"
@@ -297,6 +298,13 @@ def test_port_imports_neither_jax_nor_mujoco():
         "env = tpu_dialmpc_torch.envs.get_env('go2_stand', fused='off', device='cpu')\n"
         "state = env.step(env.reset(), torch.zeros(env.action_size))\n"
         "assert torch.isfinite(state.pipeline.qpos).all() and not env.on_fused_path\n"
+        "from tpu_dialmpc_torch.dynamics import mjcf, model\n"
+        "m = model.compile_model(mjcf.load('tests/assets/unitree_h1/mjx_scene_h1_push_crate.xml'))\n"
+        "assert (m.nq, m.nv, m.nu) == (27, 26, 19)\n"
+        "env = tpu_dialmpc_torch.envs.get_env(\n"
+        "    'go2_stand', device='cpu', scene='tests/assets/unitree_go2/mjx_scene_force.xml')\n"
+        "import os; os.environ['TPU_DIALMPC_ASSETS'] = 'tests/assets'\n"
+        "tpu_dialmpc_torch.envs.get_env('h1_push_crate', device='cpu')  # from its XML\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mujoco', 'tpu_dialmpc'))\n"
         "print(bad)\n"

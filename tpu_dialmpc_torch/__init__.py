@@ -3,8 +3,8 @@ CUDA kernel written by hand for the NVIDIA H100 (sm_90a).
 
 The port mirrors the JAX package `tpu_dialmpc`, module by module, and is held
 against it by the tests (`tests/test_torch_*.py`).  At run time it imports
-torch and numpy only: models are read from `.npz` files (`assets/`), not
-compiled from MJCF.
+torch and numpy only: models are compiled from MJCF without mujoco
+(`dynamics/mjcf.py`) or read from `.npz` files (the stand-ins' in `assets/`).
 
 - `core/`      spline matrices (numpy) and batched quaternion ops
 - `dynamics/`  the model container, the plain PyTorch substep chain

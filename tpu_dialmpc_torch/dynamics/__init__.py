@@ -1,3 +1,11 @@
-from tpu_dialmpc_torch.dynamics.model import PhysicsModel, from_numpy_fields, load_model
+from tpu_dialmpc_torch.dynamics.model import (
+    PhysicsModel,
+    compile_model,
+    from_numpy_fields,
+    load_model,
+    load_scene,
+    save_model,
+)
 
-__all__ = ["PhysicsModel", "from_numpy_fields", "load_model"]
+__all__ = ["PhysicsModel", "compile_model", "from_numpy_fields", "load_model", "load_scene",
+           "save_model"]

@@ -1,16 +1,17 @@
-"""MJCF scenes on the host, for the tools that need mujoco itself (`render`).
+"""MJCF scenes by name: the port's copy of the JAX package's scene table and
+resolution (`tpu_dialmpc/dynamics/assets.py`).
 
-The port simulates compiled model files (`dynamics/model.py`, no mujoco);
-drawing a trajectory needs the scene as a mujoco model.  This is the port's
-copy of the JAX package's scene table and loader (`tpu_dialmpc/dynamics/
-assets.py`), with `host_mj_model(env)`, which stands in for the JAX env's
-`mj_model`: the env's scene with the task's crate placement applied.
+`scene_path` resolves a scene name against `TPU_DIALMPC_ASSETS`, else the
+repository's stand-in scenes (`tests/assets`), which the port's shipped model
+files were exported from; any other string is taken as a path.
+`dynamics/model.py:load_scene` compiles what it finds without mujoco.
 
-Scene paths resolve against `TPU_DIALMPC_ASSETS`, else the repository's
-stand-in scenes (`tests/assets`), which the port's model files were exported
-from.  The Go2 force scene references a visual mesh, `base_4.obj`, that
-the published model snapshot lacks; it is visual only (no contacts), so a
-degenerate tetrahedron stands in for it at load time.
+The tools that need mujoco itself (`render`) load the scene through
+`load_mj_model`, and `host_mj_model(env)` stands in for the JAX env's
+`mj_model`: the env's scene with the task's crate placement applied.  The
+Go2 force scene references a visual mesh, `base_4.obj`, that the published
+model snapshot lacks; it is visual only (no contacts), so a degenerate
+tetrahedron stands in for it at load time.
 
 mujoco is imported inside the functions: the package imports without it.
 """
@@ -36,6 +37,9 @@ SCENES = {
     "h1_walk": "unitree_h1/mjx_scene_h1_walk.xml",
     "h1_loco": "unitree_h1/mjx_scene_h1_loco.xml",
     "h1_push_crate": "unitree_h1/mjx_scene_h1_push_crate.xml",
+    # this repository's own scene (the physics pipeline's pair kinds), which
+    # the JAX package's table does not name
+    "go2_pair_kinds": "pairs/mjx_scene_pair_kinds.xml",
 }
 
 STANDINS = Path(__file__).resolve().parents[2] / "tests" / "assets"

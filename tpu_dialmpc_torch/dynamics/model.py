@@ -1,11 +1,15 @@
-"""The physics model container, read from `.npz` without mujoco.
+"""The physics model container: compiled from MJCF, saved to and read from
+`.npz`, all without mujoco.
 
 Counterpart of `tpu_dialmpc/dynamics/model.py`: the same `PhysicsModel` and
-`CollisionPairs` dataclasses of numpy arrays, the same constants, and
-`load_model`, which reads the exact file format of the JAX package's
-`save_model`.  Compiling MJCF (`compile_model`) needs mujoco and stays in the
-JAX package; its output reaches the port either through a saved `.npz`
-(`load_model`) or as numpy fields in memory (`from_numpy_fields`).
+`CollisionPairs` dataclasses of numpy arrays, the same constants,
+`compile_model` (the JAX function line for line, reading the record that
+`dynamics/mjcf.py` makes from the MJCF in place of a `mujoco.MjModel`),
+`save_model` and `load_model`, which write and read the exact file format of
+the JAX package's (plus the port's `jnt_names` entry), and
+`from_numpy_fields`, which takes another model's fields in memory.
+`load_scene` resolves a scene by name or path as the JAX envs do
+(`dynamics/assets.py`).
 """
 
 from __future__ import annotations
@@ -184,11 +188,30 @@ SCENES = {
 }
 
 
-def load_scene(name: str) -> PhysicsModel:
-    """The compiled model of a scene the port ships, by its JAX scene name."""
-    if name not in SCENES:
-        raise NotImplementedError(f"scene {name!r} is not ported yet")
-    return load_model(str(ASSETS / SCENES[name]))
+def load_scene(name_or_path: str) -> PhysicsModel:
+    """A scene's compiled model, resolved as the JAX envs resolve it
+    (`tpu_dialmpc/dynamics/assets.py:55-68`): a path ending in `.npz` is
+    loaded; a name in the scene table resolves under `TPU_DIALMPC_ASSETS`
+    and is compiled from its MJCF when that variable is set, while with it
+    unset a scene the port ships loads its `.npz`; any other name is taken as
+    a path to MJCF and compiled."""
+    import os
+
+    from tpu_dialmpc_torch.dynamics import assets, mjcf
+
+    name = str(name_or_path)
+    if name.endswith(".npz"):
+        if not Path(name).is_file():
+            raise FileNotFoundError(f"scene {name!r} not found at {name}")
+        return load_model(name)
+    if name in SCENES and "TPU_DIALMPC_ASSETS" not in os.environ:
+        return load_model(str(ASSETS / SCENES[name]))
+    path = assets.scene_path(name)
+    if not path.exists():
+        raise FileNotFoundError(
+            f"scene {name!r} not found at {path}; set TPU_DIALMPC_ASSETS"
+        )
+    return compile_model(mjcf.load(path))
 
 
 def load_model(path: str) -> PhysicsModel:
@@ -276,3 +299,295 @@ def from_numpy_fields(fields: Mapping[str, object]) -> PhysicsModel:
             v = tuple(v)
         kwargs[f.name] = v
     return PhysicsModel(**kwargs)
+
+
+def save_model(model: PhysicsModel, path: str) -> None:
+    """Serialize a compiled PhysicsModel to .npz in the JAX package's format,
+    with the joint names in a `jnt_names` entry where the model has them."""
+    flat = {}
+    meta = {"scalars": {}, "site_names": list(model.site_names),
+            "body_names": list(model.body_names), "key_names": list(model.key_qpos),
+            "pair_kinds": [], "pair_ncon": []}
+    for f in dataclasses.fields(model):
+        v = getattr(model, f.name)
+        if isinstance(v, (int, float)):
+            meta["scalars"][f.name] = v
+        elif isinstance(v, np.ndarray):
+            flat[f.name] = v
+    for i, name in enumerate(model.key_qpos):
+        flat[f"key_{i}"] = model.key_qpos[name]
+    for kind in sorted(model.pairs):
+        p = model.pairs[kind]
+        meta["pair_kinds"].append(list(kind))
+        meta["pair_ncon"].append(p.ncon)
+        tag = f"pair_{kind[0]}_{kind[1]}"
+        for pf in CollisionPairs.__dataclass_fields__:
+            if pf == "ncon":
+                continue
+            flat[f"{tag}_{pf}"] = getattr(p, pf)
+    flat["gravity"] = model.gravity
+    if model.jnt_names:
+        flat["jnt_names"] = np.array(model.jnt_names, dtype=str)
+    np.savez(path, meta=json.dumps(meta), **flat)
+
+
+# ---- compile_model: the JAX package's, reading dynamics/mjcf.py's record ----
+
+
+def _name(names, i: int):
+    """mj_id2name: the object's name, None where it has none."""
+    return names[i] or None
+
+
+def _mix_solref_solimp(m, g1: int, g2: int):
+    """Contact parameter combination per MuJoCo's priority/solmix rules."""
+    p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
+    if p1 > p2:
+        return m.geom_solref[g1].copy(), m.geom_solimp[g1].copy()
+    if p2 > p1:
+        return m.geom_solref[g2].copy(), m.geom_solimp[g2].copy()
+    s1, s2 = m.geom_solmix[g1], m.geom_solmix[g2]
+    if s1 >= 0.001 and s2 >= 0.001:
+        mix = s1 / (s1 + s2)
+    elif s1 < 0.001 and s2 < 0.001:
+        mix = 0.5
+    elif s1 < 0.001:
+        mix = 0.0
+    else:
+        mix = 1.0
+    # direct (negative) solref is not mixed: take elementwise min
+    if m.geom_solref[g1][0] > 0 and m.geom_solref[g2][0] > 0:
+        solref = mix * m.geom_solref[g1] + (1 - mix) * m.geom_solref[g2]
+    else:
+        solref = np.minimum(m.geom_solref[g1], m.geom_solref[g2])
+    solimp = mix * m.geom_solimp[g1] + (1 - mix) * m.geom_solimp[g2]
+    return solref, solimp
+
+
+def _pair_friction(m, g1: int, g2: int) -> np.ndarray:
+    p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
+    if p1 > p2:
+        f = m.geom_friction[g1]
+    elif p2 > p1:
+        f = m.geom_friction[g2]
+    else:
+        f = np.maximum(m.geom_friction[g1], m.geom_friction[g2])
+    # (slide, slide, spin, roll, roll)
+    return np.array([f[0], f[0], f[1], f[2], f[2]])
+
+
+def _collision_candidates(m):
+    """Enumerate geom pairs passing MuJoCo's broadphase-independent filters
+    (as the JAX compiler, `<contact>`'s `<exclude>` and `<pair>` are not
+    read)."""
+    from tpu_dialmpc_torch.dynamics import mjcf
+
+    filterparent = not (m.opt.disableflags & mjcf.DSBL_FILTERPARENT)
+    weld = m.body_weldid
+    weld_parent = weld[m.body_parentid[weld]]
+    out = []
+    for g1 in range(m.ngeom):
+        for g2 in range(g1 + 1, m.ngeom):
+            b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
+            if not (
+                (m.geom_contype[g1] & m.geom_conaffinity[g2])
+                or (m.geom_contype[g2] & m.geom_conaffinity[g1])
+            ):
+                continue
+            if weld[b1] == weld[b2]:
+                continue
+            if filterparent and (
+                (weld[b1] != 0 and weld_parent[b2] == weld[b1])
+                or (weld[b2] != 0 and weld_parent[b1] == weld[b2])
+            ):
+                continue
+            out.append((g1, g2))
+    return out
+
+
+def compile_model(m) -> PhysicsModel:
+    """Compile an MJCF record (`dynamics/mjcf.py:load`) into a PhysicsModel
+    (host-side, numpy float64), with the JAX compiler's checks and errors."""
+    from tpu_dialmpc_torch.dynamics import mjcf
+
+    if m.neq or m.ntendon:
+        raise NotImplementedError("equality constraints / tendons not supported")
+    # one joint per body at most — true for all Go2/H1 scenes; keeps tree
+    # recursions trivially unrollable
+    if np.any(m.body_jntnum > 1):
+        raise NotImplementedError("bodies with >1 joint not supported")
+    if not np.all(np.isin(m.jnt_type, [JNT_FREE, JNT_SLIDE, JNT_HINGE])):
+        raise NotImplementedError("only free/slide/hinge joints supported")
+    for i in range(m.nu):
+        if m.actuator_trntype[i] != mjcf.TRN_JOINT:
+            raise NotImplementedError("only joint-transmission actuators supported")
+        jid = m.actuator_trnid[i, 0]
+        if m.jnt_type[jid] not in (JNT_SLIDE, JNT_HINGE):
+            raise NotImplementedError("actuators on free joints not supported")
+        if m.actuator_dyntype[i] != mjcf.DYN_NONE:
+            raise NotImplementedError("actuator activation dynamics not supported")
+        if m.actuator_gaintype[i] != mjcf.GAIN_FIXED:
+            raise NotImplementedError("only fixed-gain actuators supported")
+        if m.actuator_biastype[i] not in (mjcf.BIAS_NONE, mjcf.BIAS_AFFINE):
+            raise NotImplementedError("only none/affine actuator bias supported")
+
+    # collidable geom subset
+    candidates = _collision_candidates(m)
+    collidable = sorted({g for pair in candidates for g in pair})
+    gmap = {g: i for i, g in enumerate(collidable)}
+    geom_orig = np.array(collidable, dtype=np.int32)
+    for g in collidable:
+        if m.geom_type[g] not in (GEOM_PLANE, GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX):
+            raise NotImplementedError(
+                f"collidable geom type {m.geom_type[g]} not supported"
+            )
+
+    # pair tables grouped by kind
+    by_kind: Dict[Tuple[int, int], list] = {}
+    for g1, g2 in candidates:
+        t1, t2 = m.geom_type[g1], m.geom_type[g2]
+        if t2 < t1:
+            g1, g2, t1, t2 = g2, g1, t2, t1
+        kind = (int(t1), int(t2))
+        if kind not in PAIR_NCON:
+            raise NotImplementedError(f"collision pair kind {kind} not supported")
+        condim = max(m.geom_condim[g1], m.geom_condim[g2])
+        p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
+        if p1 != p2:
+            condim = m.geom_condim[g1] if p1 > p2 else m.geom_condim[g2]
+        solref, solimp = _mix_solref_solimp(m, g1, g2)
+        friction = _pair_friction(m, g1, g2)
+        margin = max(m.geom_margin[g1], m.geom_margin[g2])
+        gap = max(m.geom_gap[g1], m.geom_gap[g2])
+        b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
+        invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+        by_kind.setdefault(kind, []).append(
+            (gmap[g1], gmap[g2], condim, friction, solref, solimp, margin, gap, invweight)
+        )
+
+    pairs = {}
+    for kind, rows in sorted(by_kind.items()):
+        pairs[kind] = CollisionPairs(
+            geom1=np.array([r[0] for r in rows], dtype=np.int32),
+            geom2=np.array([r[1] for r in rows], dtype=np.int32),
+            condim=np.array([r[2] for r in rows], dtype=np.int32),
+            friction=np.stack([r[3] for r in rows]),
+            solref=np.stack([r[4] for r in rows]),
+            solimp=np.stack([r[5] for r in rows]),
+            margin=np.array([r[6] for r in rows]),
+            gap=np.array([r[7] for r in rows]),
+            invweight=np.array([r[8] for r in rows]),
+            ncon=PAIR_NCON[kind],
+        )
+
+    # ancestor masks
+    nv, nbody = m.nv, m.nbody
+    body_dof_mask = np.zeros((nbody, nv))
+    for b in range(1, nbody):
+        node = b
+        while node != 0:
+            j = m.body_jntadr[node]
+            if j >= 0:
+                adr = m.jnt_dofadr[j]
+                ndof = {JNT_FREE: 6, JNT_BALL: 3, JNT_SLIDE: 1, JNT_HINGE: 1}[
+                    int(m.jnt_type[j])
+                ]
+                body_dof_mask[b, adr : adr + ndof] = 1.0
+            node = m.body_parentid[node]
+    ancestor_mask = np.zeros((nv, nv))
+    for i in range(nv):
+        bi = m.dof_bodyid[i]
+        ancestor_mask[i] = body_dof_mask[bi]
+        # restrict "self joint" dofs to those at-or-before i within the joint
+        for j in range(nv):
+            if ancestor_mask[i, j] and m.dof_bodyid[j] == bi and j > i:
+                ancestor_mask[i, j] = 0.0
+
+    key_qpos = {}
+    for k in range(m.nkey):
+        name = _name(m.key_names, k) or f"key{k}"
+        key_qpos[name] = m.key_qpos[k].copy()
+
+    site_names = tuple(_name(m.site_names, s) or f"site{s}" for s in range(m.nsite))
+    body_names = tuple(_name(m.body_names, b) or f"body{b}" for b in range(m.nbody))
+
+    actuator_dofadr = np.array(
+        [m.jnt_dofadr[m.actuator_trnid[i, 0]] for i in range(m.nu)], dtype=np.int32
+    )
+    actuator_qposadr = np.array(
+        [m.jnt_qposadr[m.actuator_trnid[i, 0]] for i in range(m.nu)], dtype=np.int32
+    )
+
+    return PhysicsModel(
+        nq=int(m.nq),
+        nv=int(m.nv),
+        nu=int(m.nu),
+        nbody=int(m.nbody),
+        njnt=int(m.njnt),
+        ngeom=len(collidable),
+        nsite=int(m.nsite),
+        timestep=float(m.opt.timestep),
+        gravity=m.opt.gravity.copy(),
+        iterations=int(m.opt.iterations),
+        ls_iterations=int(m.opt.ls_iterations),
+        tolerance=float(m.opt.tolerance),
+        ls_tolerance=float(m.opt.ls_tolerance),
+        impratio=float(m.opt.impratio),
+        meaninertia=float(m.stat.meaninertia),
+        eulerdamp=not (m.opt.disableflags & mjcf.DSBL_EULERDAMP),
+        body_parentid=m.body_parentid.copy(),
+        body_rootid=m.body_rootid.copy(),
+        body_jntadr=m.body_jntadr.copy(),
+        body_pos=m.body_pos.copy(),
+        body_quat=m.body_quat.copy(),
+        body_ipos=m.body_ipos.copy(),
+        body_iquat=m.body_iquat.copy(),
+        body_mass=m.body_mass.copy(),
+        body_inertia=m.body_inertia.copy(),
+        body_invweight0=m.body_invweight0.copy(),
+        jnt_type=m.jnt_type.copy(),
+        jnt_qposadr=m.jnt_qposadr.copy(),
+        jnt_dofadr=m.jnt_dofadr.copy(),
+        jnt_bodyid=m.jnt_bodyid.copy(),
+        jnt_pos=m.jnt_pos.copy(),
+        jnt_axis=m.jnt_axis.copy(),
+        jnt_range=m.jnt_range.copy(),
+        jnt_limited=m.jnt_limited.copy().astype(bool),
+        jnt_solref=m.jnt_solref.copy(),
+        jnt_solimp=m.jnt_solimp.copy(),
+        jnt_margin=m.jnt_margin.copy(),
+        qpos0=m.qpos0.copy(),
+        dof_bodyid=m.dof_bodyid.copy(),
+        dof_jntid=m.dof_jntid.copy(),
+        dof_armature=m.dof_armature.copy(),
+        dof_damping=m.dof_damping.copy(),
+        dof_invweight0=m.dof_invweight0.copy(),
+        dof_frictionloss=m.dof_frictionloss.copy(),
+        dof_solref=m.dof_solref.copy(),
+        dof_solimp=m.dof_solimp.copy(),
+        geom_bodyid=m.geom_bodyid[geom_orig].copy(),
+        geom_type=m.geom_type[geom_orig].copy(),
+        geom_pos=m.geom_pos[geom_orig].copy(),
+        geom_quat=m.geom_quat[geom_orig].copy(),
+        geom_size=m.geom_size[geom_orig].copy(),
+        geom_orig_id=geom_orig,
+        site_bodyid=m.site_bodyid.copy(),
+        site_pos=m.site_pos.copy(),
+        site_quat=m.site_quat.copy(),
+        site_names=site_names,
+        body_names=body_names,
+        actuator_dofadr=actuator_dofadr,
+        actuator_qposadr=actuator_qposadr,
+        actuator_gear=m.actuator_gear[:, 0].copy(),
+        actuator_gainprm=m.actuator_gainprm[:, 0].copy(),
+        actuator_biasprm=m.actuator_biasprm[:, :3].copy(),
+        actuator_ctrlrange=m.actuator_ctrlrange.copy(),
+        actuator_ctrllimited=m.actuator_ctrllimited.copy().astype(bool),
+        actuator_forcerange=m.actuator_forcerange.copy(),
+        actuator_forcelimited=m.actuator_forcelimited.copy().astype(bool),
+        key_qpos=key_qpos,
+        ancestor_mask=ancestor_mask,
+        body_dof_mask=body_dof_mask,
+        pairs=pairs,
+        jnt_names=tuple(m.jnt_names),
+    )

@@ -10,9 +10,10 @@ step `step_lean` and the planner's rollouts `rollout_batch` run the physics
 the config's `fused` picks (`envs/fused_rollout.py`).
 
 Two things the JAX env reads through mujoco come from the compiled model
-file instead: the joint names (its `jnt_names` entry, written by
-`tests/assets/export_npz.py`) and the feet sites' ground-contact heights,
-which the plain forward kinematics computes at the home keyframe in float64.
+instead: the joint names (`jnt_names`, from the MJCF, or the model file's
+entry that `tests/assets/export_npz.py` writes) and the feet sites'
+ground-contact heights, which the plain forward kinematics computes at the
+home keyframe in float64.
 
 Legs are torque-controlled (the PD map), or with `leg_control="position"`
 the action's joint targets go to the model's actuators as ctrl, as in the
@@ -111,7 +112,8 @@ class UnitreeH1Env(LeggedEnv):
             if not m.jnt_names:
                 raise ValueError(
                     "joint_range_source='centered' reads the joint names; this model "
-                    "carries none (re-export it with tests/assets/export_npz.py)"
+                    "carries none (compile it from its MJCF, or re-export it with "
+                    "tests/assets/export_npz.py)"
                 )
             # symmetric about home so act=0 targets exactly the home pose
             home_j = self._init_q[act_qadr]

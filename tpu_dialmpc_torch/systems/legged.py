@@ -6,7 +6,8 @@ qvel(nv)], control = the actuators' ctrl (torques on go2_force), one
 physics step per dynamics call (`pipeline.step`, one substep, from a zero
 warm start as after `pipeline.init`), and diagonal Q/R costs (base position
 50 / the rest of qpos 5 / qvel 1 running; 50 / 10 / 5 terminal; R = 0.1 I).
-The model is the port's compiled scene file (`dynamics/model.py:load_scene`).
+The model is the scene as `dynamics/model.py:load_scene` resolves it (a name,
+an MJCF or a model-file path).
 Every sample is stepped independently (the reference steps one shared
 mjData for all of them).
 """
