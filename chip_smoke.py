@@ -19,9 +19,15 @@ against its plain PyTorch version on the card:
 - go2_trot_position on the Go2 position stand-in (12 position servos: the
   kernel's affine-bias actuator branch), Nsample=2048, Hsample=20, Hnode=5;
 - h1_walk and h1_loco (the arms-fixed H1, 11 motors) on their crate-free
-  stand-ins, Nsample=2048, Hsample=32, Hnode=8.
+  stand-ins, Nsample=2048, Hsample=32, Hnode=8;
+- h1_walk on the 33-dof humanoid with the H1-2 joint layout
+  (tests/assets/unitree_h1/mjx_scene_h1_2_walk.xml, given by path: 27
+  motors), Nsample=2048, Hsample=32, Hnode=8: its kernel keeps each dof
+  mask in two 32-bit words, and the compare's inputs hold the right hand,
+  whose contact slot carries dof 32, on the floor in some samples.
 
-All six kernels are built first, in parallel (one nvcc each).  Phases, for
+All seven paths' kernels, the [wide] model's and go2_jump's are built
+first, in parallel (one nvcc each).  Phases, for
 each path (each prints its lines; any failure exits non-zero with no
 result), after the card as nvidia-smi reports its name and power limit:
   1. the kernel build for this model, with ptxas' register, stack and spill
@@ -46,9 +52,16 @@ result), after the card as nvidia-smi reports its name and power limit:
      launches, the trace's count of them held against the launch counter,
      the counted launches with no device record,
      the other kernels', and the host's cudaStreamSynchronize calls and
-     wait; wall includes the profiler's own cost); on h1_walk and
-     h1_loco one timed `reverse_once` and control step; and the path's wall
-     seconds.
+     wait; wall includes the profiler's own cost); on the three h1_walk and
+     h1_loco paths one timed `reverse_once` and control step; and the path's
+     wall seconds.
+After the seven paths, [wide]: the fused pair-kinds model (nv=36,
+tests/assets/pairs/mjx_scene_pair_kinds_fused.xml: the pair-kinds scene's
+objects colliding with the floor alone), which no env runs: its build, its
+kernel against its plain version at B=2049 and B=1 (the second stick's
+pattern rows and slot masks in the masks' second word), its time and bound,
+then 21 FusedStep calls at B=2049 chained state to state, their launches
+counted from 0.
 Last, [small]: on each of the first four paths, a small reverse_once
 (N64/H4/Hnode2) through the kernel and through the plain substep chain,
 the same injected noise, on the crate tasks from a state at the crate; the
@@ -60,7 +73,7 @@ checkpoint and a resume to 6, and `--scan`, each with its launch count
 checked, the resumed and scanned trajectories bit-equal to the host loop's;
 and one `reverse_once` with diag_states, whose Ybar must equal the plain
 one's to the bit.
-After the six paths, [mjcf]: the port's MJCF compiler (`dynamics/mjcf.py`,
+Then [mjcf]: the port's MJCF compiler (`dynamics/mjcf.py`,
 no mujoco, which the script checks is never imported) compiles the seven
 stand-in scenes of tests/assets, each held to its shipped .npz (integers
 and tables exactly, floats to 1e-12; host ms per compile); each path's env is
@@ -249,6 +262,26 @@ def h1_floor_inputs(model, B, seed, device):
     return _inputs_from(h1_floor_states, model, B, seed, device, row=7, n_min=10)
 
 
+def h1_2_floor_inputs(model, B, seed, device):
+    """The same on the 33-dof humanoid (tests/assets/unitree_h1/
+    mjx_scene_h1_2_walk.xml).  At B=1: a sample lying face down, its right
+    hand, whose contact slot carries dof 32, in the floor."""
+    from torch_port_helpers import h1_floor_states
+
+    return _inputs_from(h1_floor_states, model, B, seed, device, row=4, n_min=10)
+
+
+def pair_kinds_inputs(model, B, seed, device):
+    """Inputs on the fused pair-kinds scene (tests/assets/pairs/
+    mjx_scene_pair_kinds_fused.xml): the robot near home, the ball and the
+    sticks in the floor (tests/torch_port_helpers.py:pair_kinds_states; the
+    second stick, whose dof masks take a second word, in two thirds of the
+    samples).  At B=1: a sample with both sticks in the floor."""
+    from torch_port_helpers import pair_kinds_states
+
+    return _inputs_from(pair_kinds_states, model, B, seed, device, row=0, n_min=10)
+
+
 def go2_at_crate(qpos):
     qpos[0] = CRATE_FACE_X
 
@@ -261,7 +294,10 @@ def h1_at_crate(qpos):
 
 class SmokePath(NamedTuple):
     task: str
-    scene: str  # the model file its kernel is built for
+    # the model its kernel is built for: the task's own scene (a name of
+    # the scene table), or an MJCF file by its path in the repository, which
+    # the task then runs (get_env(task, scene=<path>))
+    scene: str
     width: tuple  # its full width (Nsample, Hsample, Hnode, n_substeps)
     inputs: Callable  # (model, B, seed, device) -> kernel inputs for the compare
     at_crate: Optional[Callable]  # moves the reset qpos to the crate, in place
@@ -269,6 +305,25 @@ class SmokePath(NamedTuple):
     # [small]'s reverse_once against the plain chain, 5 timed repetitions
     # and the profile window; else one timed reverse_once and control step
     full: bool = True
+
+    @property
+    def by_path(self) -> bool:
+        return "/" in self.scene
+
+    @property
+    def scene_kw(self) -> dict:
+        """get_env's scene override: the file's absolute path, or none."""
+        return {"scene": str(ROOT / self.scene)} if self.by_path else {}
+
+    @property
+    def tag(self) -> str:
+        """The build's name in the lines and the kernels' record."""
+        return Path(self.scene).stem.replace("mjx_scene_", "") if self.by_path else self.scene
+
+    @property
+    def label(self) -> str:
+        """The path's name: the task, and the scene where it is given by path."""
+        return f"{self.task}[{self.tag}]" if self.by_path else self.task
 
 
 PATHS = (
@@ -281,7 +336,17 @@ PATHS = (
     SmokePath("go2_trot_position", "go2_position", (2048, 20, 5, 8), servo_inputs, None, 8192),
     SmokePath("h1_walk", "h1_walk", (2048, 32, 8, 8), h1_floor_inputs, None, None, full=False),
     SmokePath("h1_loco", "h1_loco", (2048, 32, 8, 8), h1_floor_inputs, None, None, full=False),
+    # the H1-2 joint layout (nv=33) through h1_walk: the right hand's
+    # contact slot carries dof 32, so the kernel's dof masks take two words
+    SmokePath("h1_walk", "tests/assets/unitree_h1/mjx_scene_h1_2_walk.xml", (2048, 32, 8, 8),
+              h1_2_floor_inputs, None, None, full=False),
 )
+# a model that only the kernel runs, against its plain version and through
+# a chain of FusedStep calls: its second stick's pattern rows reach bits
+# 30-34 and its slots' dof masks bit 35
+WIDE_PATTERN_SCENE = "tests/assets/pairs/mjx_scene_pair_kinds_fused.xml"
+WIDE_PATTERN = SmokePath("fused_step", WIDE_PATTERN_SCENE, None, pair_kinds_inputs, None, None,
+                         full=False)
 CLI_TASK = "go2_trot_position"
 
 
@@ -386,6 +451,12 @@ def phase_compare(env, path, device, tag):
                       f"B={B}: a contact kind has no active contact, the compare proves nothing")
                 check(not two_trees or crossing > 0,
                       f"B={B}: no active contact couples two trees, the compare proves nothing")
+        if env.model.nv > 32:
+            wide = fused.active_contacts_past(env.model, args[0], 32)
+            print(f"[compare {tag}] B={B} nv={env.model.nv}: dof masks of 2 words; active "
+                  f"contacts in slots that carry dof 32 or past it: {wide}")
+            check(wide > 0, f"B={B}: no active contact uses the masks' second word, the "
+                  f"compare proves nothing")
         got = fs(*args)
         if B > 1:  # the plain version takes tens of seconds per call: time this one
             out = []
@@ -431,6 +502,82 @@ def phase_bound(env, ms, tag):
               f"{N_SUBSTEPS} / {FP32_FLOPS / 1e12:.0f} TFLOP/s = bound_ms {bound:.4f}; "
               f"kernel {ms[B]:.3f} ms, share {bound / ms[B]:.5f}")
     return ops, bound_ms(2049, ops)
+
+
+def fused_record(tag, launches, max_err, ms, plain_ms, bound, ops):
+    """One fused_step build's entry in the kernels' JSON line."""
+    return {
+        "name": f"fused_step[{tag}]",
+        "route": "cuda",
+        "source": "tpu_dialmpc_torch/csrc/fused_step.cu",
+        "replaces": "tpu_dialmpc/dynamics/fused.py:1440",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms[2049],
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations",
+        "share": bound / ms[2049],
+        "library_ms": None,  # no PyTorch call computes this function
+        "ops_per_substep": ops,
+        "ms_b1": ms[1],
+    }
+
+
+def make_wide_pattern():
+    """The fused pair-kinds model (nv=36, WIDE_PATTERN_SCENE) compiled by the
+    port from its MJCF, and its FusedStep (8 substeps, the Go2 envs' reward
+    inputs), as an object with the `model` and `fused_step` an env has."""
+    from types import SimpleNamespace
+
+    from tpu_dialmpc_torch.dynamics import fused
+    from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
+    from tpu_dialmpc_torch.dynamics.model import load_scene
+
+    model = load_scene(str(ROOT / WIDE_PATTERN_SCENE)).with_options(timestep=0.0025)
+    check(model.nv == 36 and fused.supported(model), "the wide-pattern model is not the "
+          "fused pair-kinds scene")
+    spec = fused.DerivedSpec(torso_body=model.body_names.index("base"))
+    return SimpleNamespace(model=model, fused_step=FusedStep(model, N_SUBSTEPS, spec))
+
+
+WIDE_CHAIN = 21  # FusedStep calls chained in [wide]'s run: a go2_stand horizon (H20 + 1)
+
+
+def phase_wide_pattern(wide, device, all_envs):
+    """[wide] The nv=36 build, which no env runs (the Go2 env's default pose
+    is the robot's qpos alone): built, held against its plain version at
+    B=2049 and B=1 with its time and bound, then driven through its entry
+    point a user calls, FusedStep, as a rollout does: WIDE_CHAIN calls at
+    B=2049 chained state to state (constant torques), every count set to 0
+    just before, its launches read just after.  Returns its kernels' record."""
+    import torch
+
+    path, tag = WIDE_PATTERN, WIDE_PATTERN.tag
+    fs = wide.fused_step
+    phase_build(wide, device, tag)
+    max_err, ms, plain_ms = phase_compare(wide, path, device, tag)
+    ops, bound = phase_bound(wide, ms, tag)
+    qpos, qvel, ws, ctrl = path.inputs(wide.model, 2049, 3, device)
+    ctrl = 0.5 * ctrl
+    for e in all_envs + [wide]:  # every count to 0 just before this run
+        e.fused_step.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(WIDE_CHAIN):
+        qpos, qvel, ws, _ = fs(qpos, qvel, ws, ctrl)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches, others = fs.launches, [e.fused_step.launches for e in all_envs]
+    finite = [bool(torch.isfinite(x).all()) for x in (qpos, qvel, ws)]
+    print(f"[wide {tag}] {WIDE_CHAIN} chained FusedStep calls at B=2049, {N_SUBSTEPS} "
+          f"substeps each: {wall:.1f} ms host wall; launches {launches} (expected "
+          f"{WIDE_CHAIN}), other models' kernels {others}; final qpos, qvel, warmstart "
+          f"finite: {finite}")
+    check(launches == WIDE_CHAIN and not any(others), "[wide] the chain did not launch the "
+          "nv=36 kernel as expected")
+    check(all(finite), "[wide] the chained rollout is not finite")
+    return dict(fused_record(tag, launches, max_err, ms, plain_ms, bound, ops),
+                path=f"{WIDE_CHAIN} chained FusedStep calls at B=2049 (no env runs this model)")
 
 
 MJCF_TIMESTEP = 0.0025  # the envs' timestep, as tests/assets/export_npz.py compiles at
@@ -522,18 +669,19 @@ def phase_mjcf(envs, device, all_envs):
     os.environ["TPU_DIALMPC_ASSETS"] = str(standins)
     try:
         for path, env, cfg in envs:
-            xml_env = get_env(path.task, device=device)
+            xml_env = get_env(path.task, device=device, **path.scene_kw)
             check(xml_env.model is not env.model and xml_env.config == env.config,
-                  f"[mjcf {path.task}] the XML env is not a fresh env of the same config")
+                  f"[mjcf {path.label}] the XML env is not a fresh env of the same config")
             packed = [fused_cuda.pack_model(e.model, e.fused_step.meta, e.fused_step.spec)
                       for e in (env, xml_env)]
             (_, blob0, tab0), (_, blob1, tab1) = packed
             key0, key1 = (hashlib.sha256(b + t).hexdigest() for _, b, t in packed)
-            key_equal[path.task] = key0 == key1
-            print(f"[mjcf {path.task}] XML env ({path.scene}): packed model "
+            key_equal[path.label] = key0 == key1
+            print(f"[mjcf {path.label}] XML env ({path.scene}): packed model "
                   f"{'equal' if blob0 == blob1 else 'DIFFERENT'} ({len(blob1)} bytes), tables "
                   f"{'equal' if tab0 == tab1 else 'DIFFERENT'}, build key {key1[:16]} "
-                  f"{'equals' if key_equal[path.task] else 'differs from'} the .npz env's")
+                  f"{'equals' if key_equal[path.label] else 'differs from'} the "
+                  f"{'first XML' if path.by_path else '.npz'} env's")
             if path.task in MJCF_PATHS:
                 xml_envs[path.task] = xml_env
     finally:
@@ -617,15 +765,18 @@ KIND_NAMES = {(0, 2): "plane-sphere", (0, 3): "plane-capsule", (0, 6): "plane-bo
               (2, 6): "sphere-box", (3, 6): "capsule-box", (6, 6): "box-box"}
 
 
-def make_env(task, scene, width, device):
+def make_env(path, device):
     from tpu_dialmpc_torch.envs import dial_defaults, get_env
     from tpu_dialmpc_torch.planner.dial import DialConfig
 
-    env = get_env(task, device=device)
+    task = path.task
+    env = get_env(task, device=device, **path.scene_kw)
     cfg = DialConfig(**dial_defaults(task))
+    scene = path.scene_kw.get("scene", path.scene)
     check(env.config.scene == scene, f"{task} does not run on {scene}")
-    check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == width,
-          f"{task} is not at the full planner width {width}")
+    check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == path.width,
+          f"{task} is not at the full planner width {path.width}")
+    check(env.on_fused_path, f"{path.label} is not on the fused kernel's path")
     return env, cfg
 
 
@@ -731,8 +882,8 @@ def _small_in_child(i):
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     device = torch.device("cuda", 0)
     path = PATHS[i]
-    env, cfg = make_env(path.task, path.scene, path.width, device)
-    return path.task, small_against_plain(env, cfg, path, device)
+    env, cfg = make_env(path, device)
+    return path.label, small_against_plain(env, cfg, path, device)
 
 
 class SmallRun(NamedTuple):
@@ -1806,21 +1957,22 @@ def main():
     t_start = time.perf_counter()
     try:
         card = phase_card()
-        envs = [(path,) + make_env(path.task, path.scene, path.width, device) for path in PATHS]
+        envs = [(path,) + make_env(path, device) for path in PATHS]
         all_envs = [env for _, env, _ in envs]
         from tpu_dialmpc_torch.envs import get_env
 
+        wide = make_wide_pattern()
         # the [quality] phase's go2_jump: the crate scene with the crate at
         # x=30, another build of the crate model
-        phase_build_all(all_envs + [get_env("go2_jump", device=device)])
+        phase_build_all(all_envs + [wide, get_env("go2_jump", device=device)])
         for path, env, cfg in envs:
             t0 = time.perf_counter()
-            task, scene = path.task, path.scene
+            task, scene = path.label, path.tag
             phase_build(env, device, scene)
             max_err, ms, plain_ms = phase_compare(env, path, device, scene)
             ops, bound = phase_bound(env, ms, scene)
             mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
-                env, cfg, device, task, all_envs)
+                env, cfg, device, task, all_envs + [wide])
             ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task,
                                           path.full)
             print(f"[time {task}] path wall {time.perf_counter() - t0:.1f} s")
@@ -1833,21 +1985,13 @@ def main():
                 phase_diag(env, cfg, device)
                 print(f"[time cli] phase wall {time.perf_counter() - t0:.1f} s")
                 summary.append(f"cli run 6 steps {loop_s:.2f} s, --scan {scan_s:.2f} s")
-            records.append({
-                "name": f"fused_step[{scene}]",
-                "route": "cuda",
-                "source": "tpu_dialmpc_torch/csrc/fused_step.cu",
-                "replaces": "tpu_dialmpc/dynamics/fused.py:1440",
-                "launches": launches,
-                "max_abs_err": max_err,
-                "ms": ms[2049],
-                "plain_ms": plain_ms,
-                "bound_ms": bound,
-                "bound_by": "operations",
-                "share": bound / ms[2049],
-                "library_ms": None,  # no PyTorch call computes this function
-                "ops_per_substep": ops,
-            })
+            records.append(fused_record(scene, launches, max_err, ms, plain_ms, bound, ops))
+        t0 = time.perf_counter()
+        records.append(phase_wide_pattern(wide, device, all_envs))
+        print(f"[time wide] phase wall {time.perf_counter() - t0:.1f} s")
+        summary.append(f"fused_step[{WIDE_PATTERN.tag}] (nv={wide.model.nv}) "
+                       f"{records[-1]['ms']:.3f} ms vs plain {records[-1]['plain_ms']:.1f} ms, "
+                       f"bound {records[-1]['bound_ms']:.4f} ms")
         t0 = time.perf_counter()
         mjcf_launches = phase_mjcf(envs, device, all_envs)
         print(f"[time mjcf] phase wall {time.perf_counter() - t0:.1f} s")

@@ -165,18 +165,22 @@ def test_foot_step_targets_match_jax(name):
 OPTIONS = {
     "position": dict(leg_control="position", scene="go2_position"),
     "climb_ranges": dict(joint_range_source="climb"),
+    "climb_physical_termination": dict(joint_range_source="climb",
+                                       termination_range_source="physical"),
+    "other_ranges": dict(joint_range_source="other"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(OPTIONS))
 def test_unported_options_raise(monkeypatch, option):
-    """The "climb" range table is not ported and raises (randomize_tasks is
-    ported: test_torch_randomize.py).  Position leg control is: the env builds on the position scene, and its
-    ctrl map (the action's joint targets) matches the JAX env's."""
-    if option != "position":
-        with pytest.raises(NotImplementedError):
-            get_env("go2_stand", device="cpu", **OPTIONS[option])
-        return
+    """Options the port once raised on now match the JAX env (randomize_tasks:
+    test_torch_randomize.py).  Position leg control: the env builds on the
+    position scene, and its ctrl map (the action's joint targets) matches
+    the JAX env's.  joint_range_source: "climb" takes the widened table
+    (12 motors), any unlisted value the model's ranges; the action table,
+    the physical ranges, the termination box (the action table unless
+    termination_range_source="physical") and the ctrl map match the JAX
+    env's."""
     jenv, tenv = _envs(monkeypatch, OPTIONS[option])
     arrays, _ = _inputs(tenv, seed=3)
     act = np.random.default_rng(4).uniform(-1.2, 1.2, size=(B, tenv.action_size))
@@ -185,7 +189,17 @@ def test_unported_options_raise(monkeypatch, option):
     got = tenv._ctrl_batch(torch.as_tensor(act), torch.as_tensor(arrays["qpos"]),
                            torch.as_tensor(arrays["qvel"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
-    assert torch.equal(got, tenv.act2joint(torch.as_tensor(act)))
+    if option == "position":
+        assert torch.equal(got, tenv.act2joint(torch.as_tensor(act)))
+        return
+    for name in ("joint_range", "physical_joint_range", "joint_torque_range"):
+        np.testing.assert_array_equal(getattr(tenv, name).numpy(), getattr(jenv, name),
+                                      err_msg=name)
+    box = jenv.termination_joint_range
+    np.testing.assert_array_equal(tenv.termination_joint_range.numpy(),
+                                  jenv.joint_range if box is None else box)
+    climb = np.array([[-0.6, 0.6], [0.0, 2.1], [-2.6, -0.7]] * 4)
+    assert np.array_equal(tenv.joint_range.numpy(), climb) == option.startswith("climb")
 
 
 def test_crate_options_need_the_crate_scene():

@@ -200,17 +200,20 @@ H1_OPTIONS = {
     "position": dict(leg_control="position"),
     "fused_off": dict(fused="off"),
     "other_ranges": dict(joint_range_source="other"),
+    "upstream_ranges": dict(joint_range_source="upstream"),  # a Go2 table name
 }
 
 
 @pytest.mark.parametrize("option", sorted(H1_OPTIONS))
 def test_unported_h1_options_raise(monkeypatch, option):
-    """Unknown range sources are not ported and raise (randomize_tasks is
-    ported: test_torch_randomize.py).
-    Position leg control is: its ctrl map (the action's joint targets)
-    matches the JAX env's.  The XLA physics path (fused="off") is too: the
-    executed step runs the physics pipeline, as env.step does (its parity
-    with the JAX env.step: test_torch_h1_slice.py)."""
+    """Options the port once raised on now match the JAX env (randomize_tasks:
+    test_torch_randomize.py).  Any range source but "centered" takes the
+    model's ranges, as the JAX env does: the action table, the physical
+    ranges and the ctrl map match it.  Position leg control: its ctrl map
+    (the action's joint targets) matches the JAX env's.  The XLA physics
+    path (fused="off"): the executed step runs the physics pipeline, as
+    env.step does (its parity with the JAX env.step:
+    test_torch_h1_slice.py)."""
     if option == "fused_off":
         env = get_env(TASK, device="cpu", n_substeps=1, **H1_OPTIONS[option])
         assert not env.on_fused_path
@@ -222,10 +225,6 @@ def test_unported_h1_options_raise(monkeypatch, option):
         for f in ("qpos", "qvel", "qacc_warmstart"):
             assert torch.equal(getattr(lean.pipeline, f), getattr(full.pipeline, f)), f
         return
-    if option != "position":
-        with pytest.raises(NotImplementedError):
-            get_env(TASK, device="cpu", **H1_OPTIONS[option])
-        return
     jenv, tenv = _envs(monkeypatch, H1_OPTIONS[option])
     arrays, _ = _inputs(tenv, seed=3)
     act = np.random.default_rng(4).uniform(-1.2, 1.2, size=(B, tenv.action_size))
@@ -234,4 +233,10 @@ def test_unported_h1_options_raise(monkeypatch, option):
     got = tenv._ctrl_batch(torch.as_tensor(act), torch.as_tensor(arrays["qpos"]),
                            torch.as_tensor(arrays["qvel"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
-    assert torch.equal(got, tenv.act2joint(torch.as_tensor(act)))
+    if option == "position":
+        assert torch.equal(got, tenv.act2joint(torch.as_tensor(act)))
+        return
+    for name in ("joint_range", "physical_joint_range", "joint_torque_range"):
+        np.testing.assert_array_equal(getattr(tenv, name).numpy(), getattr(jenv, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(tenv.joint_range.numpy(), tenv.physical_joint_range.numpy())

@@ -93,7 +93,7 @@ def _hold_to_mujoco(path, mj_assets=None):
 
 @pytest.mark.parametrize("path", STANDIN_XML, ids=[p.stem for p in STANDIN_XML])
 def test_standin_scene_equals_jax_compile(path):
-    assert len(STANDIN_XML) == 7
+    assert len(STANDIN_XML) == 9  # the seven of the scene table, the H1-2 and fused pair-kinds
     port, bit_equal = _hold_to_mujoco(path)
     floats = [f.name for f in dataclasses.fields(port)
               if isinstance(getattr(port, f.name), (float, np.ndarray))

@@ -18,7 +18,13 @@ H1_NPZ = PORT_NPZ.with_name("h1_push_crate.npz")
 TIMESTEP = 0.0025
 # scenes of this repository's own, which the JAX package's registry does not
 # name: reached by path
-OWN_SCENES = {"go2_pair_kinds": ASSETS / "pairs" / "mjx_scene_pair_kinds.xml"}
+OWN_SCENES = {
+    "go2_pair_kinds": ASSETS / "pairs" / "mjx_scene_pair_kinds.xml",
+    # the pair-kinds scene with its objects colliding with the floor alone
+    # (nv=36), and the H1-2 joint layout (nv=33): dof masks past 32 bits
+    "go2_pair_kinds_fused": ASSETS / "pairs" / "mjx_scene_pair_kinds_fused.xml",
+    "h1_2_walk": ASSETS / "unitree_h1" / "mjx_scene_h1_2_walk.xml",
+}
 
 
 def use_standin_assets(monkeypatch):
@@ -337,7 +343,10 @@ def pair_kinds_states(model, rng, n):
     The robot's foot positions come from the plain forward kinematics of
     each sample; each contact overlaps by 1-4 mm (a foot too high to reach
     the object leaves it just below, out of contact).  Returns (qpos, qvel),
-    velocities of scale 0.1."""
+    velocities of scale 0.1.  On the fused variant of the scene
+    (mjx_scene_pair_kinds_fused.xml), where the objects collide with the
+    floor alone, the same states hold the ball and, in two thirds of the
+    samples, both sticks in the floor."""
     import torch
 
     from tpu_dialmpc_torch.dynamics import fused

@@ -65,7 +65,11 @@
 //   row's slot and dofs) are copied into the sample's Work once, since the
 //   shared memory leaves the SM little L1 and a global read is then an L2
 //   round trip;
-// - sizes are compile-time (-D FS_*), one build per model;
+// - sizes are compile-time (-D FS_*), one build per model; dof masks take
+//   (nv + 31) / 32 words (FS_NW), so a build runs any nv < 256, and the
+//   limits a model can break (shared memory, the constant bank, the byte
+//   tables and term fields) are checked on the host before it is built
+//   (fused_cuda.py kernel_limits);
 // - -fmad=false: each product and sum rounds on its own, like the plain
 //   version's separate elementwise ops, so the check on the card holds the
 //   two equal to the last bit.  FMA contraction is a later, measured change.
@@ -134,6 +138,23 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #define FS_JC(c, k) (FS_NFL + FS_NLIM + (c) * FS_JS + (k))
 #define FS_R4(n) ((FS_DIM(n) + 3) / 4 * 4)  // a byte array's length, in whole words
 
+// Dof masks (a pattern row, a body's dofs): bit j is bit j % 32 of word
+// j / 32, FS_NW words per mask.  A loop that tests one mask takes it once
+// as a DofMask: with one word the word itself, in a register, as before
+// masks grew past 32 dofs (so those builds' arithmetic and code are
+// unchanged); with more, a pointer to the words where they lie.  dof_bit is
+// the one bit test.
+#define FS_NW ((FS_NV + 31) / 32)
+#if FS_NW == 1
+typedef uint32_t DofMask;
+FS_DEVICE DofMask dof_mask(const uint32_t* w) { return w[0]; }
+FS_DEVICE uint32_t dof_bit(DofMask m, int j) { return (m >> j) & 1u; }
+#else
+typedef const uint32_t* DofMask;
+FS_DEVICE DofMask dof_mask(const uint32_t* w) { return w; }
+FS_DEVICE uint32_t dof_bit(DofMask m, int j) { return (m[j >> 5] >> (j & 31)) & 1u; }
+#endif
+
 
 #define JNT_FREE 0
 #define JNT_SLIDE 2
@@ -177,7 +198,7 @@ struct FusedModel {
   float qpos0[FS_NQ];
   // dofs; anc bit j of dof i: j is in the pattern row of i (j < i)
   int dof_body[FS_NV];
-  uint32_t anc_strict[FS_NV], anc_solver[FS_NV];
+  uint32_t anc_strict[FS_NV][FS_NW], anc_solver[FS_NV][FS_NW];
   float dof_armature[FS_NV], dof_damping[FS_NV], dof_damp_dt[FS_NV];
   // collidable geoms (size: sphere r; capsule r, half-length; box
   // half-sizes), sites
@@ -200,7 +221,7 @@ struct FusedModel {
   int slot_g1[FS_DIM(FS_NSLOT)], slot_g2[FS_DIM(FS_NSLOT)];
   int slot_body1[FS_DIM(FS_NSLOT)], slot_body2[FS_DIM(FS_NSLOT)];
   int slot_ndof[FS_DIM(FS_NSLOT)], slot_dof[FS_DIM(FS_NSLOT)][FS_DIM(FS_MAXD)];
-  uint32_t slot_body1_dofs[FS_DIM(FS_NSLOT)], slot_body2_dofs[FS_DIM(FS_NSLOT)];
+  uint32_t slot_body1_dofs[FS_DIM(FS_NSLOT)][FS_NW], slot_body2_dofs[FS_DIM(FS_NSLOT)][FS_NW];
   float slot_margin[FS_DIM(FS_NSLOT)];
   ImpParams slot_imp[FS_DIM(FS_NSLOT)];
   // contact rows, in the plain version's order: per slot, condim 1 -> one
@@ -241,8 +262,8 @@ struct FusedTables {
   int h_ent[FS_TRI(FS_NV)], h_len[FS_TRI(FS_NV)], h_base[(FS_TRI(FS_NV) + 31) / 32];
   uint32_t h_term[FS_DIM(FS_NHTERM)];
   // per dof d: the rows that hold it, in row order (row | k << 16), term t
-  // at t * 32 + d
-  int g_len[FS_NV];
+  // at g_base[d / 32] + t * 32 + d % 32, stored as the Hessian's are
+  int g_len[FS_NV], g_base[FS_NW];
   uint32_t g_term[FS_DIM(FS_NGTERM)];
 };
 
@@ -356,7 +377,7 @@ struct Work {
   // the model's tables that the row and matvec loops read, copied once per
   // sample (global memory is an L2 round trip: the shared memory leaves
   // little L1): dof patterns, each contact row's slot, each slot's dofs
-  uint32_t anc[2][FS_NV];
+  uint32_t anc[2][FS_NV][FS_NW];
   unsigned char rslot[FS_R4(FS_NCROW)], sndof[FS_R4(FS_NSLOT)];
   unsigned char sdof[FS_R4(FS_NSLOT * FS_MAXD)];
   // state and outputs, carried across substeps
@@ -414,13 +435,13 @@ FS_DEVICE void tri_ij(int e, int& i, int& j) {
 
 // ---- dense-storage LDL^T in the tree-sparse order (fused.py ldl_factor /
 // ldl_solve).  Pattern pat (0: anc_strict, 1: anc_solver); anc = Work.anc[pat],
-// bit j of anc[k]: entry (k, j), j < k.  A is overwritten by L (strict
+// bit j of mask anc[k]: entry (k, j), j < k.  A is overwritten by L (strict
 // lower part); dinv gets 1 / D.  Column k's step updates the pairs (i, j)
 // of row k's pattern in parallel, each once, as the sequential loop does;
 // row k+1's scaling by its pivot joins that step (no lane of it touches
 // row k+1).
-FS_DEVICE void ldl_factor(const FusedTables& T, int pat, const uint32_t* anc, float* A,
-                          float* dinv) {
+FS_DEVICE void ldl_factor(const FusedTables& T, int pat, const uint32_t (*anc)[FS_NW],
+                          float* A, float* dinv) {
   float dprev = 0.0f;
   for (int k = FS_NV - 1; k >= 0; --k) {
     float dk = 1.0f / A[FS_IDX(k, k)];
@@ -431,8 +452,8 @@ FS_DEVICE void ldl_factor(const FusedTables& T, int pat, const uint32_t* anc, fl
       A[FS_IDX(i, j)] = A[FS_IDX(i, j)] - lki * A[FS_IDX(k, j)];
     }
     if (k + 1 < FS_NV) {
-      uint32_t a1 = anc[k + 1];
-      FS_FOR(j, k + 1) if ((a1 >> j) & 1u) A[FS_IDX(k + 1, j)] = A[FS_IDX(k + 1, j)] * dprev;
+      DofMask a1 = dof_mask(anc[k + 1]);
+      FS_FOR(j, k + 1) if (dof_bit(a1, j)) A[FS_IDX(k + 1, j)] = A[FS_IDX(k + 1, j)] * dprev;
     }
     if (FS_LANE == 0) dinv[k] = dk;
     FS_SYNC();
@@ -442,11 +463,12 @@ FS_DEVICE void ldl_factor(const FusedTables& T, int pat, const uint32_t* anc, fl
 // Back substitution row by row (lanes over the row's pattern), the
 // diagonal, then forward substitution column by column: x[k] takes its
 // terms in the sequential loop's order, j ascending.
-FS_DEVICE void ldl_solve(const uint32_t* anc, const float* L, const float* dinv, float* x) {
+FS_DEVICE void ldl_solve(const uint32_t (*anc)[FS_NW], const float* L, const float* dinv,
+                         float* x) {
   for (int k = FS_NV - 1; k > 0; --k) {
-    uint32_t ak = anc[k];
+    DofMask ak = dof_mask(anc[k]);
     float xk = x[k];
-    FS_FOR(j, k) if ((ak >> j) & 1u) x[j] = x[j] - L[FS_IDX(k, j)] * xk;
+    FS_FOR(j, k) if (dof_bit(ak, j)) x[j] = x[j] - L[FS_IDX(k, j)] * xk;
     FS_SYNC();
   }
   FS_FOR(k, FS_NV) x[k] = x[k] * dinv[k];
@@ -455,7 +477,7 @@ FS_DEVICE void ldl_solve(const uint32_t* anc, const float* L, const float* dinv,
     float xj = x[j];
     FS_FOR(t, FS_NV - 1 - j) {
       int k = j + 1 + t;
-      if ((anc[k] >> j) & 1u) x[k] = x[k] - L[FS_IDX(k, j)] * xj;
+      if (dof_bit(dof_mask(anc[k]), j)) x[k] = x[k] - L[FS_IDX(k, j)] * xj;
     }
     FS_SYNC();
   }
@@ -465,18 +487,18 @@ FS_DEVICE void ldl_solve(const uint32_t* anc, const float* L, const float* dinv,
 // for j < k, M[k][k] x[k], then M[i][k] x[i] for i > k.  No sync.
 FS_DEVICE void m_vec(const Work& W, const float* M, const float* x, float* out) {
   FS_FOR(k, FS_NV) {
-    uint32_t ak = W.anc[0][k];
+    DofMask ak = dof_mask(W.anc[0][k]);
     float acc = 0.0f;
     // each term computed, and added only on the pattern: no branch on a
     // loaded mask, so the loads run ahead of the sum
     for (int j = 0; j < k; ++j) {
       float t = acc + M[FS_IDX(k, j)] * x[j];
-      acc = ((ak >> j) & 1u) ? t : acc;
+      acc = dof_bit(ak, j) ? t : acc;
     }
     acc = acc + M[FS_IDX(k, k)] * x[k];
     for (int i = k + 1; i < FS_NV; ++i) {
       float t = acc + M[FS_IDX(i, k)] * x[i];
-      acc = ((W.anc[0][i] >> k) & 1u) ? t : acc;
+      acc = dof_bit(dof_mask(W.anc[0][i]), k) ? t : acc;
     }
     out[k] = acc;
   }
@@ -866,16 +888,16 @@ FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
   float off2[3] = {pos[0] - c2[0], pos[1] - c2[1], pos[2] - c2[2]};
   float off1[3] = {pos[0] - c1[0], pos[1] - c1[1], pos[2] - c1[2]};
   int c0 = m.slot_crow0[s], nr = m.slot_ncrow[s], nd = m.slot_ndof[s];
-  uint32_t b2 = m.slot_body2_dofs[s], b1 = m.slot_body1_dofs[s];
+  DofMask b2 = dof_mask(m.slot_body2_dofs[s]), b1 = dof_mask(m.slot_body1_dofs[s]);
   float vel[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int k = 0; k < nd; ++k) {
     int d = m.slot_dof[s][k];
     float j2[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f}, cr[3];
-    if ((b2 >> d) & 1u) {
+    if (dof_bit(b2, d)) {
       cross3(W.cdof[d], off2, cr);
       for (int i = 0; i < 3; ++i) j2[i] = W.cdof[d][3 + i] + cr[i];
     }
-    if ((b1 >> d) & 1u) {
+    if (dof_bit(b1, d)) {
       cross3(W.cdof[d], off1, cr);
       for (int i = 0; i < 3; ++i) j1[i] = W.cdof[d][3 + i] + cr[i];
     }
@@ -904,13 +926,22 @@ FS_DEVICE int jl_row(int r) {
   return r < FS_NFL + FS_NLIM ? r : FS_JC(r - (FS_NFL + FS_NLIM), 0);
 }
 
+// where dof d's term list starts: its round's base, then its lane
+FS_DEVICE const uint32_t* g_terms(const FusedTables& T, int d) {
+#if FS_NW == 1
+  return T.g_term + d;  // one round, based at 0: the code of builds before masks grew
+#else
+  return T.g_term + T.g_base[d >> 5] + (d & 31);
+#endif
+}
+
 // out[d] = start[d] + J' dc (or 0 - J' dc), each dof's rows in row order.
 // No sync.
 FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* out,
                      bool subtract) {
   FS_FOR(d, FS_NV) {
     float g = subtract ? 0.0f : start[d];
-    const uint32_t* term = T.g_term + d;
+    const uint32_t* term = g_terms(T, d);
     int n = T.g_len[d], t = 0;
     for (; t + 8 <= n; t += 8) {  // 8 loads in flight, then the sum in order
       uint32_t u[8];
@@ -987,7 +1018,7 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
     jt_dc(T, W, W.mda, W.grad, false);
     FS_FOR(p, FS_TRI(FS_NV)) {
       int e = T.h_ent[p], idx = e & 0xffff, i = (e >> 16) & 0xff, j = e >> 24;
-      float h = (i == j || ((W.anc[0][i] >> j) & 1u)) ? W.M[idx] : 0.0f;
+      float h = (i == j || dof_bit(dof_mask(W.anc[0][i]), j)) ? W.M[idx] : 0.0f;
       const uint32_t* term = T.h_term + T.h_base[p / 32] + p % 32;
       int n = T.h_len[p], t = 0;
       for (; t + 8 <= n; t += 8) {  // 8 loads in flight, then the sum in order
@@ -1212,7 +1243,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     int i, j;
     tri_ij(e, i, j);
     if (i == j) W.M[e] = dot6(W.cdof[i], W.sm.crbf[i]) + m.dof_armature[i];
-    else W.M[e] = ((W.anc[0][i] >> j) & 1u) ? dot6(W.cdof[j], W.sm.crbf[i]) : 0.0f;
+    else W.M[e] = dof_bit(dof_mask(W.anc[0][i]), j) ? dot6(W.cdof[j], W.sm.crbf[i]) : 0.0f;
   }
 
   // _rne_bias: cacc level by level, cfrc per body, summed up the tree
@@ -1377,9 +1408,9 @@ FS_DEVICE void step_sample(const FusedModel& m, const FusedTables& T, Work& W, i
   FS_FOR(i, FS_NV) W.v[i] = qvel[(size_t)b * FS_NV + i];
   FS_FOR(i, FS_NV) W.w[i] = ws[(size_t)b * FS_NV + i];
   FS_FOR(i, FS_NU) W.ctrl[i] = ctrl[(size_t)b * FS_NU + i];
-  FS_FOR(i, FS_NV) {
-    W.anc[0][i] = m.anc_strict[i];
-    W.anc[1][i] = m.anc_solver[i];
+  FS_FOR(e, FS_NV * FS_NW) {
+    W.anc[0][e / FS_NW][e % FS_NW] = m.anc_strict[e / FS_NW][e % FS_NW];
+    W.anc[1][e / FS_NW][e % FS_NW] = m.anc_solver[e / FS_NW][e % FS_NW];
   }
   FS_FOR(c, FS_NCROW) W.rslot[c] = (unsigned char)m.crow_slot[c];
   FS_FOR(e, FS_NSLOT * FS_MAXD) W.sdof[e] = (unsigned char)m.slot_dof[e / FS_MAXD][e % FS_MAXD];

@@ -1095,6 +1095,13 @@ def active_two_tree_contacts(model: PhysicsModel, qpos: torch.Tensor) -> int:
     return sum(n for slot, n in _active_per_slot(model, qpos) if spans_two_trees(model, slot))
 
 
+def active_contacts_past(model: PhysicsModel, qpos: torch.Tensor, dof: int) -> int:
+    """How many (sample, slot) contacts are active at the poses qpos (B, nq)
+    in slots whose dof lists reach `dof` or past it (dof 32: the slots whose
+    dof masks take a second 32-bit word in the kernel)."""
+    return sum(n for slot, n in _active_per_slot(model, qpos) if max(slot["dofs"]) >= dof)
+
+
 def _point_jac(model, fk, point, body, dofs):
     """Translational jacobian rows of `point` on `body` for the static dof set."""
     com = fk["subtree_com"][int(model.body_rootid[body])]

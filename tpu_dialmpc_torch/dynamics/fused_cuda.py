@@ -18,6 +18,14 @@ nothing else.
 Launch shape: one warp per sample, `samples_per_block` samples per block,
 each sample's working set (`Work` in the source) in the block's dynamic
 shared memory; `launch_config` sizes both from the model.
+
+A build has limits: a sample's `Work` must fit a block's shared memory,
+the `FusedModel` copy the 64 KB `__constant__` bank, and the byte tables
+and term lists their 8- and 16-bit fields.  `kernel_limits(model, spec)`
+names each limit a model would break, before anything is built, so the
+envs choose their physics when they are built (`envs/fused_rollout.py:
+pick_physics`); `launch_config` and `_tables` still raise as the last guard.
+Dof masks take (nv + 31) // 32 words (`mask_words`).
 """
 
 from __future__ import annotations
@@ -94,6 +102,17 @@ SMEM_PER_SM = 233472
 SMEM_RESERVED_PER_BLOCK = 1024
 MAX_BLOCKS_PER_SM = 32
 MAX_SAMPLES_PER_BLOCK = 4
+# the kernel's other limits: the __constant__ bank holding c_model; the
+# term lists' 16-bit row field; Work's byte tables (slots, dofs) and the
+# terms' 8-bit places in a row's dof list
+CONSTANT_BYTES = 65536
+MAX_ROWS = 1 << 16
+BYTE_LIMIT = 256
+
+
+def mask_words(nv: int) -> int:
+    """Words per dof mask: the source's FS_NW."""
+    return (nv + 31) // 32
 
 
 def work_bytes(defines: dict) -> int:
@@ -103,6 +122,7 @@ def work_bytes(defines: dict) -> int:
     nq, nv, nu, nd = d["FS_NQ"], d["FS_NV"], d["FS_NU"], d["FS_ND"]
     nb, nj, ng = d["FS_NBODY"], d["FS_NJNT"], d["FS_NGEOM"]
     nrow = max(d["FS_NFL"] + d["FS_NLIM"] + d["FS_NCROW"], 1)
+    nw = mask_words(nv)
     tri = nv * (nv + 1) // 2
     js = max(d["FS_MAXD"], 1) | 1
 
@@ -110,7 +130,7 @@ def work_bytes(defines: dict) -> int:
         return (max(n, 1) + 3) // 4
 
     floats = (
-        2 * nv + words(d["FS_NCROW"]) + words(d["FS_NSLOT"])  # anc; rslot, sndof
+        2 * nv * nw + words(d["FS_NCROW"]) + words(d["FS_NSLOT"])  # anc; rslot, sndof
         + words(d["FS_NSLOT"] * d["FS_MAXD"])  # sdof
         + nq + 2 * nv + nu + nd  # q, v, w, ctrl, der
         + 7 * nb + 6 * nj + 3 * nb  # xpos, xquat; xanchor, xaxis; com
@@ -124,6 +144,58 @@ def work_bytes(defines: dict) -> int:
         + max(27 * nb + 12 * nv, 6 * nrow)
     )
     return 4 * floats
+
+
+def model_bytes(defines: dict) -> int:
+    """Bytes of the kernel's `struct FusedModel`, in its order (4-byte
+    fields; arrays sized 0 take one element): what its `__constant__` copy
+    takes."""
+    d = defines
+    nq, nv, nu = d["FS_NQ"], d["FS_NV"], d["FS_NU"]
+    nb, nj, ng = d["FS_NBODY"], d["FS_NJNT"], d["FS_NGEOM"]
+    nw = mask_words(nv)
+    site, s, md = (max(d[k], 1) for k in ("FS_NSITE", "FS_NSLOT", "FS_MAXD"))
+    c, lim, fl = (max(d[k], 1) for k in ("FS_NCROW", "FS_NLIM", "FS_NFL"))
+    words = (
+        9  # dt, tol_scale, iterations, ls_iterations, gravity, torso, torso_root
+        + 23 * nb + 10 * nj + nq  # bodies; joints; qpos0
+        + 4 * nv + 2 * nv * nw  # dof_body, armature, damping, damp_dt; anc masks
+        + 57 * ng + 4 * site + 14 * nu  # geoms and their static poses; sites; actuators
+        + 17 * s + s * md + 2 * s * nw  # slots: scalars, ImpParams, dof lists, dof masks
+        + 4 * c + 15 * lim + 6 * fl  # contact, limit and friction-loss rows
+        + max(nb - 1, 1) + d["FS_NLEVEL"] + 1 + 3 * s + 2 * (nv + 1)  # launch order
+    )
+    return 4 * words
+
+
+def limits_of(defines: dict) -> List[str]:
+    """Each limit of the kernel that a build with these sizes breaks (an
+    empty list: it builds and launches)."""
+    d = defines
+    out = []
+    work = work_bytes(d)
+    if work > SMEM_PER_BLOCK:
+        out.append(f"one sample's working set (Work) is {work} bytes; a block's shared memory "
+                   f"holds {SMEM_PER_BLOCK}")
+    const = model_bytes(d)
+    if const > CONSTANT_BYTES:
+        out.append(f"the model (FusedModel) is {const} bytes; the __constant__ bank holds "
+                   f"{CONSTANT_BYTES}")
+    for key, what in (("FS_NSLOT", "contact slots"), ("FS_NV", "dofs"),
+                      ("FS_MAXD", "dofs in one contact slot")):
+        if d[key] >= BYTE_LIMIT:
+            out.append(f"{d[key]} {what}; the kernel's byte tables hold fewer than {BYTE_LIMIT}")
+    nrow = d["FS_NFL"] + d["FS_NLIM"] + d["FS_NCROW"]
+    if nrow > MAX_ROWS:
+        out.append(f"{nrow} constraint rows; the kernel's term lists hold at most {MAX_ROWS}")
+    return out
+
+
+def kernel_limits(model: PhysicsModel, spec: fused.DerivedSpec, meta=None) -> List[str]:
+    """Each limit of the kernel that this model's build would break, read
+    from `pack_model`'s sizes before anything is packed or built."""
+    return limits_of(kernel_sizes(model, meta if meta is not None else fused._meta(model),
+                                  spec)[0])
 
 
 def launch_config(defines: dict) -> Tuple[int, int]:
@@ -143,10 +215,11 @@ def launch_config(defines: dict) -> Tuple[int, int]:
     return nbytes, max(fits, key=lambda k: (per_sm(k), k))
 
 
-def _bits(idx) -> int:
-    out = 0
+def _bits(idx, nw: int) -> List[int]:
+    """A dof mask: bit j of the set `idx` is bit j % 32 of word j // 32."""
+    out = [0] * nw
     for j in idx:
-        out |= 1 << int(j)
+        out[int(j) >> 5] |= 1 << (int(j) & 31)
     return out
 
 
@@ -216,6 +289,33 @@ def _interleave(lists):
     return base, words
 
 
+def kernel_sizes(model: PhysicsModel, meta, spec: fused.DerivedSpec) -> Tuple[dict, list]:
+    """(the build's -D sizes but the tables' lengths and FS_SPB, the contact
+    rows (slot, t, s * mu, diagApprox) in the plain version's row order)."""
+    slots, limits, floss = meta.contact_slots, meta.limit_rows, meta.floss_rows
+    crows = []
+    for si, s in enumerate(slots):
+        iw = s["invweight"]
+        if s["condim"] == 1:
+            crows.append((si, -1, 0.0, iw))
+        else:
+            for t in range(2):
+                mu = s["friction"][t]
+                for sgn in (1.0, -1.0):
+                    crows.append((si, t, sgn * mu, 2.0 * (iw + mu * mu * iw)))
+    defines = dict(
+        FS_NQ=model.nq, FS_NV=model.nv, FS_NU=model.nu, FS_NBODY=model.nbody,
+        FS_NJNT=model.njnt, FS_NGEOM=int(model.geom_bodyid.shape[0]), FS_NSITE=model.nsite,
+        FS_NSLOT=len(slots), FS_NCROW=len(crows), FS_NLIM=len(limits),
+        FS_NFL=len(floss), FS_MAXD=max([len(s["dofs"]) for s in slots], default=0),
+        FS_ND=fused.derived_size(model, spec),
+        FS_IMPLICIT=int(bool(model.eulerdamp) and bool((model.dof_damping != 0).any())),
+        FS_WANT_SITES=int(spec.want_sites), FS_WANT_QFRC=int(spec.want_qfrc_actuator),
+        FS_NLEVEL=len(_tree_levels(model)[1]) - 1,
+    )
+    return defines, crows
+
+
 def pack_model(
     model: PhysicsModel, meta, spec: fused.DerivedSpec
 ) -> Tuple[dict, bytes, bytes]:
@@ -226,41 +326,25 @@ def pack_model(
     the layout has no padding.  Arrays sized 0 in the model are padded to one
     element, as the structs' FS_DIM does."""
     nv = model.nv
-    if nv > 32:
-        raise ValueError(f"the kernel keeps dof patterns in 32-bit masks; nv={nv}")
+    nw = mask_words(nv)
     slots, limits, floss = meta.contact_slots, meta.limit_rows, meta.floss_rows
-    maxd = max([len(s["dofs"]) for s in slots], default=0)
-    crows = []  # (slot, t, s * mu, diagApprox), in the plain version's row order
-    for si, s in enumerate(slots):
-        iw = s["invweight"]
-        if s["condim"] == 1:
-            crows.append((si, -1, 0.0, iw))
-        else:
-            for t in range(2):
-                mu = s["friction"][t]
-                for sgn in (1.0, -1.0):
-                    crows.append((si, t, sgn * mu, 2.0 * (iw + mu * mu * iw)))
+    defines, crows = kernel_sizes(model, meta, spec)
+    maxd = defines["FS_MAXD"]
     if any(len([c for c in crows if c[0] == si]) > 4 for si in range(len(slots))):
         raise ValueError("the kernel takes at most 4 rows per contact slot")
     rows = _row_dofs(meta, crows)
     ents, hterms, gterms = _tables(nv, rows)
     pairs = [_ldl_pairs(anc, nv) for anc in (meta.anc_strict, meta.anc_solver)]
     h_base, h_words = _interleave(hterms)
-    _, g_words = _interleave(gterms)
+    g_base, g_words = _interleave(gterms)
     body_order, level_off = _tree_levels(model)
     nb = model.nbody
     sub_mass = [float(x) for x in model.body_mass]
     for b in range(nb - 1, 0, -1):
         sub_mass[int(model.body_parentid[b])] += sub_mass[b]
     torso = spec.torso_body
-    defines = dict(
-        FS_NQ=model.nq, FS_NV=nv, FS_NU=model.nu, FS_NBODY=nb, FS_NJNT=model.njnt,
-        FS_NGEOM=int(model.geom_bodyid.shape[0]), FS_NSITE=model.nsite,
-        FS_NSLOT=len(slots), FS_NCROW=len(crows), FS_NLIM=len(limits),
-        FS_NFL=len(floss), FS_MAXD=maxd, FS_ND=fused.derived_size(model, spec),
-        FS_IMPLICIT=int(bool(model.eulerdamp) and bool((model.dof_damping != 0).any())),
-        FS_WANT_SITES=int(spec.want_sites), FS_WANT_QFRC=int(spec.want_qfrc_actuator),
-        FS_NLEVEL=len(level_off) - 1, FS_NLDLPAIR=sum(len(p) for pk in pairs for p in pk),
+    defines.update(
+        FS_NLDLPAIR=sum(len(p) for pk in pairs for p in pk),
         FS_NHTERM=len(h_words), FS_NGTERM=len(g_words),
     )
     defines["FS_SPB"] = launch_config(defines)[1]
@@ -294,8 +378,8 @@ def pack_model(
     put(model.jnt_axis, "f")
     put(model.qpos0, "f")
     put(model.dof_bodyid, "i")
-    put([_bits(a) for a in meta.anc_strict], "u")
-    put([_bits(a) for a in meta.anc_solver], "u")
+    put([_bits(a, nw) for a in meta.anc_strict], "u", nv, nw)
+    put([_bits(a, nw) for a in meta.anc_solver], "u", nv, nw)
     put(model.dof_armature, "f")
     put(model.dof_damping, "f")
     put([model.timestep * float(d) for d in model.dof_damping], "f")
@@ -328,8 +412,8 @@ def pack_model(
     put([list(s["dofs"]) + [0] * (maxd - len(s["dofs"])) for s in slots], "i", ns,
         max(maxd, 1))
     for key in ("body1", "body2"):
-        put([_bits(np.nonzero(model.body_dof_mask[s[key]] > 0.5)[0]) for s in slots],
-            "u", ns)
+        put([_bits(np.nonzero(model.body_dof_mask[s[key]] > 0.5)[0], nw) for s in slots],
+            "u", ns, nw)
     put([s["includemargin"] for s in slots], "f", ns)
     put([_imp_params(s["solref"], s["solimp"]) for s in slots], "f", ns, 9)
     nc = len(crows)
@@ -374,6 +458,7 @@ def pack_model(
     put(h_base, "i")
     put(h_words, "u", defines["FS_NHTERM"])
     put([len(x) for x in gterms], "i")
+    put(g_base, "i")
     put(g_words, "u", defines["FS_NGTERM"])
     return defines, blob, b"".join(p.tobytes() for p in parts)
 

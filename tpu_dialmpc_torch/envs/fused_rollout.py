@@ -14,14 +14,16 @@ Counterpart of `tpu_dialmpc/envs/fused_rollout.py`:
 The physics (`on_fused_path`, from the config's `fused`):
 - "on": the fused substep (`dynamics/fused_cuda.py`: the CUDA kernel on
   CUDA tensors, its plain PyTorch version on CPU tensors, one launch per
-  horizon step for all B candidates); a model `fused.supported` rejects
-  raises when the env is built;
+  horizon step for all B candidates); a model `fused.supported` rejects,
+  or on a CUDA device one past a limit of the kernel's build
+  (`fused_cuda.kernel_limits`), raises when the env is built;
 - "off": the physics pipeline (`dynamics/pipeline.step`, batched PyTorch
   ops), the JAX package's XLA path;
-- "auto": the fused substep where `fused.supported(model)` holds, the
-  pipeline where it does not.
-A kernel that fails to build or launch raises; it never gives way to the
-pipeline.
+- "auto": the fused substep where `fused.supported(model)` holds and, on a
+  CUDA device, the kernel's build has no limit in the way; else the
+  pipeline, with a warning naming the limit.
+Both are choices made once, from the model, when the env is built.  A kernel
+that fails to build or launch raises; it never gives way to the pipeline.
 
 Requires the host env to provide:
   model, config, device, _torso_idx, _dtype,
@@ -33,18 +35,21 @@ Requires the host env to provide:
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
-from tpu_dialmpc_torch.dynamics import fused, pipeline
+from tpu_dialmpc_torch.dynamics import fused, fused_cuda, pipeline
 from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
 from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState, map_tensors
 
 FUSED_MODES = ("auto", "on", "off")
 
 
-def pick_physics(model, mode: str) -> bool:
+def pick_physics(model, mode: str, device, spec: fused.DerivedSpec) -> bool:
     """True for the fused substep, False for the physics pipeline, as the
-    config's `fused` mode asks (see the module docstring)."""
+    config's `fused` mode asks, for an env on `device` whose substep
+    returns `spec`'s reward inputs (see the module docstring)."""
     if mode not in FUSED_MODES:
         raise ValueError(f"fused={mode!r}: expected one of {FUSED_MODES}")
     if mode == "off":
@@ -53,7 +58,16 @@ def pick_physics(model, mode: str) -> bool:
     if mode == "on" and not ok:
         raise ValueError("fused='on', but the fused substep does not support this model "
                          "(fused.supported); use 'auto' or 'off' for the physics pipeline")
-    return ok
+    if not ok or torch.device(device).type != "cuda":
+        return ok
+    limits = fused_cuda.kernel_limits(model, spec)
+    if not limits:
+        return True
+    why = "the fused substep's CUDA kernel cannot be built for this model: " + "; ".join(limits)
+    if mode == "on":
+        raise ValueError(f"fused='on', but {why}; use 'auto' or 'off' for the physics pipeline")
+    warnings.warn(f"{why}; fused='auto' runs the physics pipeline")
+    return False
 
 
 class FusedRolloutMixin:
@@ -65,15 +79,18 @@ class FusedRolloutMixin:
         (else the physics pipeline); fixed when the env is built."""
         return self._on_fused
 
+    def _fused_spec(self) -> fused.DerivedSpec:
+        """The reward inputs the env's substep returns."""
+        return fused.DerivedSpec(
+            torso_body=self._torso_idx, want_sites=True, want_qfrc_actuator=True
+        )
+
     @property
     def fused_step(self) -> FusedStep:
         """The env's substep chain: n_substeps per call, reward inputs out.
         Its `launches` counts the CUDA kernel's launches."""
         if self._fused_step is None:
-            spec = fused.DerivedSpec(
-                torso_body=self._torso_idx, want_sites=True, want_qfrc_actuator=True
-            )
-            self._fused_step = FusedStep(self.model, self.config.n_substeps, spec)
+            self._fused_step = FusedStep(self.model, self.config.n_substeps, self._fused_spec())
         return self._fused_step
 
     def _derived(self, ps) -> dict:

@@ -16,8 +16,9 @@ to the model's `<position>` servos as ctrl (the go2_position scene).
 With `randomize_tasks` the command is redrawn every 500 steps, uniform in
 lin x ±1.5, lin y ±0.5, yaw rate ±1.5 (the JAX env's ranges), from the
 episode's seed (`LeggedEnv.sample_command`); the draws are not the JAX
-package's threefry ones.  Not ported (it raises NotImplementedError): the
-"climb" joint-range table, which no task uses.
+package's threefry ones.  `joint_range_source` takes the JAX env's values:
+the upstream and "climb" tables (12 motors), "model_eigen", and the model's
+ranges for any other value.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ class UnitreeGo2EnvConfig:
     energy_weight: float = 0.0
     dtype: str = "float32"
     fused: str = "auto"  # "auto" | "on" | "off" (envs/fused_rollout.py)
-    joint_range_source: str = "upstream"  # "upstream" | "model" | "model_eigen"
+    joint_range_source: str = "upstream"  # "upstream" | "climb" | "model_eigen"; else "model"
     termination_range_source: str = "action"  # "action" | "physical"
     turn_period: int = 0
     yaw_mode: str = "atan2"  # "atan2" | "eigen"
@@ -82,10 +83,6 @@ class UnitreeGo2Env(LeggedEnv):
         device: torch.device | str = "cuda",
         model: PhysicsModel | None = None,
     ):
-        if config.joint_range_source not in ("upstream", "model", "model_eigen"):
-            raise NotImplementedError(
-                f"joint_range_source={config.joint_range_source!r} is not ported"
-            )
         self.config = config
         self.device = torch.device(device)
         self._dtype = {"float32": torch.float32, "float64": torch.float64}[config.dtype]
@@ -110,6 +107,11 @@ class UnitreeGo2Env(LeggedEnv):
                 + [[-0.5, 0.5], [0.4, 1.4], [-2.3, -1.3]] * 2
             )
             physical = model_range.copy()
+        elif config.joint_range_source == "climb" and nu == 12:
+            # the upstream table widened for mounting an obstacle (thigh
+            # flexion and calf extension past it, inside the model's ranges)
+            joint_range = np.array([[-0.6, 0.6], [0.0, 2.1], [-2.6, -0.7]] * 4)
+            physical = model_range.copy()
         elif config.joint_range_source == "model_eigen":
             # quirk Q10: jnt_range rows 0..nu-1, including the freejoint's row
             joint_range = np.asarray(self.model.jnt_range)[:nu]
@@ -133,7 +135,7 @@ class UnitreeGo2Env(LeggedEnv):
         self.joint_torque_range = self._tensor(torque_range)
         self.termination_joint_range = self._tensor(termination)
         self._gait_phases = self._tensor(gait.GAIT_PHASES[gait_name])
-        self._on_fused = pick_physics(self.model, config.fused)
+        self._on_fused = pick_physics(self.model, config.fused, self.device, self._fused_spec())
 
     def _place_crate(self, model: PhysicsModel, config) -> PhysicsModel:
         """Move the mocap crate `box_body` as the JAX env does before

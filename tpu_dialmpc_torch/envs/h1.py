@@ -64,7 +64,7 @@ class UnitreeH1EnvConfig:
     pos_tar_z: float = 0.98
     dtype: str = "float32"
     fused: str = "auto"  # "auto" | "on" | "off" (envs/fused_rollout.py)
-    joint_range_source: str = "centered"  # "centered" | "model"
+    joint_range_source: str = "centered"  # "centered"; else the model's ranges
     action_halfwidth: float = 0.7
     arm_halfwidth: float = 0.25
     energy_weight: float = 0.0
@@ -132,12 +132,8 @@ class UnitreeH1Env(LeggedEnv):
                  np.minimum(home_j + w, model_range[:, 1])],
                 axis=1,
             )
-        elif config.joint_range_source == "model":
+        else:  # "model", and any other value, as the JAX env takes it
             joint_range = model_range
-        else:
-            raise NotImplementedError(
-                f"joint_range_source={config.joint_range_source!r} is not ported"
-            )
         cr = np.asarray(m.actuator_ctrlrange)
         unlimited = np.all(np.abs(cr) < 1e-6, axis=1)
         torque_range = np.where(unlimited[:, None], np.array([[-np.inf, np.inf]]), cr)
@@ -169,7 +165,7 @@ class UnitreeH1Env(LeggedEnv):
         self._duty = self._tensor(self._gait_params[0])
         self._up_global = self._tensor([0.0, 0.0, 1.0])
         self._foot_contact_z = self._tensor(foot_contact_z)
-        self._on_fused = pick_physics(m, config.fused)
+        self._on_fused = pick_physics(m, config.fused, self.device, self._fused_spec())
 
     # ------------------------------------------------------------------
     def reset(self, generator: torch.Generator | None = None) -> EnvState:
