@@ -43,17 +43,27 @@ result), after the card as nvidia-smi reports its name and power limit:
      also at B=8192 (the JAX package's bench timed h1_push_crate at
      N8192); the kernel's bound (the plain substep's fp32 operations,
      fused.count_ops, at 67 TFLOP/s) and its share of the measured time;
-  3. the main path: reset, the reverse warm start, 3 control steps, with the
-     kernel's launch count checked, then timings: on the first four paths
-     5 timed `reverse_once` and
-     control steps and a torch.profiler window over 3 and 2 of them, after
+  3. the main path: reset, the reverse warm start, 3 control steps, through
+     a planner that captures (`MBDPI(capture="auto")`: `reverse_once` and
+     the control step as CUDA graphs, tpu_dialmpc_torch/planner/capture.py),
+     with the kernel's launch count checked, then timings: 5 timed
+     `reverse_once` and control steps (graph replays), and on the first
+     four paths a torch.profiler window over 3 and 2 of them, after
      a pre-roll of spin kernels that is left out of the counts (wall
      ms, device busy ms and idle share, the fused kernel's device ms and
      launches, the trace's count of them held against the launch counter,
      the counted launches with no device record,
      the other kernels', and the host's cudaStreamSynchronize calls and
-     wait; wall includes the profiler's own cost); on the three h1_walk and
-     h1_loco paths one timed `reverse_once` and control step; and the path's
+     wait; wall includes the profiler's own cost);
+  4. [capture]: the same planner against `MBDPI(capture=False)` on the
+     same state, plan and generator seed, 3 `reverse_once` calls and 3
+     chained control steps each: every output field (Ybar, each ReverseInfo
+     field, each field of the executed state) bit-equal, its max abs diff
+     printed, the launches per replay, the generators' states equal after,
+     and the eager units' median ms beside the captured ones; on go2_stand
+     and h1_push_crate the eager units' profile windows too, and
+     [sync-debug]: a warm eager and a captured `reverse_once` and control
+     step under torch.cuda.set_sync_debug_mode("error"); and the path's
      wall seconds.
 After the seven paths, [wide]: the fused pair-kinds model (nv=36,
 tests/assets/pairs/mjx_scene_pair_kinds_fused.xml: the pair-kinds scene's
@@ -302,8 +312,8 @@ class SmokePath(NamedTuple):
     inputs: Callable  # (model, B, seed, device) -> kernel inputs for the compare
     at_crate: Optional[Callable]  # moves the reset qpos to the crate, in place
     big_batch: Optional[int]  # a larger batch the kernel is also timed at
-    # [small]'s reverse_once against the plain chain, 5 timed repetitions
-    # and the profile window; else one timed reverse_once and control step
+    # [small]'s reverse_once against the plain chain and the profile
+    # windows; else neither
     full: bool = True
 
     @property
@@ -743,7 +753,8 @@ def phase_mjcf(envs, device, all_envs):
         print(f"[mjcf {task}] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
               f"{env.config.n_substeps}: reverse_once {walls[1][0]:.2f} ms (XML env) vs "
               f"{walls[0][0]:.2f} ms (.npz env), control step {walls[1][1]:.2f} vs "
-              f"{walls[0][1]:.2f} ms (one more of each after the compared calls, host wall); "
+              f"{walls[0][1]:.2f} ms (one more of each after the compared calls, host wall: "
+              f"the call that captures each unit's CUDA graph and replays it); "
               f"XML env fused "
               f"launches {launches[task]} = {cfg.Hsample + 1} + (1 + {cfg.Ndiffuse}x"
               f"{cfg.Hsample + 1})")
@@ -822,8 +833,10 @@ def run_main_path(env, cfg, device, task, envs):
     rewards = torch.stack(rewards)
     quat = state.pipeline.qpos[3:7]
     up_z = (1.0 - 2.0 * (quat[1] ** 2 + quat[2] ** 2)).item()
+    check(mbdpi.captured, f"{task}: MBDPI(capture='auto') did not capture on the card")
     print(f"[main {task}] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
-          f"{env.config.n_substeps}: reset, reverse, {n_steps} control steps; rewards "
+          f"{env.config.n_substeps} (captured={mbdpi.captured}): reset, reverse, {n_steps} "
+          f"control steps; rewards "
           f"{[round(r, 5) for r in rewards.tolist()]}, torso z "
           f"{state.pipeline.qpos[2].item():.4f}, up·z {up_z:.4f}")
     check(bool(torch.isfinite(rewards).all()), "non-finite executed rewards")
@@ -944,9 +957,14 @@ def _profile_window(fn, n, fused_step, preroll=PREROLL_LAUNCHES):
     The launches at the start of a trace can miss their CUPTI device record
     (PERF.md section 5).  So the window opens with `preroll` spin kernels
     and a synchronize: they take that loss, and the spin kernels and all
-    that precedes the synchronize are left out of every count."""
+    that precedes the synchronize are left out of every count.  The
+    records of the last kernels can reach the profiler after the final
+    synchronize (the tail of a window's last graph replay): the window
+    waits `TRACE_SETTLE_S` before it stops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dialmpc_torch.telemetry.profile import TRACE_SETTLE_S
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -959,6 +977,7 @@ def _profile_window(fn, n, fused_step, preroll=PREROLL_LAUNCHES):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_SETTLE_S)
     launched = fused_step.launches - launched
     kernels, syncs = [], []
     for ev in prof.key_averages():
@@ -1004,36 +1023,181 @@ def _profile_window(fn, n, fused_step, preroll=PREROLL_LAUNCHES):
     }
 
 
-def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task, full):
-    """Median wall ms of `reverse_once` and of a control step (5 timed
-    repetitions and the profile window, or one of each)."""
+def _median_ms(fn, reps):
+    """Median host wall ms of fn() over `reps` calls, each between two
+    torch.cuda.synchronize(), after one warm-up call."""
+    import torch
+
+    fn()  # warm-up
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _windows(tag, mbdpi, state, Y0, gen, step, device):
+    """The profile windows over 3 `reverse_once` and 2 control steps of
+    `mbdpi`: {unit: window}."""
     import torch
 
     scale = torch.as_tensor(mbdpi.sigma_control, dtype=torch.float32, device=device)
-    reps = 5 if full else 1
-
-    def timed(fn, reps):
-        fn()  # warm-up
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
-    ro_ms = timed(lambda: mbdpi.reverse_once(state, gen, Y0, scale), reps)
-    cs_ms = timed(lambda: step_rest(state, Y0, gen), reps)
-    print(f"[time {task}] median ms per reverse_once: {ro_ms:.2f}; per control step "
-          f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f} ({reps} timed)")
-    if not full:
-        return ro_ms, cs_ms
+    out = {}
     for name, fn, n in (("reverse_once", lambda: mbdpi.reverse_once(state, gen, Y0, scale), 3),
-                        ("control_step", lambda: step_rest(state, Y0, gen), 2)):
-        window = _profile_window(fn, n, mbdpi.env.fused_step)
-        print(f"[profile {task}] {name}: {json.dumps(window)}")
-    return ro_ms, cs_ms
+                        ("control_step", lambda: step(state, Y0, gen), 2)):
+        out[name] = _profile_window(fn, n, mbdpi.env.fused_step)
+        print(f"[profile {tag}] {name}: {json.dumps(out[name])}")
+    return out
+
+
+def time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task, full):
+    """Median wall ms of the main path's `reverse_once` and control step
+    (captured: their CUDA graphs' replays), 5 timed repetitions, and on a
+    full path the profile windows."""
+    import torch
+
+    scale = torch.as_tensor(mbdpi.sigma_control, dtype=torch.float32, device=device)
+    reps = 5
+    ro_ms = _median_ms(lambda: mbdpi.reverse_once(state, gen, Y0, scale), reps)
+    cs_ms = _median_ms(lambda: step_rest(state, Y0, gen), reps)
+    print(f"[time {task}] median ms per reverse_once: {ro_ms:.2f}; per control step "
+          f"(step + shift + {cfg.Ndiffuse} reverse_once): {cs_ms:.2f} ({reps} timed; "
+          f"captured={mbdpi.captured})")
+    windows = _windows(task, mbdpi, state, Y0, gen, step_rest, device) if full else None
+    return ro_ms, cs_ms, windows
+
+
+# the paths whose eager units get profile windows beside the captured ones,
+# and a [sync-debug] check
+CAPTURE_WINDOWS = ("go2_stand", "h1_push_crate")
+CAPTURE_CALLS = 3  # calls of each unit held captured against eager
+
+
+def _leaves_named(prefix, obj):
+    """[(name, tensor)] of a unit's output: dict items, dataclass and
+    NamedTuple fields by name."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [(prefix, obj)]
+    if isinstance(obj, dict):
+        return [x for k, v in obj.items() for x in _leaves_named(f"{prefix}.{k}", v)]
+    if dataclasses.is_dataclass(obj):
+        return [x for f in dataclasses.fields(obj)
+                for x in _leaves_named(f"{prefix}.{f.name}", getattr(obj, f.name))]
+    if hasattr(obj, "_fields"):
+        return [x for k, v in zip(obj._fields, obj) for x in _leaves_named(f"{prefix}.{k}", v)]
+    return []
+
+
+def _bits(t):
+    """A tensor's bits (floats as integers, so NaN equals the same NaN)."""
+    import torch
+
+    if t.is_floating_point():
+        return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
+def _hold_unit(worst, unequal, got, want):
+    """Fold one call's captured output `got` against the eager `want` into
+    `worst` (max abs diff per field) and `unequal` (fields not bit-equal)."""
+    import torch
+
+    for (name, a), (_, b) in zip(_leaves_named("", got), _leaves_named("", want)):
+        name = name.lstrip(".")
+        if a.shape != b.shape or a.dtype != b.dtype:
+            unequal.add(name)
+            continue
+        d = ((a != b).sum().item() if a.dtype == torch.bool
+             else (a.double() - b.double()).abs().max().item() if a.numel() else 0.0)
+        worst[name] = max(worst.get(name, 0.0), d)
+        if not torch.equal(_bits(a), _bits(b)):
+            unequal.add(name)
+
+
+def phase_capture(path, env, cfg, mbc, state, Y0, device, captured_ms):
+    """[capture]: the main path's planner (captured, its units already
+    replaying) against `MBDPI(capture=False)` on the same state, plan and
+    generator seed: CAPTURE_CALLS `reverse_once` calls and as many chained
+    control steps, every output field's max abs diff and bit-equality, the
+    launches per replay, the generators' states after, and the eager units'
+    median ms beside the captured ones; on CAPTURE_WINDOWS the eager units'
+    profile windows and [sync-debug]: a warm eager and a captured
+    `reverse_once` and control step under
+    torch.cuda.set_sync_debug_mode("error").  Returns the eager ms and
+    windows."""
+    import torch
+
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    task, fs = path.label, env.fused_step
+    check(mbc.captured, f"{task}: the main path's planner does not capture")
+    mbe = MBDPI(cfg, env, capture=False)
+    scale = torch.as_tensor(mbc.sigma_control, dtype=torch.float32, device=device)
+    steps = (make_control_step(mbc, cfg.Ndiffuse), make_control_step(mbe, cfg.Ndiffuse))
+    gens = [torch.Generator(device=device).manual_seed(cfg.seed + 100) for _ in range(2)]
+    horizon = cfg.Hsample + 1
+    expect = {"reverse_once": horizon, "control step": 1 + cfg.Ndiffuse * horizon}
+    per_replay = {}
+    for unit in expect:
+        worst, unequal = {}, set()
+        chain = [(state, Y0), (state, Y0)]  # the control steps' (state, plan), per mode
+        for _ in range(CAPTURE_CALLS):
+            outs = []
+            for k, mb in enumerate((mbc, mbe)):
+                n0 = fs.launches
+                if unit == "reverse_once":
+                    outs.append(mb.reverse_once(state, gens[k], Y0, scale))
+                else:
+                    s2, Y2, infos = steps[k](*chain[k], gens[k])
+                    chain[k] = (s2, Y2)
+                    outs.append({"state": s2, "Ybar": Y2, "infos": infos})
+                if k == 0:
+                    per_replay[unit] = fs.launches - n0
+            if unit == "reverse_once":
+                outs = [{"Ybar": Y, "info": info} for Y, info in outs]
+            _hold_unit(worst, unequal, outs[0], outs[1])
+        print(f"[capture {task}] {unit} x{CAPTURE_CALLS}, captured (graph replays) vs "
+              f"capture=False, same state, plan and generator seed: max abs diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        check(not unequal, f"{task}: the captured {unit} is not bit-equal to the eager one in "
+                           f"{sorted(unequal)}")
+    same_gen = torch.equal(gens[0].get_state(), gens[1].get_state())
+    print(f"[capture {task}] bit-equal; launches per replay: "
+          + ", ".join(f"{u} {per_replay[u]} (expected {n})" for u, n in expect.items())
+          + f"; generators' states after: {'equal' if same_gen else 'DIFFERENT'}")
+    check(per_replay == expect, f"{task}: a replay did not add its captured launches")
+    check(same_gen, f"{task}: the captured units drew the noise otherwise than the eager ones")
+
+    gen = gens[1]
+    eager_ms = (_median_ms(lambda: mbe.reverse_once(state, gen, Y0, scale), 3),
+                _median_ms(lambda: steps[1](state, Y0, gen), 3))
+    print(f"[capture {task}] median ms (host wall around torch.cuda.synchronize): "
+          f"reverse_once captured {captured_ms[0]:.2f} / eager {eager_ms[0]:.2f} "
+          f"({eager_ms[0] / captured_ms[0]:.2f}x), control step captured {captured_ms[1]:.2f} / "
+          f"eager {eager_ms[1]:.2f} ({eager_ms[1] / captured_ms[1]:.2f}x)")
+    windows = None
+    if path.task in CAPTURE_WINDOWS and not path.by_path:
+        windows = _windows(f"{task} eager", mbe, state, Y0, gen, steps[1], device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for mb, step in ((mbe, steps[1]), (mbc, steps[0])):
+                mb.reverse_once(state, gen, Y0, scale)
+                step(state, Y0, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[sync-debug {task}] a warm eager and a captured reverse_once and control step "
+              f"under torch.cuda.set_sync_debug_mode('error'): no synchronising call")
+    return eager_ms, windows
 
 
 @contextlib.contextmanager
@@ -1612,7 +1776,9 @@ def phase_randomize(device):
 
     env = get_env("go2_stand", device=device, randomize_tasks=True)
     cfg = DialConfig(**dial_defaults("go2_stand"))
-    mb = MBDPI(cfg, env)
+    # eager: the hook below reads every _post_physics call, which a CUDA
+    # graph's replay does not run
+    mb = MBDPI(cfg, env, capture=False)
     gen = torch.Generator(device=device).manual_seed(7)
     state = to_lean(env.reset(gen))
     state = dataclasses.replace(state, info=dataclasses.replace(
@@ -1973,12 +2139,21 @@ def main():
             ops, bound = phase_bound(env, ms, scene)
             mbdpi, state, Y0, gen, step_rest, launches = run_main_path(
                 env, cfg, device, task, all_envs + [wide])
-            ro_ms, cs_ms = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg, device, task,
-                                          path.full)
+            ro_ms, cs_ms, windows = time_main_path(mbdpi, state, Y0, gen, step_rest, cfg,
+                                                   device, task, path.full)
+            eager_ms, eager_windows = phase_capture(path, env, cfg, mbdpi, state, Y0, device,
+                                                    (ro_ms, cs_ms))
             print(f"[time {task}] path wall {time.perf_counter() - t0:.1f} s")
-            summary.append(f"{task} reverse_once {ro_ms:.2f} ms, control step {cs_ms:.2f} ms, "
+            summary.append(f"{task} reverse_once {ro_ms:.2f} ms captured / {eager_ms[0]:.2f} "
+                           f"eager, control step {cs_ms:.2f} / {eager_ms[1]:.2f} ms, "
                            f"fused_step[{scene}] {ms[2049]:.3f} ms vs plain {plain_ms:.1f} ms, "
                            f"bound {bound:.4f} ms")
+            if eager_windows:
+                summary.append(f"{task} device idle: reverse_once captured "
+                               f"{windows['reverse_once']['idle_share']:.3f} / eager "
+                               f"{eager_windows['reverse_once']['idle_share']:.3f}, control step "
+                               f"{windows['control_step']['idle_share']:.3f} / "
+                               f"{eager_windows['control_step']['idle_share']:.3f}")
             if task == CLI_TASK:
                 t0 = time.perf_counter()
                 loop_s, scan_s = phase_cli(cfg)
@@ -1986,6 +2161,9 @@ def main():
                 print(f"[time cli] phase wall {time.perf_counter() - t0:.1f} s")
                 summary.append(f"cli run 6 steps {loop_s:.2f} s, --scan {scan_s:.2f} s")
             records.append(fused_record(scene, launches, max_err, ms, plain_ms, bound, ops))
+            records[-1]["main_path_ms"] = {"reverse_once": ro_ms, "control_step": cs_ms,
+                                           "eager_reverse_once": eager_ms[0],
+                                           "eager_control_step": eager_ms[1]}
         t0 = time.perf_counter()
         records.append(phase_wide_pattern(wide, device, all_envs))
         print(f"[time wide] phase wall {time.perf_counter() - t0:.1f} s")

@@ -61,7 +61,9 @@ def find(gate: str, out: str) -> int:
         return rews
 
     dial.MBDPI.rollout_us_batch = hooked
-    runner.run_scan = lambda *a, **kw: runs.append(scan(*a, **kw)) or runs[-1]
+    # eager: the hook reads every rollout, which a CUDA graph's replay does
+    # not run
+    runner.run_scan = lambda *a, **kw: runs.append(scan(*a, capture=False, **kw)) or runs[-1]
     try:
         r = q.run_gate(gate, quick=True)
     finally:

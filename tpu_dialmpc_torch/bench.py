@@ -17,6 +17,11 @@ budget), plus `platform`: "cuda" on the card, "cpu" with device="cpu".
   (`telemetry/profile.py:fused_kernel_roofline`, which raises off the card),
   its fractions rounded to 6 decimals where the root bench rounds to 3.
 
+The planner captures its units where it can (`MBDPI(capture="auto")`: a
+CUDA env on the fused path, `planner/capture.py`), so on the card the rows
+time the CUDA graphs of `reverse_once` and of the control step, as the JAX
+bench timed jitted chains; each row says so in `captured`.
+
 Times are `telemetry/profile.py:_amortized`'s chain-length slope, at the
 JAX bench's chain lengths (2 and 18 calls; 2 and 10 for the control step),
 `iters` repetitions each (the minimum; the JAX bench took the median of a
@@ -103,6 +108,7 @@ def run_bench(task="go2_stand", nsample=2048, hsample=20, hnode=5, iters=6,
         "vs_baseline": round(budget_ms / med_ms, 3),
         "budget_basis": budget_basis(task),
         "platform": env.device.type,
+        "captured": mbdpi.captured,
     }
 
 
@@ -130,6 +136,7 @@ def run_control_step_bench(task="go2_stand", nsample=2048, hsample=20,
         "unit": "ms/control-step",
         "vs_baseline": round(CTRL_DT_MS / med_ms, 3),
         "platform": env.device.type,
+        "captured": mbdpi.captured,
     }
 
 

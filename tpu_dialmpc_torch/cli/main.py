@@ -140,7 +140,7 @@ def cmd_run(args):
     finally:
         if stream:
             stream.close()
-    print(f"task={task} steps={rewards.shape[0]} wall={wall:.2f}s")
+    print(f"task={task} steps={rewards.shape[0]} wall={wall:.2f}s captured={res.captured}")
     print(f"average reward: {rewards.mean():.6f}")  # dial-core-test.cpp:101-106
     if args.out:
         np.savez(
@@ -303,7 +303,8 @@ def cmd_profile(args):
         Y0 = torch.zeros((dial_cfg.Hnode + 1, env.action_size), dtype=dtype, device=env.device)
         scale = torch.as_tensor(mbdpi.sigma_control, dtype=dtype, device=env.device)
         gen = torch.Generator(device=env.device).manual_seed(1)
-        mbdpi.reverse_once(state, gen, Y0, scale)  # warm: builds the kernel
+        for _ in range(2):  # warm: builds the kernel, then captures its graph
+            mbdpi.reverse_once(state, gen, Y0, scale)
         prof.capture_trace(args.out, mbdpi.reverse_once, state, gen, Y0, scale)
         print(f"profiler trace written to {args.out}")
     return 0

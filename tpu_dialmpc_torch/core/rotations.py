@@ -41,8 +41,9 @@ def quat_mul(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
-    """Conjugate of a unit quaternion."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """Conjugate of a unit quaternion (negation is exact: the same bits as
+    multiplying by (1, -1, -1, -1), with no constant made from host data)."""
+    return torch.cat((q[..., :1], -q[..., 1:]), -1)
 
 
 def rotate(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

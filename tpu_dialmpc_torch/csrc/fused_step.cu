@@ -1467,16 +1467,23 @@ extern "C" int fused_launch_info(int* out) {
                                                             FS_THREADS, FS_SMEM);
 }
 
+// out: the device addresses of the global FusedModel and FusedTables, looked
+// up once after the upload (a launch then calls no runtime function but the
+// launch itself, so it can be captured in a CUDA graph).
+extern "C" int fused_symbols(void** out) {
+  cudaError_t e = cudaGetSymbolAddress(&out[0], g_model);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&out[1], g_tables);
+  return (int)e;
+}
+
 // Launches on `stream` and returns cudaGetLastError(): 0 when the launch
 // was accepted.  Faults during the run surface at the next synchronize.
-extern "C" int fused_step_launch(int batch, int n_substeps, const float* qpos,
-                                 const float* qvel, const float* ws, const float* ctrl,
-                                 float* oq, float* ov, float* ow, float* od, void* stream) {
+// gm, gt: fused_symbols' addresses.
+extern "C" int fused_step_launch(int batch, int n_substeps, const void* gm, const void* gt,
+                                 const float* qpos, const float* qvel, const float* ws,
+                                 const float* ctrl, float* oq, float* ov, float* ow, float* od,
+                                 void* stream) {
   if (batch <= 0) return 0;
-  void *gm = nullptr, *gt = nullptr;
-  cudaError_t e = cudaGetSymbolAddress(&gm, g_model);
-  if (e == cudaSuccess) e = cudaGetSymbolAddress(&gt, g_tables);
-  if (e != cudaSuccess) return (int)e;
   int blocks = (batch + FS_SPB - 1) / FS_SPB;
   fused_step_kernel<<<blocks, FS_THREADS, FS_SMEM, (cudaStream_t)stream>>>(
       (const FusedModel*)gm, (const FusedTables*)gt, batch, n_substeps, qpos, qvel, ws, ctrl,
@@ -1527,16 +1534,24 @@ extern "C" int fused_contacts(int batch, int nq, int nslot, const float* qpos, f
   return 0;
 }
 
+extern "C" int fused_symbols(void** out) {
+  out[0] = (void*)&g_model;
+  out[1] = (void*)&g_tables;
+  return 0;
+}
+
 // The host build runs the samples one after another, each through the same
 // lane sections with one lane taking every index.
-extern "C" int fused_step_launch(int batch, int n_substeps, const float* qpos,
-                                 const float* qvel, const float* ws, const float* ctrl,
-                                 float* oq, float* ov, float* ow, float* od, void* stream) {
+extern "C" int fused_step_launch(int batch, int n_substeps, const void* gm, const void* gt,
+                                 const float* qpos, const float* qvel, const float* ws,
+                                 const float* ctrl, float* oq, float* ov, float* ow, float* od,
+                                 void* stream) {
   (void)stream;
   Work* W = (Work*)calloc(1, sizeof(Work));
   if (!W) return -2;
   for (int b = 0; b < batch; ++b)
-    step_sample(g_model, g_tables, *W, b, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
+    step_sample(*(const FusedModel*)gm, *(const FusedTables*)gt, *W, b, n_substeps, qpos, qvel,
+                ws, ctrl, oq, ov, ow, od);
   free(W);
   return 0;
 }

@@ -13,7 +13,8 @@ The kernel is built from the checkout's sources at the first CUDA call
 values are packed here into the kernel's `FusedModel` struct (uploaded to
 its `__constant__` memory and to a global copy once), and the index lists
 its lanes walk into `FusedTables`.  `launches` counts kernel launches and
-nothing else.
+nothing else; a CUDA graph that holds launches adds them at each replay
+(`planner/capture.py`), and takes back those its capture counted.
 
 Launch shape: one warp per sample, `samples_per_block` samples per block,
 each sample's working set (`Work` in the source) in the block's dynamic
@@ -479,7 +480,9 @@ class _Library:
         lib.fused_launch_info.restype = ctypes.c_int
         lib.fused_launch_info.argtypes = [ctypes.c_void_p]
         lib.fused_step_launch.restype = ctypes.c_int
-        lib.fused_step_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+        lib.fused_step_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
+        lib.fused_symbols.restype = ctypes.c_int
+        lib.fused_symbols.argtypes = [ctypes.c_void_p]
         if hasattr(lib, "fused_contacts"):  # host builds only
             lib.fused_contacts.restype = ctypes.c_int
             lib.fused_contacts.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
@@ -498,6 +501,13 @@ class _Library:
             err = fn(ctypes.create_string_buffer(data, len(data)), len(data))
             if err != 0:
                 raise RuntimeError(f"uploading {name} to the kernel failed (error {err})")
+        # the global copies' addresses, looked up once: a launch then calls no
+        # runtime function but the launch, which a CUDA graph can capture
+        out = (ctypes.c_void_p * 2)()
+        err = self.lib.fused_symbols(out)
+        if err != 0:
+            raise RuntimeError(f"fused_symbols failed (error {err})")
+        self.symbols = (out[0], out[1])
 
     def launch_info(self) -> dict:
         """The build's bytes per sample and samples per block, and how many
@@ -511,7 +521,8 @@ class _Library:
 
     def launch(self, n_substeps, qpos, qvel, ws, ctrl, outs, stream: int) -> int:
         ptrs = [t.data_ptr() for t in (qpos, qvel, ws, ctrl, *outs)]
-        return self.lib.fused_step_launch(qpos.shape[0], n_substeps, *ptrs, stream)
+        return self.lib.fused_step_launch(qpos.shape[0], n_substeps, *self.symbols, *ptrs,
+                                          stream)
 
     def contacts(self, qpos: torch.Tensor, nslot: int) -> torch.Tensor:
         """Host builds only: every slot's contact geometry at each sample's

@@ -46,14 +46,30 @@ BIPED_GAIT_PARAMS = {
 }
 
 
-def step_height(t, footphase, duty_ratio):
-    """Swing height profile, branch-free."""
+_SWING_WIDTH = {}  # (duty, dtype, device) -> 1 - duty + 1e-12, 0-dim
+
+
+def _swing_width(duty: float, dtype, device) -> torch.Tensor:
+    """1 - duty + 1e-12 as a 0-dim tensor on `device`, computed in `dtype`
+    as the branch-free formula computes it (a 0-dim divisor on the device,
+    not a Python float, which a CUDA division would turn into a multiply
+    by its reciprocal); made once per (duty, dtype, device)."""
+    key = (duty, dtype, device)
+    if key not in _SWING_WIDTH:
+        _SWING_WIDTH[key] = (1.0 - torch.tensor(duty, dtype=dtype) + 1e-12).to(device)
+    return _SWING_WIDTH[key]
+
+
+def step_height(t, footphase, duty_ratio: float):
+    """Swing height profile; `duty_ratio` is a Python float, so its branch
+    is taken here rather than per element (a duty of 1 or more never lifts
+    a foot)."""
     t = torch.as_tensor(t)
-    duty = torch.as_tensor(duty_ratio, dtype=t.dtype, device=t.device)
     angle = torch.remainder(t + math.pi - footphase, 2.0 * math.pi) - math.pi
-    angle = torch.where(duty < 1.0, angle * 0.5 / (1.0 - duty + 1e-12), angle)
-    clipped = torch.clamp(angle, -math.pi / 2.0, math.pi / 2.0)
-    value = torch.where(duty < 1.0, torch.cos(clipped), 0.0)
+    if duty_ratio >= 1.0:
+        return torch.zeros_like(angle)
+    angle = angle * 0.5 / _swing_width(duty_ratio, t.dtype, t.device)
+    value = torch.cos(torch.clamp(angle, -math.pi / 2.0, math.pi / 2.0))
     return torch.where(torch.abs(value) >= 1e-6, torch.abs(value), 0.0)
 
 

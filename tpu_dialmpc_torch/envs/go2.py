@@ -93,7 +93,7 @@ class UnitreeGo2Env(LeggedEnv):
             model = self._place_crate(model, config)
         self.model: PhysicsModel = model.with_options(timestep=config.timestep)
         self._torso_idx = self.model.body_names.index(self.TORSO_BODY)
-        self._feet_site_id = [self.model.site_names.index(s) for s in self.FEET_SITES]
+        feet = [self.model.site_names.index(s) for s in self.FEET_SITES]
         key_qpos = self.model.key_qpos.get("home")
         self._init_q = np.asarray(key_qpos if key_qpos is not None else self.model.qpos0)
 
@@ -135,6 +135,9 @@ class UnitreeGo2Env(LeggedEnv):
         self.joint_torque_range = self._tensor(torque_range)
         self.termination_joint_range = self._tensor(termination)
         self._gait_phases = self._tensor(gait.GAIT_PHASES[gait_name])
+        # every index and constant the per-step ops need, on the device, once
+        self._feet_site_id = self._tensor(feet, torch.long)
+        self._up_global = self._tensor([0.0, 0.0, 1.0])
         self._on_fused = pick_physics(self.model, config.fused, self.device, self._fused_spec())
 
     def _place_crate(self, model: PhysicsModel, config) -> PhysicsModel:
@@ -246,7 +249,7 @@ class UnitreeGo2Env(LeggedEnv):
             z_feet_tar = torch.maximum(z_feet_tar, self._support_z(feet[..., 0], feet[..., 1]))
         reward_gaits = -torch.sum(((z_feet_tar - z_feet) / 0.05) ** 2, dim=-1)
 
-        up_global = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=qpos.device)
+        up_global = self._up_global
         up_body = rot.rotate(up_global, torso_xquat)
         reward_upright = -torch.sum((up_body - up_global) ** 2, dim=-1)
 

@@ -162,7 +162,6 @@ class UnitreeH1Env(LeggedEnv):
         self.physical_joint_range = self._tensor(model_range)
         self.joint_torque_range = self._tensor(torque_range)
         self._gait_phases = self._tensor(gait.BIPED_GAIT_PHASES[g])
-        self._duty = self._tensor(self._gait_params[0])
         self._up_global = self._tensor([0.0, 0.0, 1.0])
         self._foot_contact_z = self._tensor(foot_contact_z)
         self._on_fused = pick_physics(m, config.fused, self.device, self._fused_spec())
@@ -220,9 +219,9 @@ class UnitreeH1Env(LeggedEnv):
             ], dim=-1)
 
         z_feet = site_xpos[..., self._feet_idx, 2]
-        _, cadence, amplitude = self._gait_params
+        duty, cadence, amplitude = self._gait_params
         z_feet_tar = gait.get_foot_step(
-            self._duty, cadence, amplitude, self._gait_phases, (step * dt)[..., None]
+            duty, cadence, amplitude, self._gait_phases, (step * dt)[..., None]
         ).to(dtype)
         reward_gaits = -torch.sum(((z_feet_tar - z_feet) / 0.05) ** 2, dim=-1)
 

@@ -50,7 +50,9 @@ class ShardedMBDPI(MBDPI):
     scoring over this rank's block, its `_reduce` an all-reduce."""
 
     def __init__(self, args: DialConfig, env, mesh: Mesh):
-        super().__init__(args, env)
+        # eager: a gloo all-reduce is a host round trip, which a CUDA graph
+        # cannot capture (MBDPI's capture, planner/capture.py)
+        super().__init__(args, env, capture=False)
         self.mesh = mesh
         self.block = sample_sharding(mesh, args.Nsample)
         # collectives wherever there is a process group, even of one rank

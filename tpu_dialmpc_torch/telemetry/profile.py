@@ -41,6 +41,13 @@ import torch
 
 from tpu_dialmpc_torch.dynamics import _build, fused
 
+# seconds a trace waits after its final synchronize before the profiler
+# stops: the device records of the last kernels before the stop can reach
+# the profiler late (seen on an H100 under CUDA graph replays: the tail of
+# the window's last graph missing from the trace), and are lost if it stops
+# first.  `tests/trace_tail_probe.py` measures the loss with and without it.
+TRACE_SETTLE_S = 0.5
+
 # the card's shape for the microbench: threads per block, blocks per SM,
 # dependent FMA steps per accumulator
 PEAK_THREADS = 256
@@ -344,7 +351,7 @@ def phase_timings(task: str = "go2_stand", nsample: int = 2048,
 
     env = get_env(task, device=device, n_substeps=n_substeps)
     cfg = DialConfig(Hsample=hsample, Hnode=hnode, Nsample=nsample, Ndiffuse=2)
-    mb = MBDPI(cfg, env)
+    mb = MBDPI(cfg, env, capture=False)  # a CUDA graph has no phases to time apart
     state = to_lean(env.reset())
     dtype = state.obs.dtype
     Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=dtype, device=env.device)
@@ -373,8 +380,8 @@ def phase_timings(task: str = "go2_stand", nsample: int = 2048,
 
 def capture_trace(path: str, fn, *args):
     """Run `fn(*args)` under `torch.profiler` (CPU, and CUDA where there is
-    a card), wait for the device, and write the Chrome trace to
-    `path/trace.json`; returns fn's output."""
+    a card), wait for the device and its last records (`TRACE_SETTLE_S`),
+    and write the Chrome trace to `path/trace.json`; returns fn's output."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
@@ -384,6 +391,7 @@ def capture_trace(path: str, fn, *args):
         out = fn(*args)
         if cuda:
             torch.cuda.synchronize()
+            time.sleep(TRACE_SETTLE_S)
     os.makedirs(path, exist_ok=True)
     prof.export_chrome_trace(os.path.join(path, "trace.json"))
     return out
