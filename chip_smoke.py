@@ -105,11 +105,17 @@ package's XLA path as batched PyTorch ops, which has no kernel of its own):
     float64, with the active contacts of every kind counted;
   - [physics no-syncs] a profiler window over a warm `pipeline.step`: no
     synchronising call and no host-device copy, and its kernels per substep;
-  - [xla-path go2_stand] go2_stand with fused="off" at full width: one
-    timed `reverse_once` under injected noise held against the fused
-    path's, and one timed control step executed by `env.step`;
+  - [xla-path go2_stand] go2_stand with fused="off" at full width, the
+    planner capturing its env steps as CUDA graphs (B=2049 for the
+    rollouts' horizon step, B=1 for the executed step): 3 `reverse_once`
+    and 2 chained control steps (graph replays, under
+    set_sync_debug_mode("error")) bit-equal to `MBDPI(capture=False)`'s,
+    median ms of both, each graph's nodes and capture and instantiate
+    seconds, the phase's peak memory, no fused launch; and one
+    `reverse_once` under injected noise held against the fused path's;
   - [xla-path compat_q1] the chained-candidate planner at a small width,
-    card against CPU float64;
+    captured on the card (its env.step graph at B=1) against the CPU in
+    float64;
   - [cli] `replay` of the [cli] phase's trajectory through `env.step`, and
     `env-test` for 20 steps.
 Then the single-device tools:
@@ -132,13 +138,18 @@ Then the single-device tools:
 Then the sample-parallel planner (`shard/`) and its measuring entry points,
 each rank a process spawned by `shard.distributed.run_group`:
   - [shard nccl-1] go2_stand at full width through `ShardedMBDPI` in a
-    one-rank NCCL group: one `reverse_once` under injected noise and one
-    from the shared generator, each against `MBDPI` on the same inputs
-    (Ybar max abs diff and weights over the largest weight, 1e-5), the
-    fused launches of each (Hsample+1), and both planners timed;
+    one-rank NCCL group, captured (its all-reduces inside the graph): a
+    `reverse_once` under injected noise, one from the shared generator and
+    one more under the injected noise (a replay), each against `MBDPI` on
+    the same inputs (Ybar max abs diff and weights over the largest weight,
+    1e-5) and against the eager sharded planner to the bit (the same bytes
+    all-reduced), the fused launches of each (Hsample+1); the captured and
+    eager sharded planner and `MBDPI` timed in turns, the captured one at
+    most 1.10x `MBDPI`;
   - [shard gloo-2] the same on two gloo ranks sharing the card (NCCL refuses
-    two ranks on one device), 1025 candidates each: the ranks equal to the
-    bit, each against MBDPI, each rank's launches and time;
+    two ranks on one device), 1025 candidates each, eager (gloo's
+    all-reduces are host round trips): the ranks equal to the bit, each
+    against MBDPI, each rank's launches and time;
   - [scaling] the CLI's `scaling` (one row: one card), then
     `collective_overhead_report` with two gloo ranks on the card at the same
     width, and `predicted_efficiency_rows` from the two;
@@ -173,6 +184,7 @@ import time
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
@@ -538,8 +550,6 @@ def make_wide_pattern():
     """The fused pair-kinds model (nv=36, WIDE_PATTERN_SCENE) compiled by the
     port from its MJCF, and its FusedStep (8 substeps, the Go2 envs' reward
     inputs), as an object with the `model` and `fused_step` an env has."""
-    from types import SimpleNamespace
-
     from tpu_dialmpc_torch.dynamics import fused
     from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
     from tpu_dialmpc_torch.dynamics.model import load_scene
@@ -1175,6 +1185,7 @@ def phase_capture(path, env, cfg, mbc, state, Y0, device, captured_ms):
           + f"; generators' states after: {'equal' if same_gen else 'DIFFERENT'}")
     check(per_replay == expect, f"{task}: a replay did not add its captured launches")
     check(same_gen, f"{task}: the captured units drew the noise otherwise than the eager ones")
+    print_graphs(f"[capture {task}]", mbc)
 
     gen = gens[1]
     eager_ms = (_median_ms(lambda: mbe.reverse_once(state, gen, Y0, scale), 3),
@@ -1487,14 +1498,64 @@ def phase_no_syncs(env, device):
     return n / N_SUBSTEPS
 
 
+XLA_CALLS = 3  # reverse_once calls held captured against eager on the pipeline path
+XLA_STEPS = 2  # chained control steps, the same
+XLA_WINDOW = 2  # replays of the B=2049 env-step graph in its profile window
+
+
+def graph_nodes(cuda_graph) -> int:
+    """The nodes of a kept `torch.cuda.CUDAGraph` (`keep_graph=True`, as
+    `capture.CudaGraph` makes them), from libcuda's cuGraphGetNodes."""
+    import ctypes
+
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = fn(ctypes.c_void_p(cuda_graph.raw_cuda_graph()), None, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
+def print_graphs(tag, mbdpi):
+    """One line per captured unit of `mbdpi`: nodes, capture and instantiate
+    seconds; returns {unit: nodes}."""
+    nodes = {}
+    for name, unit in mbdpi.graphs.units.items():
+        g = unit.graph
+        if g.capture_s is None:
+            continue
+        nodes[name] = graph_nodes(g.graph)
+        print(f"{tag} graph of {name}: {nodes[name]} nodes, capture {g.capture_s:.3f} s, "
+              f"instantiate {g.instantiate_s:.3f} s; {unit.calls} calls")
+    return nodes
+
+
 def phase_xla_path(fused_env, device, all_envs):
     """go2_stand with fused="off" at full width (Nsample=2048, Hsample=20,
-    Hnode=5, 8 substeps) through get_env, MBDPI and make_control_step:
-    reset, one timed reverse_once with injected noise, its rewards (2049,
-    21) and Ybar held against the fused path's on the same noise and state;
-    then one timed control step (Ndiffuse=2, executed by env.step).  The 10-iteration warm start (`reverse`, Ndiffuse_init=10)
-    is skipped: ten more reverse_once of several seconds each on this path
-    would not fit the script's time limit, and it adds no code path."""
+    Hnode=5, 8 substeps) through get_env, MBDPI and make_control_step.  The
+    planner captures (`MBDPI(capture="auto")` on the card): each env step is
+    a replay of its CUDA graph, B=2049 for the rollouts' horizon step and
+    B=1 for the executed step (`planner/capture.py`).
+    - reset, one reverse_once with injected noise (its first two horizon
+      steps build the B=2049 graph: an eager call, then the capture); two
+      chained control steps (the B=1 graph's eager call and capture),
+      executed by env.step;
+    - XLA_CALLS reverse_once and XLA_STEPS chained control steps, every one
+      a replay, against `MBDPI(capture=False)` on the same state, plan and
+      generator seed: every output field bit-equal, the generators alike
+      after, the captured calls under torch.cuda.set_sync_debug_mode("error");
+      median ms of both; no fused launch in all this;
+    - the first reverse_once's rewards (2049, 21) and Ybar held against the
+      fused path's on the same noise and state;
+    - the graphs' nodes, capture and instantiate seconds, a profile window
+      over XLA_WINDOW replays of the B=2049 graph (device busy and idle),
+      and the phase's peak memory (torch.cuda.max_memory_allocated).
+    The 10-iteration warm start (`reverse`, Ndiffuse_init=10) is skipped:
+    ten more eager reverse_once of several seconds each would not fit the
+    script's time limit, and it adds no code path.  Returns the median ms
+    (reverse_once captured, control step captured, reverse_once eager,
+    control step eager)."""
     import torch
 
     from tpu_dialmpc_torch.envs import dial_defaults, get_env
@@ -1503,6 +1564,9 @@ def phase_xla_path(fused_env, device, all_envs):
     from tpu_dialmpc_torch.planner.runner import make_control_step
 
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
     env = get_env("go2_stand", device=device, fused="off")
     cfg = DialConfig(**dial_defaults("go2_stand"))
     check((cfg.Nsample, cfg.Hsample, cfg.Hnode, env.config.n_substeps) == (2048, 20, 5, 8),
@@ -1510,12 +1574,15 @@ def phase_xla_path(fused_env, device, all_envs):
     check(not env.on_fused_path, "fused='off' did not pick the physics pipeline")
     for e in all_envs:  # every count to 0 just before this path
         e.fused_step.launches = 0
-    mb, fmb = MBDPI(cfg, env), MBDPI(cfg, fused_env)
+    mb, mbe, fmb = MBDPI(cfg, env), MBDPI(cfg, env, capture=False), MBDPI(cfg, fused_env)
+    check(mb.captured and not mb.graphs.whole,
+          "MBDPI(capture='auto') does not capture the env steps on the physics pipeline")
     state = env.reset()
     Y = torch.zeros((cfg.Hnode + 1, env.action_size), device=device)
     scale = torch.as_tensor(mb.sigma_control, dtype=torch.float32, device=device)
     noise = torch.randn((cfg.Nsample, cfg.Hnode + 1, env.action_size), device=device,
                         generator=torch.Generator(device=device).manual_seed(21))
+
     def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1529,14 +1596,59 @@ def phase_xla_path(fused_env, device, all_envs):
         rewss = mb.rollout_us_batch(state, mb.node2u(all_Y0s))
         return all_Y0s, rewss, mb._score_update(rewss, all_Y0s, scale)[0]
 
-    ro_ms, (all_Y0s, rewss, Ybar) = timed(reverse_once)
+    first_ms, (all_Y0s, rewss, Ybar) = timed(reverse_once)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    cs_ms, (state2, Y2, _) = timed(lambda: make_control_step(mb, cfg.Ndiffuse)(state, Ybar, gen))
+    step = make_control_step(mb, cfg.Ndiffuse)
+    build_ms, s2 = [], (state, Ybar)
+    for _ in range(2):  # the B=1 graph: its eager call, then its capture
+        ms, out = timed(lambda: step(*s2, gen))
+        build_ms.append(ms)
+        s2 = out[:2]
+    state2, Y2 = s2
+    check(bool(torch.isfinite(Y2).all()) and state2.pipeline.efc_force is not None,
+          "the control step did not execute through env.step")
+
+    # captured (every call a replay) against eager, call for call
+    gens = [torch.Generator(device=device).manual_seed(cfg.seed + 100) for _ in range(2)]
+    steps = (step, make_control_step(mbe, cfg.Ndiffuse))
+    ms = {("reverse_once", k): [] for k in range(2)}
+    ms.update({("control step", k): [] for k in range(2)})
+    for unit, n in (("reverse_once", XLA_CALLS), ("control step", XLA_STEPS)):
+        worst, unequal = {}, set()
+        chain = [(state, Ybar), (state, Ybar)]
+        for _ in range(n):
+            outs = []
+            for k, planner in enumerate((mb, mbe)):
+                if unit == "reverse_once":
+                    fn = lambda: planner.reverse_once(state, gens[k], Ybar, scale)  # noqa: E731
+                else:
+                    fn = lambda: steps[k](*chain[k], gens[k])  # noqa: E731
+                torch.cuda.synchronize()
+                if k == 0:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    t = time.perf_counter()
+                    out = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                ms[(unit, k)].append((time.perf_counter() - t) * 1e3)
+                if unit == "reverse_once":
+                    outs.append({"Ybar": out[0], "info": out[1]})
+                else:
+                    chain[k] = out[:2]
+                    outs.append({"state": out[0], "Ybar": out[1], "infos": out[2]})
+            _hold_unit(worst, unequal, outs[0], outs[1])
+        print(f"[xla-path go2_stand] {unit} x{n}, captured (env-step graph replays) vs "
+              f"capture=False, same state, plan and generator seed: max abs diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        check(not unequal, f"the pipeline path's captured {unit} is not bit-equal to the eager "
+                           f"one in {sorted(unequal)}")
+    same_gen = torch.equal(gens[0].get_state(), gens[1].get_state())
+    check(same_gen, "the pipeline path's captured units drew the noise otherwise than the eager")
     launched = [e.fused_step.launches for e in all_envs]
     check(env._fused_step is None and not any(launched),
           f"the fused='off' path launched the fused kernel: {launched}")
-    check(bool(torch.isfinite(Y2).all()) and state2.pipeline.efc_force is not None,
-          "the control step did not execute through env.step")
 
     # the fused path's rollouts of the same candidates from the same state
     frewss = fmb.rollout_us_batch(to_lean(fused_env.reset()), mb.node2u(all_Y0s))
@@ -1552,20 +1664,43 @@ def phase_xla_path(fused_env, device, all_envs):
           "non-finite rewards or Ybar on the physics pipeline")
     check(med <= 1e-3 and p99 <= P99_TOL and dY <= 5e-2,
           "the physics pipeline's reverse_once disagrees with the fused path's")
+
+    med_ms = {key: statistics.median(v) for key, v in ms.items()}
+    nodes = print_graphs("[xla-path go2_stand]", mb)
+    check(sorted(nodes) == ["env.step", "rollout step"],
+          f"the pipeline path captured {sorted(nodes)}, not the env step at B=2049 and B=1")
+    # where a replay's time goes: the B=2049 graph on its current inputs,
+    # against [physics no-syncs]' eager pipeline.step
+    unit = mb.graphs.units["rollout step"]
+    window = _profile_window(lambda: unit(unit.static), XLA_WINDOW, SimpleNamespace(launches=0))
+    print(f"[profile xla-path go2_stand] rollout step (B=2049) x{XLA_WINDOW}, graph replays: "
+          f"{json.dumps(window)}")
+    check(window["stream_syncs"] == 0, "a pipeline graph's replay synchronised with the host")
+    peak = torch.cuda.max_memory_allocated()
     wall = time.perf_counter() - t0
-    print(f"[xla-path go2_stand] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/sub"
-          f"{env.config.n_substeps} on the physics pipeline: reverse_once {ro_ms:.1f} ms, control "
-          f"step (env.step + shift + {cfg.Ndiffuse} reverse_once) {cs_ms:.1f} ms; reward after "
-          f"the step {state2.reward.item():.5f}; path wall {wall:.1f} s")
-    return ro_ms, cs_ms
+    print(f"[xla-path go2_stand] bit-equal, generators alike, no synchronising call in a "
+          f"captured unit under set_sync_debug_mode('error'); N{cfg.Nsample}/H{cfg.Hsample}/"
+          f"Hnode{cfg.Hnode}/sub{env.config.n_substeps} on the physics pipeline, median ms: "
+          f"reverse_once captured {med_ms[('reverse_once', 0)]:.1f} / eager "
+          f"{med_ms[('reverse_once', 1)]:.1f}, control step (env.step + shift + {cfg.Ndiffuse} "
+          f"reverse_once) captured {med_ms[('control step', 0)]:.1f} / eager "
+          f"{med_ms[('control step', 1)]:.1f}; the graphs' first calls: reverse_once "
+          f"{first_ms:.1f} ms (B=2049: eager call, capture), control steps "
+          f"{build_ms[0]:.1f} / {build_ms[1]:.1f} ms (B=1: eager call, capture); reward after "
+          f"the step {state2.reward.item():.5f}; peak memory allocated {peak / 2**30:.2f} GiB, "
+          f"{(peak - held) / 2**30:.2f} GiB above what the phase started with; path wall "
+          f"{wall:.1f} s")
+    return (med_ms[("reverse_once", 0)], med_ms[("control step", 0)],
+            med_ms[("reverse_once", 1)], med_ms[("control step", 1)])
 
 
 def phase_compat(device):
     """compat_q1 (reference quirk Q1) at Nsample=8, Hsample=4: the candidates
     chained one after another through env.step, on the card in float32
-    against the CPU in float64.  The path is sequential over candidates by
-    design (a parity fixture, not for production): at full width it would
-    be 2049 x 21 sequential env.steps, so it runs small here."""
+    (captured: each env.step a replay of its B=1 CUDA graph) against the CPU
+    in float64.  The path is sequential over candidates by design (a parity
+    fixture, not for production): at full width it would be 2049 x 21
+    sequential env.steps, so it runs small here."""
     import dataclasses
 
     import torch
@@ -1580,17 +1715,22 @@ def phase_compat(device):
     for dev, dtype in ((device, "float32"), ("cpu", "float64")):
         env = get_env("go2_stand", device=dev, dtype=dtype)
         mb = MBDPI(cfg, env)
+        check(mb.captured == (dev == device), f"compat_q1 on {dev}: captured={mb.captured}")
         t0 = time.perf_counter()
         Y = torch.zeros((cfg.Hnode + 1, 12), dtype=env._dtype, device=dev)
         scale = torch.as_tensor(mb.sigma_control, dtype=env._dtype, device=dev)
         res = mb.reverse_once_compat(env.reset(), None, Y, scale, noise=noise.to(dev, env._dtype))
         out.append((res, time.perf_counter() - t0))
+        if mb.captured:
+            nodes = print_graphs("[xla-path compat_q1]", mb)
+            check(list(nodes) == ["env.step"], f"compat_q1 captured {list(nodes)}")
     ((Y32, i32, p32), s32), ((Y64, i64, p64), s64) = out
     drew = (i32.rews.double().cpu() - i64.rews).abs().max().item()
     dq = (p32[0].double().cpu() - p64[0]).abs().max().item()
     dY = (Y32.double().cpu() - Y64).abs().max().item()
     print(f"[xla-path compat_q1] N{cfg.Nsample}/H{cfg.Hsample}, {cfg.Nsample + 1} candidates x "
-          f"{cfg.Hsample + 1} chained env.steps: card {s32:.1f} s, CPU float64 {s64:.1f} s; "
+          f"{cfg.Hsample + 1} chained env.steps: card {s32:.1f} s (captured), CPU float64 "
+          f"{s64:.1f} s; "
           f"mean rewards max abs diff {drew:.2e} (tolerance 1e-3), final chained qpos {dq:.2e} "
           f"(tolerance 1e-2), Ybar {dY:.2e} (tolerance 5e-2)")
     check(drew <= 1e-3 and dq <= 1e-2 and dY <= 5e-2, "compat_q1 on the card disagrees with the CPU")
@@ -1870,25 +2010,41 @@ SHARD_WIDTH = (2048, 20, 5, 8)  # go2_stand's full width
 SHARD_TOL = 1e-5  # Ybar max abs diff, weights max abs diff over the largest weight
 
 
+SHARD_OVER_MBDPI = 1.10  # one captured NCCL rank's ms over the captured MBDPI's, at most
+
+
 def _hold_sharded(tag, outs, horizon):
     """Every rank against the single-device planner, the ranks against each
-    other to the bit, and each rank's launches per reverse_once."""
+    other to the bit, each rank's launches per reverse_once, and a captured
+    planner against the eager sharded one to the bit, with the same bytes
+    all-reduced per call."""
     import numpy as np
+    from torch_shard_ranks import SHARD_HOWS
 
-    for how in ("injected", "generator"):
+    for how in SHARD_HOWS:
         for rank, out in enumerate(outs):
             o = out[how]
             dy = float(np.abs(o["Ybar"] - o["single_Ybar"]).max())
             dw = float(np.abs(o["weights"] - o["single_weights"]).max() / o["single_weights"].max())
             print(f"[{tag}] rank {rank} ({out['backend']}, samples {out['block'][0]}-"
-                  f"{out['block'][1] - 1} + the anchor) {how}: Ybar max abs diff from MBDPI "
-                  f"{dy:.3e}, weights {dw:.3e} of the largest (tolerance {SHARD_TOL:.0e}); "
-                  f"fused launches {o['launches']} (expected {horizon})")
+                  f"{out['block'][1] - 1} + the anchor, captured={out['captured']}) {how}: Ybar "
+                  f"max abs diff from MBDPI {dy:.3e}, weights {dw:.3e} of the largest (tolerance "
+                  f"{SHARD_TOL:.0e}); fused launches {o['launches']} (expected {horizon}); "
+                  f"{o['reduced_bytes']} bytes all-reduced")
             check(bool(np.isfinite(o["Ybar"]).all()), f"{tag}: non-finite Ybar")
             check(dy <= SHARD_TOL and dw <= SHARD_TOL, f"{tag}: the sharded planner disagrees "
                   "with MBDPI")
             check(o["launches"] == horizon, f"{tag}: a rank did not launch the kernel once per "
                   "horizon step")
+            if out["captured"]:
+                same = (np.array_equal(o["Ybar"], o["eager_Ybar"])
+                        and np.array_equal(o["weights"], o["eager_weights"]))
+                print(f"[{tag}] rank {rank} {how}: captured vs capture=False Ybar and weights "
+                      f"equal to the bit: {same}; bytes all-reduced {o['reduced_bytes']} / "
+                      f"{o['eager_reduced_bytes']}")
+                check(same, f"{tag}: the captured sharded planner disagrees with the eager one")
+                check(o["reduced_bytes"] == o["eager_reduced_bytes"] > 0,
+                      f"{tag}: a replay did not add the bytes its capture all-reduced")
         if len(outs) > 1:
             same = all(np.array_equal(out[how]["Ybar"], outs[0][how]["Ybar"])
                        and np.array_equal(out[how]["weights"], outs[0][how]["weights"])
@@ -1900,8 +2056,13 @@ def _hold_sharded(tag, outs, horizon):
 def phase_shard():
     """go2_stand at full width through ShardedMBDPI: one rank of NCCL, then
     two gloo ranks sharing the card (NCCL refuses two ranks on one device),
-    each rank a spawned process.  Timed in turns: on one rank against
-    MBDPI, on two against MBDPI at each rank's block size (the same
+    each rank a spawned process.  The NCCL rank's planner captures its
+    reverse_once, all-reduces inside the graph (`MBDPI(capture="auto")`
+    rules, planner/capture.py), and is held to the bit against the eager
+    sharded planner; gloo's all-reduces are host round trips, so those
+    ranks run eagerly.  Timed in turns: on one rank against the eager
+    sharded planner and MBDPI (captured), at most SHARD_OVER_MBDPI times
+    MBDPI's ms; on two against MBDPI at each rank's block size (the same
     rollouts, no collective).  Returns (NCCL ranks' ms by planner, gloo
     ranks' ms by planner, each rank's launches per reverse_once)."""
     import torch_shard_ranks as ranks
@@ -1914,16 +2075,37 @@ def phase_shard():
         t0 = time.perf_counter()
         outs = distributed.run_group(ranks.card_reverse_once, world, (SHARD_WIDTH, 7, compare),
                                      backend=backend, device="cuda:0", timeout_s=300)
-        _hold_sharded(tag, outs, horizon)
         check(all(o["backend"] == backend for o in outs), f"{tag}: the group is not {backend}")
+        check(all(o["captured"] == (backend == "nccl") for o in outs),
+              f"{tag}: ShardedMBDPI(capture='auto') did not capture on NCCL alone")
+        if backend == "gloo":
+            print(f"[{tag}] eager, as capture='auto' rules on a gloo group: its all-reduces "
+                  "are host round trips, which a CUDA graph cannot hold")
+        _hold_sharded(tag, outs, horizon)
         for rank, o in enumerate(outs):
             calls = ", ".join(f"{k} x{c} ({ms:.2f} ms host)" for k, (c, ms) in
                               sorted(o["host_calls"].items()))
             print(f"[{tag}] rank {rank}: median ms per reverse_once (7 calls in turns): "
                   f"{json.dumps({k: round(v, 2) for k, v in o['ms'].items()})}; one sharded "
                   f"call's {calls}")
-            check(o["host_calls"].get("c10d::allreduce_", (0,))[0] > 0,
+            # captured, the all-reduces are in the graph the call launched:
+            # the eager sharded planner's call makes them from the host
+            check(o.get("eager_host_calls", o["host_calls"]).get("c10d::allreduce_", (0,))[0] > 0,
                   f"{tag}: the sharded call made no all-reduce")
+            if o["captured"]:
+                print(f"[{tag}] rank {rank}: one eager sharded call's " + ", ".join(
+                    f"{k} x{c} ({ms:.2f} ms host)"
+                    for k, (c, ms) in sorted(o["eager_host_calls"].items())))
+                check(o["host_calls"].get("cudaGraphLaunch", (0,))[0] == 1
+                      and "c10d::allreduce_" not in o["host_calls"],
+                      f"{tag}: the captured sharded call did not replay one graph")
+        if backend == "nccl":
+            ratio = outs[0]["ms"]["sharded"] / outs[0]["ms"]["single"]
+            print(f"[{tag}] the captured sharded reverse_once over the captured MBDPI's: "
+                  f"{ratio:.3f}x (limit {SHARD_OVER_MBDPI:.2f}x); eager sharded "
+                  f"{outs[0]['ms']['eager'] / outs[0]['ms']['single']:.3f}x")
+            check(ratio <= SHARD_OVER_MBDPI,
+                  f"{tag}: one NCCL rank costs {ratio:.3f}x the captured MBDPI")
         print(f"[{tag}] N{SHARD_WIDTH[0]}/H{SHARD_WIDTH[1]}/Hnode{SHARD_WIDTH[2]}/sub"
               f"{SHARD_WIDTH[3]}; phase wall {time.perf_counter() - t0:.1f} s")
         groups[tag] = outs
@@ -2186,14 +2368,15 @@ def main():
             physics_ms[scene] = phase_physics(env, path.inputs, device, what)
         phase_pair_kinds(device)
         per_substep = phase_no_syncs(by_scene["go2_force"][1], device)
-        ro_ms, cs_ms = phase_xla_path(by_scene["go2_force"][1], device, all_envs)
+        xla_ms = phase_xla_path(by_scene["go2_force"][1], device, all_envs)
         phase_compat(device)
         drift = phase_cli_physics()
         print(f"[time physics] the physics pipeline's phases: wall {time.perf_counter() - t0:.1f} s")
         summary.append("physics pipeline, 8 substeps at B=2049: " + ", ".join(
             f"{k} {v:.1f} ms" for k, v in physics_ms.items())
             + f", {per_substep:.0f} kernels per substep; go2_stand fused='off' reverse_once "
-            f"{ro_ms:.1f} ms, control step {cs_ms:.1f} ms; replay drift {drift:.3e}")
+            f"{xla_ms[0]:.1f} ms captured / {xla_ms[2]:.1f} eager, control step {xla_ms[1]:.1f} / "
+            f"{xla_ms[3]:.1f} ms; replay drift {drift:.3e}")
         t0 = time.perf_counter()
         record, phases, roof = phase_profile(device)
         records.append(record)
@@ -2233,8 +2416,8 @@ def main():
         records[0]["quality_launches"] = {"go2_trot": gate_launches["go2_trot"]}
         records[1]["quality_launches"] = {"go2_jump (crate at x=30)": gate_launches["go2_jump"]}
         summary.append(
-            f"go2_stand sharded reverse_once: 1 NCCL rank {nccl_ms['sharded']:.2f} ms (MBDPI "
-            f"{nccl_ms['single']:.2f} ms), 2 gloo ranks on the card {gloo_ms['sharded']:.2f} ms "
+            f"go2_stand sharded reverse_once: 1 NCCL rank {nccl_ms['sharded']:.2f} ms captured, "
+            f"{nccl_ms['eager']:.2f} eager (MBDPI {nccl_ms['single']:.2f} ms), 2 gloo ranks on the card {gloo_ms['sharded']:.2f} ms "
             f"(MBDPI at 1024 in each {gloo_ms['block']:.2f} ms); scaling "
             f"{scaling_row['ms_per_iteration']:.2f} ms per iteration on 1 card; overhead "
             f"{overhead['unsharded_ms']:.2f} -> {overhead['sharded_ms']:.2f} ms; bench "

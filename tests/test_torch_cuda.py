@@ -321,19 +321,27 @@ def test_sharded_planner_one_nccl_rank_matches_mbdpi_on_card(card):
     """ShardedMBDPI in a one-rank NCCL group (spawned), go2_stand at N64/H4,
     8 substeps: Ybar and weights against MBDPI on the same inputs, injected
     and from the shared generator (1e-5: float32, another summation order);
-    one fused launch per horizon step."""
+    one fused launch per horizon step.  The planner captures on NCCL: a
+    replayed call launches one graph and calls no all-reduce from the host,
+    its outputs and bytes all-reduced equal the eager sharded planner's,
+    whose call makes the 5 all-reduces."""
     import torch_shard_ranks as ranks
     from tpu_dialmpc_torch.shard import distributed
 
     [out] = distributed.run_group(ranks.card_reverse_once, 1, ((64, 4, 2, 8),), backend="nccl",
                                   device=card, timeout_s=300)
-    assert out["backend"] == "nccl" and out["block"] == (0, 64)
-    assert out["host_calls"]["c10d::allreduce_"][0] == 5  # score_std="sample"
-    for how in ("injected", "generator"):
+    assert out["backend"] == "nccl" and out["block"] == (0, 64) and out["captured"]
+    assert out["eager_host_calls"]["c10d::allreduce_"][0] == 5  # score_std="sample"
+    assert "c10d::allreduce_" not in out["host_calls"]
+    assert out["host_calls"]["cudaGraphLaunch"][0] == 1
+    for how in ranks.SHARD_HOWS:
         o = out[how]
         assert np.abs(o["Ybar"] - o["single_Ybar"]).max() <= 1e-5
         assert np.abs(o["weights"] - o["single_weights"]).max() <= 1e-5 * o["single_weights"].max()
         assert o["launches"] == 4 + 1
+        assert np.array_equal(o["Ybar"], o["eager_Ybar"])
+        assert np.array_equal(o["weights"], o["eager_weights"])
+        assert o["reduced_bytes"] == o["eager_reduced_bytes"] > 0
 
 
 def test_run_gate_on_card(card, monkeypatch):

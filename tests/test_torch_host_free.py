@@ -1,6 +1,7 @@
 """torch port: no host data and no host read inside a warm `reverse_once` or
-control step, on every fused path (what a CUDA graph of either needs, and
-what keeps the host out of the horizon loop).
+control step, on every fused path, and inside a warm batched `env.step`,
+`reverse_once` and control step on the physics pipeline (what a CUDA graph
+of each needs, and what keeps the host out of the horizon loop).
 
 A `TorchFunctionMode` records, inside the window:
 - `torch.tensor`, `torch.as_tensor`, `torch.asarray` or `Tensor.new_tensor`
@@ -12,6 +13,9 @@ A `TorchFunctionMode` records, inside the window:
 
 On the CPU the fused substep runs its plain version, which the card does
 not run (the kernel takes its place): the recorder is paused inside it.
+The physics pipeline is the code the card runs, so nothing is paused there:
+go2_stand with fused="off", and the pair-kinds scene (sphere-sphere,
+sphere-capsule and capsule-capsule pairs, which the fused substep lacks).
 Tiny widths (N8/H4/Hnode2, 1 substep); the window is the second call of
 each unit, the first one having made every cached constant.
 """
@@ -24,7 +28,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from tpu_dialmpc_torch.envs import get_env
-from tpu_dialmpc_torch.envs.base import to_lean
+from tpu_dialmpc_torch.envs.base import map_tensors, to_lean
 from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
 from tpu_dialmpc_torch.planner.runner import make_control_step
 
@@ -98,9 +102,9 @@ PATHS = {
 CFG = DialConfig(Nsample=8, Hsample=4, Hnode=2, Ndiffuse=2, Ndiffuse_init=3, seed=0)
 
 
-def _windows(env, probe):
-    """A warm reverse_once and a warm control step, each recorded alone:
-    {unit: uses}."""
+def _windows(env, probe, batch_step=False):
+    """A warm reverse_once and a warm control step, each recorded alone, and
+    with `batch_step` a warm env.step of Nsample+1 states: {unit: uses}."""
     mb = MBDPI(CFG, env, capture=False)
     gen = torch.Generator().manual_seed(0)
     state = to_lean(env.reset(gen))
@@ -109,6 +113,11 @@ def _windows(env, probe):
     step = make_control_step(mb, CFG.Ndiffuse)
     units = {"reverse_once": lambda: mb.reverse_once(state, gen, Y, scale),
              "control_step": lambda: step(state, Y, gen)}
+    if batch_step:
+        B = CFG.Nsample + 1
+        batch = map_tensors(state, lambda x: x.expand((B,) + tuple(x.shape)).contiguous())
+        us = 0.3 * torch.randn((B, env.action_size), dtype=env._dtype, generator=gen)
+        units = {"env.step": lambda: env.step(batch, us), **units}
     out = {}
     for name, fn in units.items():
         fn()  # warm: the cached constants are made here
@@ -128,6 +137,24 @@ def test_no_host_data_or_read_in_a_warm_reverse_once_or_control_step(name):
     env._fused_step = _PausedPlain(env.fused_step, probe)
     uses = _windows(env, probe)
     assert uses == {"reverse_once": [], "control_step": []}
+
+
+PIPELINE_PATHS = {
+    "go2_stand[fused=off]": ("go2_stand", {"fused": "off"}),
+    "go2_stand[go2_pair_kinds]": ("go2_stand", {"scene": "go2_pair_kinds"}),
+}
+
+
+@pytest.mark.parametrize("name", list(PIPELINE_PATHS))
+def test_no_host_data_or_read_on_the_physics_pipeline(name):
+    """The units a captured planner replays off the fused path (the env step
+    at a batch and at B=1) and what runs between them: no host data and no
+    host read anywhere in the window."""
+    task, overrides = PIPELINE_PATHS[name]
+    env = get_env(task, device="cpu", n_substeps=1, **overrides)
+    assert not env.on_fused_path
+    uses = _windows(env, HostUses(), batch_step=True)
+    assert uses == {"env.step": [], "reverse_once": [], "control_step": []}
 
 
 def test_the_probe_sees_host_data_in_the_window():

@@ -237,6 +237,33 @@ def test_go2_standin_on_two_ranks_matches_jax_sharded(groups, monkeypatch):
     np.testing.assert_array_equal(outs[0]["Ybar"], outs[1]["Ybar"])
 
 
+@pytest.mark.parametrize("world", [1, 2])
+def test_captured_sharded_planner_equals_eager_on_gloo_ranks(world, tmp_path):
+    """The captured ShardedMBDPI (the CPU stand-in for a CUDA graph, with
+    `pick_capture` patched as test_torch_capture.py's fixture does) on 1
+    and 2 gloo ranks: every call bit-equal to the eager sharded planner's,
+    whole graphs on the stub and env-step graphs on the physics pipeline,
+    the generator left alike, and the same bytes all-reduced per call (a
+    replay adds what its capture counted).  Unpatched, capture=True on a
+    gloo group raises, naming gloo."""
+    outs = distributed.run_group(ranks.captured_against_eager, world, device="cpu",
+                                 timeout_s=JOIN_TIMEOUT_S, address=f"file://{tmp_path / 's'}")
+    for rank, out in enumerate(outs):
+        assert "over a gloo process group" in out["raises"], out["raises"]
+        assert "not a CUDA device" in out["raises"]
+        for name in ("stub own draw", "stub injected", "stub control step", "go2 pipeline"):
+            got = out[name]
+            where = f"rank {rank} of {world}, {name}"
+            assert got["captured"] and got["whole"] == (name != "go2 pipeline"), where
+            assert got["equal"] == [True] * ranks.CAPTURED_CALLS, where
+            assert got["same_generator"], where
+            assert got["captured_bytes"] == got["eager_bytes"], where
+            assert min(got["eager_bytes"]) > 0, where
+        # a graph per unit: reverse_once (stub), the control step, and the
+        # pipeline's rollout step at the block + 1
+        assert out["captures"] == [1, 1, 1, 1], where
+
+
 # ---- the bootstrap: rendezvous, barriers, timeouts, no fallback ----
 
 

@@ -451,3 +451,53 @@ class TorchStubEnv:
         )
 
     step = step_lean  # the stub's one step, as StubFusedEnv.step (compat_q1 chains it)
+
+
+class EagerGraph:
+    """A stand-in for `planner.capture.CudaGraph` on the CPU: its capture
+    runs the unit's function once on the static buffers and keeps the
+    outputs, a replay runs it again and copies the results into those
+    outputs, as a CUDA graph writes its buffers.  The Python counters a
+    replay moves are set back by `capture.Unit`, as on the card, where a
+    replay runs no Python."""
+
+    def __init__(self, device=None):
+        self.fn = self.out = None
+        self.captures = self.replays = 0
+
+    def warm(self, fn):
+        return fn()
+
+    def capture(self, fn):
+        self.fn, self.captures = fn, self.captures + 1
+        self.out = fn()
+        return self.out
+
+    def replay(self):
+        from tpu_dialmpc_torch.planner import capture
+
+        new = capture._flatten(self.fn())
+        for dst, src in zip(capture._flatten(self.out), new):
+            dst.copy_(src)
+        self.replays += 1
+
+
+def use_eager_graphs(setattr_=setattr):
+    """Every planner built from here on captures wherever `capture` is not
+    False, through `EagerGraph`s; returns the list of graphs made.
+    `setattr_` patches `planner.capture`: a test's `monkeypatch.setattr`
+    (undone after the test), the builtin in a rank process."""
+    from tpu_dialmpc_torch.planner import capture
+
+    graphs = []
+
+    def make(device):
+        graphs.append(EagerGraph(device))
+        return graphs[-1]
+
+    def pick(mode, env, backend=None):
+        return mode is not False
+
+    setattr_(capture, "pick_capture", pick)
+    setattr_(capture, "CudaGraph", make)
+    return graphs

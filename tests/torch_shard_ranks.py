@@ -21,6 +21,7 @@ STUB = dict(Hsample=6, Hnode=2, Nsample=16, ctrl_dt=0.02)
 OWN = dict(Hsample=6, Hnode=2, Nsample=13, ctrl_dt=0.02)  # uneven blocks on 2, 3, 4 ranks
 GO2 = dict(Nsample=8, Hsample=4, Hnode=2)
 GO2_SUBSTEPS = 1
+NU_STUB = 4  # TorchStubEnv's
 INFO_FIELDS = ("rews", "rew_Ybar", "weights", "ess", "entropy", "qbar", "qdbar", "xbar")
 
 
@@ -103,6 +104,84 @@ def cases(mesh, specs):
     return out
 
 
+def _same(a, b) -> bool:
+    from tpu_dialmpc_torch.planner.capture import _flatten
+
+    la, lb = _flatten(a), _flatten(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+CAPTURED_CALLS = 3  # the eager first call, the capture and a replay
+
+
+def captured_against_eager(mesh):
+    """The captured ShardedMBDPI on this rank's gloo group, through the CPU
+    stand-in for a CUDA graph (`torch_port_helpers.use_eager_graphs`),
+    against the eager one: on the stub, reverse_once from the planner's own
+    draw and under injected noise and a chain of control steps (whole
+    graphs); on go2_stand with fused="off", reverse_once (the env step's
+    graph at the block + 1).  Per case: every call's outputs bit-equal, the
+    generators' states equal after, the bytes all-reduced per call of each
+    planner.  First, `capture=True` on the gloo group and the CPU: the
+    message it raises."""
+    from torch_port_helpers import use_eager_graphs
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        ShardedMBDPI(DialConfig(**STUB), TorchStubEnv(), mesh, capture=True)
+        out["raises"] = None
+    except ValueError as e:
+        out["raises"] = str(e)
+    graphs = use_eager_graphs()
+    rng = np.random.default_rng(17)
+
+    def case(name, cfg, env, call):
+        cap, eag = ShardedMBDPI(cfg, env, mesh), ShardedMBDPI(cfg, env, mesh, capture=False)
+        gens = [torch.Generator().manual_seed(23) for _ in range(2)]
+        equal, nbytes = [], ([], [])
+        carry = [None, None]
+        for _ in range(CAPTURED_CALLS):
+            got = []
+            for k, planner in enumerate((cap, eag)):
+                before = planner.reduced_bytes
+                res, carry[k] = call(planner, gens[k], carry[k])
+                got.append(res)
+                nbytes[k].append(planner.reduced_bytes - before)
+            equal.append(_same(*got))
+        out[name] = dict(captured=cap.captured, whole=cap.graphs.whole, equal=equal,
+                         same_generator=torch.equal(gens[0].get_state(), gens[1].get_state()),
+                         captured_bytes=nbytes[0], eager_bytes=nbytes[1])
+
+    stub = TorchStubEnv()
+    cfg = DialConfig(**dict(STUB, diag_states=True))
+    Y = _t(rng.uniform(-0.5, 0.5, (STUB["Hnode"] + 1, NU_STUB)))
+    scale = _t(np.full(STUB["Hnode"] + 1, 0.4))
+    noise = _t(rng.normal(size=(STUB["Nsample"], STUB["Hnode"] + 1, NU_STUB)))
+    case("stub own draw", cfg, stub,
+         lambda p, g, c: (p.reverse_once(stub.reset(), g, Y, scale), None))
+    case("stub injected", cfg, stub,
+         lambda p, g, c: (p.reverse_once(stub.reset(), None, Y, scale, noise=noise), None))
+
+    def control(p, g, carried):
+        state, Y0 = carried or (stub.reset(), Y)
+        s2, Y2, infos = make_control_step(p, 2)(state, Y0, g)
+        # the stub's step carries `done` over from its input, which a
+        # graph's static state does not hold: the fields the step makes
+        return (s2.pipeline, s2.obs, s2.reward, Y2, infos), (s2, Y2)
+
+    case("stub control step", DialConfig(**STUB), stub, control)
+    go2, go2_cfg = go2_env(), go2_config()
+    Yg = _t(rng.uniform(-0.3, 0.3, (GO2["Hnode"] + 1, 12)))
+    scale_g = _t(0.5 ** np.arange(GO2["Hnode"], -1, -1))
+    start = go2.reset()
+    case("go2 pipeline", go2_cfg, go2,
+         lambda p, g, c: (p.reverse_once(start, g, Yg, scale_g), None))
+    out["captures"] = [g.captures for g in graphs]
+    return out
+
+
 def late_to_barrier(mesh, timeout_s):
     """Rank 0 waits at a barrier that rank 1 reaches only after rank 0's
     timeout (an all-reduce holds rank 1 back until then, whatever the
@@ -135,17 +214,26 @@ def fail_on_rank_1(mesh):
     return np.zeros(1)
 
 
+SHARD_HOWS = ("injected", "generator", "replayed")  # card_reverse_once's calls
+
+
 def card_reverse_once(mesh, width, reps=0, compare=()):
     """go2_stand at `width` (Nsample, Hsample, Hnode, n_substeps) on
-    mesh.device: one reverse_once through ShardedMBDPI and through MBDPI,
-    under injected noise (numpy seed 0) and from a generator seeded 1 (the
-    same on every rank), with each sharded call's fused-kernel launches
-    counted from 0, and the host calls of one sharded call (a profiler
-    window: all-reduces, stream synchronisations).  With `reps`, the median
-    ms of `reps` more sharded calls, each in turn with the planners named in
-    `compare`: "single" (MBDPI at Nsample) and "block" (MBDPI at this
-    rank's block size: the same rollouts with no collective).  Host values
-    out."""
+    mesh.device: reverse_once through ShardedMBDPI (captured where it can
+    be: an NCCL group) and through MBDPI, under injected noise (numpy seed
+    0), from a generator seeded 1 (the same on every rank) and under the
+    injected noise again ("replayed": a captured planner's first call runs
+    eagerly, its second captures and replays); each sharded call's
+    fused-kernel launches counted from 0 and bytes all-reduced; where the
+    sharded planner captures, the same calls of the eager one
+    (`capture=False`) beside it; and the host calls of one sharded call, and
+    of one eager sharded call (a profiler window each: all-reduces, graph
+    launches, stream synchronisations).
+    With `reps`, the median ms of `reps` more sharded calls, each in turn
+    with the eager sharded planner where there is one and the planners
+    named in `compare`: "single" (MBDPI at Nsample) and "block" (MBDPI at
+    this rank's block size: the same rollouts with no collective).  Host
+    values out."""
     import statistics
 
     from torch.profiler import ProfilerActivity, profile
@@ -159,6 +247,7 @@ def card_reverse_once(mesh, width, reps=0, compare=()):
     kw = dict(dial_defaults("go2_stand"), Hsample=h, Hnode=hnode)
     cfg = DialConfig(**dict(kw, Nsample=n))
     single, sharded = MBDPI(cfg, env), ShardedMBDPI(cfg, env, mesh)
+    eager = ShardedMBDPI(cfg, env, mesh, capture=False) if sharded.captured else None
     block = sharded.block.stop - sharded.block.start
     state = to_lean(env.reset())
     Y = torch.zeros((hnode + 1, env.action_size), dtype=torch.float32, device=device)
@@ -173,20 +262,34 @@ def card_reverse_once(mesh, width, reps=0, compare=()):
 
     distributed.barrier("card_reverse_once")  # every rank's env is up
     out = {"backend": torch.distributed.get_backend() if torch.distributed.is_initialized()
-           else None, "block": (sharded.block.start, sharded.block.stop)}
-    for how in ("injected", "generator"):
-        y1, w1 = call(single, how == "injected")
+           else None, "block": (sharded.block.start, sharded.block.stop),
+           "captured": sharded.captured}
+    for how in SHARD_HOWS:
+        injected = how != "generator"
+        y1, w1 = call(single, injected)
         env.fused_step.launches = 0
-        y, w = call(sharded, how == "injected")
+        b0 = sharded.reduced_bytes
+        y, w = call(sharded, injected)
         out[how] = dict(Ybar=y, weights=w, single_Ybar=y1, single_weights=w1,
-                        launches=env.fused_step.launches)
+                        launches=env.fused_step.launches,
+                        reduced_bytes=sharded.reduced_bytes - b0)
+        if eager is not None:
+            b0 = eager.reduced_bytes
+            ye, we = call(eager, injected)
+            out[how].update(eager_Ybar=ye, eager_weights=we,
+                            eager_reduced_bytes=eager.reduced_bytes - b0)
 
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        call(sharded, True)
-    out["host_calls"] = {e.key: (e.count, e.cpu_time_total / 1e3) for e in prof.key_averages()
-                         if e.key in ("c10d::allreduce_", "cudaStreamSynchronize")}
+    for key, planner in (("host_calls", sharded), ("eager_host_calls", eager)):
+        if planner is None:
+            continue
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call(planner, True)
+        out[key] = {e.key: (e.count, e.cpu_time_total / 1e3) for e in prof.key_averages()
+                    if e.key in ("c10d::allreduce_", "cudaGraphLaunch", "cudaStreamSynchronize")}
 
     timed = {"sharded": sharded}
+    if eager is not None:
+        timed["eager"] = eager
     if "single" in compare:
         timed["single"] = single
     if "block" in compare:

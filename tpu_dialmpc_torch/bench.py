@@ -18,7 +18,7 @@ budget), plus `platform`: "cuda" on the card, "cpu" with device="cpu".
   its fractions rounded to 6 decimals where the root bench rounds to 3.
 
 The planner captures its units where it can (`MBDPI(capture="auto")`: a
-CUDA env on the fused path, `planner/capture.py`), so on the card the rows
+CUDA env, `planner/capture.py`), so on the card the rows (the fused path)
 time the CUDA graphs of `reverse_once` and of the control step, as the JAX
 bench timed jitted chains; each row says so in `captured`.
 

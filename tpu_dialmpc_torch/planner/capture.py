@@ -1,39 +1,56 @@
-"""The planner's device programs: `reverse_once` and the control step as
-captured CUDA graphs.
+"""The planner's device programs as captured CUDA graphs: `reverse_once`
+and the control step on the fused path, one env step elsewhere.
 
 Counterpart of the JAX package's compiled programs: the jitted control step
 (`tpu_dialmpc/planner/runner.py:63`), the jitted warm start (`:112`),
-`run_scan`'s jitted chunk (`:267`) and the root bench's jitted chains of
-`reverse_once` (`bench.py:87`, `:139`).  PyTorch's form of a device
-program with no host in it is a CUDA graph: each unit's kernels are recorded
-once and replayed with one launch.
+`run_scan`'s jitted chunk (`:267`), the root bench's jitted chains of
+`reverse_once` (`bench.py:87`, `:139`), XLA's compile of the physics
+pipeline's scan over substeps (`tpu_dialmpc/dynamics/pipeline.py:192`) and
+the GSPMD program of the sharded planner (`tpu_dialmpc/shard/planner.py`).
+PyTorch's form of a device program with no host in it is a CUDA graph: each
+unit's kernels are recorded once and replayed with one launch.
 
 - The choice is made once, when the planner is built (`pick_capture`, as
   `envs/fused_rollout.pick_physics` chooses the physics): "auto" captures
-  where the env is on a CUDA device and on the fused substep's path and
-  `compat_q1` is off; True raises where those do not hold; False runs
-  eagerly, as `jax.disable_jit` does.  The physics pipeline stays eager
-  (~2,900 kernels per substep would make one `reverse_once` ~490k graph
-  nodes), and so does `ShardedMBDPI` (its collectives).
-- A unit (`reverse_once`, or the control step of one `n_diffuse`) runs
-  eagerly at its first call, on the side stream its capture will use: the
-  call builds and loads the kernel library (nvcc cannot run inside a
-  capture) and settles the stream's cuBLAS workspace.  The second call
-  captures it and every call from then on replays it.  A capture that fails
-  raises; nothing falls back to the eager path.
-- Inputs live in static buffers, filled by device-to-device copies before
-  each call: the state's qpos, qvel, warmstart and every `StateInfo` field,
-  Ybar, the noise scale, and the noise.  A state of another layout (shape,
-  dtype, device) raises: a planner captures one layout.
+  where the env is on a CUDA device and the planner's collectives, if it
+  has any (`ShardedMBDPI`), go over NCCL, which a graph can hold (gloo's are
+  host round trips); True raises where those do not hold; False runs
+  eagerly, as `jax.disable_jit` does.
+- What a unit is depends on the physics (`PlannerGraphs.whole`).  On the
+  fused substep's path, with `compat_q1` off: `reverse_once` and the
+  control step of one `n_diffuse`, whole.  Elsewhere (the physics pipeline,
+  ~2,900 kernels per substep, which would make one `reverse_once` ~490k
+  graph nodes; and `compat_q1`, which chains the candidates through
+  `env.step` one at a time): one env step (the ctrl map, `n_substeps` of
+  physics and the reward stack) per batch layout, the rollouts' horizon
+  step at B = the planner's block + 1 and `env.step` of one state (the
+  executed step, `compat_q1`'s chain), each replayed once per step; the
+  planner's ops between the steps (noise, `node2u`, scoring, `shift`) run
+  eagerly.
+- A unit runs eagerly at its first call, on the side stream its capture
+  will use: the call builds and loads the kernel library (nvcc cannot run
+  inside a capture), makes the model's cached constants, settles the
+  stream's cuBLAS workspace and creates the NCCL communicator.  The second
+  call captures it and every call from then on replays it.  A capture that
+  fails raises; nothing falls back to the eager path.
+- Inputs live in static, contiguous buffers, filled by device-to-device
+  copies before each call: the state's qpos, qvel, warmstart and every
+  `StateInfo` field (a batch broadcast from one state, a stride-0 view, is
+  copied whole), Ybar, the noise scale, the noise, the action.  Inputs of
+  another layout (shape, dtype, device) raise: a planner captures one
+  layout per unit.
 - The noise is drawn outside the graph, from the caller's generator, into
   the static noise buffer (`torch.randn(..., out=)`), in the order the
   eager path draws it (one draw per annealing iteration), so the generator's
-  sequence, and checkpoints that save it, stay what they are eagerly.
+  sequence, and checkpoints that save it, stay what they are eagerly.  The
+  buffer holds every sample's noise; a `ShardedMBDPI`'s graph slices its
+  rank's block, as the eager planner does.
 - Outputs are cloned out of the graph's buffers at every call: the next
   replay overwrites them, and some alias the static inputs.
-- `FusedStep.launches` counts launches in Python, which a replay does not
-  run: each graph keeps the count its capture made (taken back out of the
-  counter: a captured launch runs nothing) and adds it at every replay.
+- Python counters do not run in a replay: `FusedStep.launches` and
+  `ShardedMBDPI.reduced_bytes`.  Each graph keeps what its capture added
+  to them (taken back out: a captured launch runs nothing) and adds it at
+  every replay.
 
 `graph` is the backend: `CudaGraph` on the card; the tests give a stand-in
 that replays by calling the captured function into the same buffers.
@@ -42,6 +59,7 @@ that replays by calling the captured function into the same buffers.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, List
 
 import torch
@@ -51,9 +69,10 @@ from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState
 CAPTURE_MODES = ("auto", True, False)
 
 
-def pick_capture(mode, env, cfg) -> bool:
-    """Whether a planner on `env` with config `cfg` captures its units
-    (module docstring)."""
+def pick_capture(mode, env, backend=None) -> bool:
+    """Whether a planner on `env` captures its units (module docstring);
+    `backend` names the process group the planner all-reduces over, None
+    where it has no collective."""
     if not (mode is True or mode is False or mode == "auto"):
         raise ValueError(f"capture={mode!r}: expected one of {CAPTURE_MODES}")
     if mode is False:
@@ -61,11 +80,9 @@ def pick_capture(mode, env, cfg) -> bool:
     why = []
     if torch.device(env.device).type != "cuda":
         why.append(f"the env is on {torch.device(env.device)}, not a CUDA device")
-    if not getattr(env, "on_fused_path", False):
-        why.append("the env is not on the fused substep's path (the physics pipeline "
-                   "runs eagerly)")
-    if cfg.compat_q1:
-        why.append("compat_q1 chains the candidates through env.step")
+    if backend not in (None, "nccl"):
+        why.append(f"the planner all-reduces over a {backend} process group, whose host "
+                   "round trips a CUDA graph cannot hold (NCCL's collectives it can)")
     if why and mode is True:
         raise ValueError("capture=True, but " + "; ".join(why))
     return not why
@@ -105,12 +122,17 @@ def _layout(leaves):
 # ----------------------------------------------------------------------
 class CudaGraph:
     """One unit's CUDA graph: its eager first call and its capture on one
-    side stream, its replays on the caller's stream."""
+    side stream, its replays on the caller's stream.  `capture_s` and
+    `instantiate_s` time its capture; `graph.raw_cuda_graph()` stays valid
+    for counting its nodes."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device)
-        self.graph = torch.cuda.CUDAGraph()
+        # keep_graph: the capture ends without instantiating, so the two
+        # are timed apart and the graph can be read after
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.capture_s = self.instantiate_s = None
 
     def warm(self, fn):
         cur = torch.cuda.current_stream(self.device)
@@ -121,11 +143,16 @@ class CudaGraph:
         return out
 
     def capture(self, fn):
+        t0 = time.perf_counter()
         # thread_local: another thread's host reads (a telemetry writer's)
         # do not break this capture
         with torch.cuda.graph(self.graph, stream=self.stream,
                               capture_error_mode="thread_local"):
-            return fn()
+            out = fn()
+        t1 = time.perf_counter()
+        self.graph.instantiate()
+        self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
+        return out
 
     def replay(self):
         self.graph.replay()
@@ -135,19 +162,20 @@ class Unit:
     """One captured unit: `fn()` reads the static inputs and returns its
     outputs; `__call__(inputs)` copies `inputs` (tensors in the static
     inputs' order) into them, then warms, captures or replays (module
-    docstring) and returns clones of the outputs."""
+    docstring) and returns clones of the outputs.  `counters` are
+    (object, attribute) pairs of the Python counters the unit adds to."""
 
     def __init__(self, name, fn: Callable, static: List[torch.Tensor], counters, graph,
                  owner):
         self.name = name
         self.fn = fn
         self.static = static
-        self.counters = counters  # objects with a `launches` count
+        self.counters = counters
         self.graph = graph
         self.owner = owner  # the PlannerGraphs: eager inside a unit's fn
         self.calls = 0
         self.out = None  # the graph's outputs, after the capture
-        self.launches = None  # per replay, counter by counter
+        self.per_replay = None  # what a replay adds to each counter
 
     def _busy(self, thunk):
         self.owner.busy = True
@@ -155,6 +183,13 @@ class Unit:
             return thunk()
         finally:
             self.owner.busy = False
+
+    def _counts(self):
+        return [getattr(obj, name) for obj, name in self.counters]
+
+    def _set_counts(self, values):
+        for (obj, name), v in zip(self.counters, values):
+            setattr(obj, name, v)
 
     def load(self, inputs):
         """Copy `inputs` into the static buffers; another layout raises."""
@@ -172,16 +207,15 @@ class Unit:
         if self.calls == 1:
             return _clone(self._busy(lambda: self.graph.warm(self.fn)))
         if self.out is None:
-            before = [c.launches for c in self.counters]
+            before = self._counts()
             self.out = self._busy(lambda: self.graph.capture(self.fn))
-            # a captured launch runs nothing: the count goes back, and each
-            # replay adds it
-            self.launches = [c.launches - b for c, b in zip(self.counters, before)]
-            for c, b in zip(self.counters, before):
-                c.launches = b
+            # the capture ran nothing: its counts go back, and each replay
+            # adds them
+            self.per_replay = [c - b for c, b in zip(self._counts(), before)]
+            self._set_counts(before)
+        before = self._counts()
         self._busy(self.graph.replay)
-        for c, k in zip(self.counters, self.launches):
-            c.launches += k
+        self._set_counts([b + k for b, k in zip(before, self.per_replay)])
         return _clone(self.out)
 
 
@@ -189,10 +223,16 @@ def _clone(out):
     return _rebuild(out, iter([t.clone() for t in _flatten(out)]))
 
 
+def _static(t: torch.Tensor) -> torch.Tensor:
+    """A static buffer for `t`: a contiguous copy (of a broadcast view too)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 class PlannerGraphs:
-    """The captured units of one planner: `reverse_once` and a control step
-    per `n_diffuse`.  `busy` is True while a unit runs (its eager first
-    call, its capture or a replay): the planner's own calls then run
+    """The captured units of one planner (module docstring): with `whole`,
+    `reverse_once` and a control step per `n_diffuse`; else an env step per
+    batch layout (`step`).  `busy` is True while a unit runs (its eager
+    first call, its capture or a replay): the planner's own calls then run
     eagerly, inside it."""
 
     def __init__(self, mbdpi, graph=None):
@@ -200,8 +240,11 @@ class PlannerGraphs:
         self.graph = graph or CudaGraph
         self.busy = False
         self.units = {}
-        fs = getattr(mbdpi.env, "fused_step", None)
-        self.counters = [fs] if fs is not None else []
+        env = mbdpi.env
+        self.whole = getattr(env, "on_fused_path", True) and not mbdpi.args.compat_q1
+        self.counters = [(env.fused_step, "launches")] if getattr(env, "on_fused_path", False) \
+            else []
+        self.counters += [(mbdpi, name) for name in mbdpi.COUNTERS]
 
     # the static state: the live part (`to_lean`'s pipeline and info)
     @staticmethod
@@ -225,9 +268,22 @@ class PlannerGraphs:
             self.units[key] = make()
         return self.units[key]
 
+    def step(self, name, fn, state, action):
+        """The captured form of `fn(state, action)`, an env step (`env.step`,
+        or the rollouts' horizon step): one graph per `name`, each for one
+        batch layout."""
+        def make():
+            leaves = [_static(t) for t in self._state_leaves(state)]
+            a = _static(action)
+            st = self._static_state(state, leaves)
+            return Unit(name, lambda: fn(st, a), leaves + [a], self.counters,
+                        self.graph(action.device), self)
+
+        return self._unit(name, make)(self._state_leaves(state) + [action])
+
     def reverse_once(self, state, generator, Ybar_i, noise_scale, noise=None):
         def make():
-            leaves = [t.clone() for t in self._state_leaves(state)]
+            leaves = [_static(t) for t in self._state_leaves(state)]
             Y, scale, eps = Ybar_i.clone(), noise_scale.clone(), self._noise_like(Ybar_i)
             st = self._static_state(state, leaves)
             fn = lambda: self.mbdpi._reverse_once(st, None, Y, scale, noise=eps)  # noqa: E731
@@ -243,7 +299,7 @@ class PlannerGraphs:
         runner's control step with `n_diffuse` annealing iterations."""
         def step(state, Y0, generator, noise=None):
             def make():
-                leaves = [t.clone() for t in self._state_leaves(state)]
+                leaves = [_static(t) for t in self._state_leaves(state)]
                 Y = Y0.clone()
                 eps = torch.stack([self._noise_like(Y0)] * n_diffuse)
                 st = self._static_state(state, leaves)

@@ -8,10 +8,12 @@ Counterpart of `tpu_dialmpc/planner/dial.py`, in PyTorch:
   package splits `jax.random` keys); `reverse_once(..., noise=)` takes
   injected noise, which is how the tests hold the port against the JAX
   package on the same draws;
-- rollouts go through the env's `rollout_batch` (one substep-kernel launch per
-  horizon step for all Nsample+1 candidates); an env without one is stepped
-  with its `step` over the batch-broadcast state, horizon step by horizon
-  step, as the JAX package's vmap(scan(env.step)) fallback does;
+- rollouts go through the env's `rollout_batch` on the fused path (one
+  substep-kernel launch per horizon step for all Nsample+1 candidates); off
+  it, and for an env without one, the env's `step` runs over the
+  batch-broadcast state, horizon step by horizon step, as the JAX package's
+  vmap(scan(env.step)) fallback does: that horizon step is what a captured
+  planner replays as a CUDA graph there (`planner/capture.py`);
 - `reverse` and `improve` are Python loops over `reverse_once`;
 - `diag_states` (quirk Q4) adds the softmax-weighted rollout states
   qbar/qdbar/xbar to each iteration's info, from the same weights as the
@@ -85,6 +87,8 @@ def _stack_infos(infos):
 class MBDPI:
     """Model-Based Diffusion Planner on the env's device."""
 
+    COUNTERS = ()  # Python counters a CUDA graph's replay adds to (capture.Unit)
+
     def __init__(self, args: DialConfig, env, capture="auto"):
         self.args = args
         self.env = env
@@ -118,10 +122,17 @@ class MBDPI:
                for i in range(args.Ndiffuse)},
         }
         self._cast = {}
-        # reverse_once and the control step as CUDA graphs (planner/capture.py),
-        # chosen once: "auto", True (raises where it cannot hold) or False
-        self.captured = capture_mod.pick_capture(capture, env, args)
+        # CUDA graphs of reverse_once and the control step, or of the env
+        # step (planner/capture.py), chosen once: "auto", True (raises where
+        # it cannot hold) or False
+        self.captured = capture_mod.pick_capture(capture, env, self.collective_backend())
         self.graphs = capture_mod.PlannerGraphs(self) if self.captured else None
+        self._step_graphs = self.captured and not self.graphs.whole
+
+    def collective_backend(self) -> Optional[str]:
+        """The backend of the process group this planner all-reduces over;
+        None: it has no collective."""
+        return None
 
     def _const(self, name, dtype) -> torch.Tensor:
         """The planner's constant `name` in `dtype`, cast on the device once
@@ -155,38 +166,61 @@ class MBDPI:
         live as a whole."""
         return to_lean(state) if hasattr(state, "pipeline") else state
 
+    def env_step(self, state, action):
+        """`env.step(state, action)`, through its CUDA graph where the planner
+        captures env steps (`planner/capture.py`): the executed step off the
+        fused path, and `compat_q1`'s chain."""
+        if self._step_graphs:
+            return self.graphs.step("env.step", self.env.step, state, action)
+        return self.env.step(state, action)
+
+    def _rollout_step(self, state, us):
+        """One horizon step of `_step_rollouts`: (the next live state, the
+        rewards, the torso's world position: qpos[:3] where the env names no
+        torso)."""
+        s = self.env.step(state, us)
+        torso = getattr(self.env, "_torso_idx", None)
+        ps = s.pipeline
+        x = ps.xpos[:, torso] if torso is not None else ps.qpos[:, :3]
+        return self._lean(s), s.reward, x
+
     def _step_rollouts(self, state, all_us, want_states=False):
         """`env.step` over the batch-broadcast state, horizon step by horizon
-        step: rewards (B, T), and with `want_states` also the states (qss,
-        qdss, xss), xss the torso's world position (qpos[:3] where the env
-        names no torso)."""
+        step (each a replay of its CUDA graph where the planner captures env
+        steps): rewards (B, T), and with `want_states` also the states (qss,
+        qdss, xss), xss the torso's world position."""
         B = all_us.shape[0]
-        s = map_tensors(self._lean(state), lambda x: x.expand((B,) + tuple(x.shape)))
-        torso = getattr(self.env, "_torso_idx", None)
+        s = map_tensors(self._lean(state),
+                        lambda x: x.expand((B,) + tuple(x.shape)).contiguous())
         outs = []
         for t in range(all_us.shape[1]):
-            s = self.env.step(s, all_us[:, t])
-            if want_states:
-                ps = s.pipeline
-                x = ps.xpos[:, torso] if torso is not None else ps.qpos[:, :3]
-                outs.append((s.reward, ps.qpos, ps.qvel, x))
+            if self._step_graphs:
+                s, reward, x = self.graphs.step("rollout step", self._rollout_step, s,
+                                                all_us[:, t])
             else:
-                outs.append((s.reward,))
-            s = self._lean(s)
+                s, reward, x = self._rollout_step(s, all_us[:, t])
+            ps = s.pipeline
+            outs.append((reward, ps.qpos, ps.qvel, x) if want_states else (reward,))
         stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
         return stacked if want_states else stacked[0]
+
+    def _env_rollouts(self) -> bool:
+        """Whether the env's own `rollout_batch` rolls the candidates out: on
+        the fused path; off it `_step_rollouts` does, whose horizon step a
+        captured planner replays."""
+        return hasattr(self.env, "rollout_batch") and getattr(self.env, "on_fused_path", True)
 
     def rollout_us_batch(self, state, all_us: torch.Tensor) -> torch.Tensor:
         """(B, Hsample+1, nu) -> rewards (B, Hsample+1); every rollout starts
         from `state`: the env's `rollout_batch`, else `env.step`."""
-        if hasattr(self.env, "rollout_batch"):
+        if self._env_rollouts():
             return self.env.rollout_batch(state, all_us)
         return self._step_rollouts(state, all_us)
 
     def rollout_us_batch_diag(self, state, all_us: torch.Tensor):
         """Rollouts that also return their states (Q4 diagnostics):
         (rewss (B,T), qss (B,T,nq), qdss (B,T,nv), xss (B,T,3))."""
-        if hasattr(self.env, "rollout_batch"):
+        if self._env_rollouts():
             return self.env.rollout_batch(state, all_us, want_states=True)
         return self._step_rollouts(state, all_us, want_states=True)
 
@@ -204,7 +238,7 @@ class MBDPI:
             s = dataclasses.replace(lean, pipeline=phys)
             rews = []
             for u in us:
-                s = self.env.step(s, u)
+                s = self.env_step(s, u)
                 rews.append(s.reward)
             rewss.append(torch.stack(rews))
             phys = to_lean(s).pipeline
@@ -354,8 +388,9 @@ class MBDPI:
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, ReverseInfo]:
         """One annealing step (dial-core.h:469-593): its CUDA graph where the
-        planner captures (outside a unit being captured), else eagerly."""
-        if self.graphs is not None and not self.graphs.busy:
+        planner captures it whole (outside a unit being captured), else
+        eagerly."""
+        if self.captured and self.graphs.whole and not self.graphs.busy:
             return self.graphs.reverse_once(state, generator, Ybar_i, noise_scale, noise)
         return self._reverse_once(state, generator, Ybar_i, noise_scale, noise)
 

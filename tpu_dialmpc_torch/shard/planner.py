@@ -32,6 +32,14 @@ Nsample candidates (shard/mesh.py) and the reductions are explicit
 has no Q1 branch either (the chained candidates are sequential by design).
 Without a process group (one rank) every reduction is local; with one,
 even of one rank, every reduction is a collective.
+
+Captured as `MBDPI` is (`planner/capture.py`): on a CUDA env whose process
+group is NCCL, or without one, "auto" captures `reverse_once` and the
+control step with their all-reduces inside the graph (the JAX package's
+GSPMD program holds its collectives too), or the env steps off the fused
+path; on a gloo group, whose all-reduces are host round trips, "auto" runs
+eagerly and True raises.  The eager first call of a unit makes the first
+all-reduce, which creates the NCCL communicator before the capture.
 """
 
 from __future__ import annotations
@@ -49,15 +57,19 @@ class ShardedMBDPI(MBDPI):
     """MBDPI with the sample axis split over the ranks of `mesh`: `MBDPI`'s
     scoring over this rank's block, its `_reduce` an all-reduce."""
 
-    def __init__(self, args: DialConfig, env, mesh: Mesh):
-        # eager: a gloo all-reduce is a host round trip, which a CUDA graph
-        # cannot capture (MBDPI's capture, planner/capture.py)
-        super().__init__(args, env, capture=False)
-        self.mesh = mesh
-        self.block = sample_sharding(mesh, args.Nsample)
+    COUNTERS = ("reduced_bytes",)
+
+    def __init__(self, args: DialConfig, env, mesh: Mesh, capture="auto"):
         # collectives wherever there is a process group, even of one rank
         self._grouped = dist.is_available() and dist.is_initialized()
+        # `capture` as MBDPI's; a gloo group runs eagerly (module docstring)
+        super().__init__(args, env, capture=capture)
+        self.mesh = mesh
+        self.block = sample_sharding(mesh, args.Nsample)
         self.reduced_bytes = 0  # bytes this rank has all-reduced, for the reports
+
+    def collective_backend(self) -> Optional[str]:
+        return dist.get_backend() if self._grouped else None
 
     def _reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """All-reduce `t` in place over the ranks; local without a process
@@ -67,7 +79,7 @@ class ShardedMBDPI(MBDPI):
             self.reduced_bytes += t.numel() * t.element_size()
         return t
 
-    def reverse_once(
+    def _reverse_once(
         self,
         state,
         generator: Optional[torch.Generator],
@@ -75,8 +87,9 @@ class ShardedMBDPI(MBDPI):
         noise_scale: torch.Tensor,
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, ReverseInfo]:
-        """One annealing step over this rank's block; every rank returns the
-        same Ybar and info."""
+        """One annealing step over this rank's block, eagerly (what
+        `MBDPI.reverse_once` runs or captures); every rank returns the same
+        Ybar and info."""
         if noise is None:
             noise = self.draw_noise(generator, Ybar_i)
         all_Y0s = self._candidates(None, Ybar_i, noise_scale, noise[self.block])
