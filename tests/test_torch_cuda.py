@@ -6,7 +6,12 @@ servos' affine-bias branch) and the arms-fixed H1 (h1_loco); the physics
 pipeline's step on the card without a host synchronisation; a CPU
 checkpoint refused on the card; the profiler's fp32 microbench kernel and
 the measured roof; the sharded planner on one NCCL rank; a quality gate's
-run on the card: marked `cuda`, and each test skips without a CUDA device.
+run on the card; the tracer's device spans inside CUDA graphs (timing events
+replayed in a graph against the profiler's record of the kernel they
+bracket, the nodes of the captured control step with the tracer off and on
+and of its traced second graph, `rollout/physics` against the profiler's
+B=2049 kernel records): marked `cuda`, and each test skips without a CUDA
+device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -26,9 +31,12 @@ import torch
 
 from torch_port_helpers import (
     CRATE_NPZ,
+    EVENT_RECORD,
     H1_NPZ,
     PORT_NPZ,
     crate_states,
+    fused_kernel_records,
+    graph_node_types,
     h1_crate_states,
     h1_floor_states,
     near_home_states,
@@ -375,3 +383,131 @@ def test_run_gate_on_card(card, monkeypatch):
     assert cpu == {k: r["metrics"][k] for k in cpu}
     diff = (q.foot_positions(made[0], qpos).cpu() - q.foot_positions(cpu_env, qpos.cpu())).abs()
     assert diff.max().item() <= 1e-9
+
+
+# ----------------------------------------------------------------------
+# the tracer's device spans in CUDA graphs (telemetry/spans.py)
+@pytest.fixture
+def tracer():
+    from tpu_dialmpc_torch.telemetry import spans
+
+    spans.reset()
+    spans.enable()
+    yield spans
+    spans.disable()
+    spans.reset()
+
+
+def test_timing_events_replay_inside_a_graph_on_card(card, model):
+    """The probe the tracer rests on: two external timing events captured
+    around one fused-kernel launch (B=2049, 8 substeps) become event-record
+    nodes, and after a replay their elapsed time brackets the profiler's
+    record of that launch: no shorter, and longer by at most 50 us, the
+    graph's scheduling of the two event nodes and the kernel."""
+    fs = fused_cuda.FusedStep(model, 8, SPEC)
+    args = _inputs(model, 2049, 3, card)
+    fs(*args)  # builds and loads the kernel
+    stream, graph = torch.cuda.Stream(card), torch.cuda.CUDAGraph(keep_graph=True)
+    e0, e1 = (torch.cuda.Event(enable_timing=True, external=True) for _ in range(2))
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.graph(graph, stream=stream):
+        e0.record()
+        fs(*args)
+        e1.record()
+    graph.instantiate()
+    assert graph_node_types(graph).get(EVENT_RECORD) == 2
+    graph.replay()
+    (record,) = fused_kernel_records(graph.replay)
+    ms, kernel_ms = e0.elapsed_time(e1), record[1] * 1e-6
+    print(f"[probe] events {ms:.4f} ms, profiler record {kernel_ms:.4f} ms")
+    assert kernel_ms > 0.1 and kernel_ms <= ms <= kernel_ms + 0.05
+
+
+def _captured_step(card, cfg, tracer_on):
+    from tpu_dialmpc_torch.envs.registry import get_env
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+    from tpu_dialmpc_torch.telemetry import spans
+
+    (spans.enable if tracer_on else spans.disable)()
+    env = get_env("go2_stand", device=card, n_substeps=8)
+    mb = MBDPI(cfg, env, capture=True)
+    step = make_control_step(mb, cfg.Ndiffuse)
+    state = to_lean(env.reset())
+    Y = torch.zeros((cfg.Hnode + 1, env.action_size), device=card)
+    gen = torch.Generator(device=card).manual_seed(4)
+    for _ in range(3):  # eager, capture, replay
+        state, Y, _ = step(state, Y, gen)
+    (unit,) = mb.graphs.units.values()
+    return unit, lambda: step(state, Y, gen)
+
+
+def test_tracer_adds_only_its_event_nodes_to_the_captured_step_on_card(card):
+    """go2_stand at N64/H4/Hnode2: the captured control step's graph holds
+    no event-record node, node for node the same with the tracer off and
+    on; the traced second graph holds those nodes and one event-record node
+    per mark the spans recorded.  The set-up spans: the kernel's load once,
+    the capture's two spans equal to `capture_s` and `instantiate_s` (the
+    traced graph's capture is not set-up)."""
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+    from tpu_dialmpc_torch.telemetry import spans
+
+    cfg = DialConfig(Nsample=64, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
+    try:
+        spans.reset()
+        off, _ = _captured_step(card, cfg, False)
+        assert off.owned is None and spans.summary() == {}
+        spans.reset()
+        on, _ = _captured_step(card, cfg, True)
+        got = spans.summary()
+    finally:
+        spans.disable()
+        spans.reset()
+    kinds_off = graph_node_types(off.graph.graph)
+    assert EVENT_RECORD not in kinds_off and off.traced is None
+    assert graph_node_types(on.graph.graph) == kinds_off
+    kinds_traced = graph_node_types(on.traced.graph)
+    n_marks = len(on.owned.marks)
+    assert kinds_traced.pop(EVENT_RECORD) == n_marks == 5 + 2 + 2 * (2 + 1 + 4 * 5 + 2)
+    assert kinds_traced == kinds_off
+    assert got["setup/kernel"]["count"] == got["setup/first_call"]["count"] == 1
+    assert got["setup/capture"]["host_s"] == on.graph.capture_s
+    assert got["setup/instantiate"]["host_s"] == on.graph.instantiate_s
+    assert got["graph/replay"]["count"] == 2
+
+
+def test_rollout_physics_span_equals_the_kernel_records_on_card(card, tracer):
+    """go2_stand at N2048/H4/Hnode2, 8 substeps, one replay of the captured
+    control step's traced graph under the profiler: the `rollout/physics`
+    spans' device time equals the profiler's records of the B=2049 launches
+    (all but the step's first, the executed B=1 one) within 3 %, and the
+    top-level device spans cover the replay's device time within 2 %."""
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    cfg = DialConfig(Nsample=2048, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
+    unit, step = _captured_step(card, cfg, True)
+    tracer.collect()
+    tracer.reset()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    replay = unit.traced.replay
+
+    def timed():
+        e0.record()
+        replay()
+        e1.record()
+
+    unit.traced.replay = timed
+    records = fused_kernel_records(step)
+    assert tracer.collect() == 0
+    got = tracer.summary()
+    assert len(records) == 1 + 2 * 5
+    kernels_s = sum(d for _, d in records[1:]) * 1e-9
+    physics_s = got["rollout/physics"]["device_s"]
+    print(f"[spans] rollout/physics {physics_s * 1e3:.4f} ms, B=2049 records "
+          f"{kernels_s * 1e3:.4f} ms")
+    assert abs(physics_s / kernels_s - 1) <= 0.03
+    top = sum(s["device_s"] for p, s in got.items() if "device_s" in s and "/" not in p)
+    whole = 1e-3 * e0.elapsed_time(e1)
+    print(f"[spans] top-level spans {top * 1e3:.4f} ms, the replay {whole * 1e3:.4f} ms")
+    assert top <= whole and top >= 0.98 * whole

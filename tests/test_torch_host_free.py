@@ -17,7 +17,8 @@ The physics pipeline is the code the card runs, so nothing is paused there:
 go2_stand with fused="off", and the pair-kinds scene (sphere-sphere,
 sphere-capsule and capsule-capsule pairs, which the fused substep lacks).
 Tiny widths (N8/H4/Hnode2, 1 substep); the window is the second call of
-each unit, the first one having made every cached constant.
+each unit, the first one having made every cached constant.  With the
+tracer on (`telemetry/spans.py`) its spans add neither, on either physics.
 """
 
 import traceback
@@ -31,6 +32,7 @@ from tpu_dialmpc_torch.envs import get_env
 from tpu_dialmpc_torch.envs.base import map_tensors, to_lean
 from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
 from tpu_dialmpc_torch.planner.runner import make_control_step
+from tpu_dialmpc_torch.telemetry import spans
 
 H1_2_WALK = "tests/assets/unitree_h1/mjx_scene_h1_2_walk.xml"
 
@@ -155,6 +157,30 @@ def test_no_host_data_or_read_on_the_physics_pipeline(name):
     assert not env.on_fused_path
     uses = _windows(env, HostUses(), batch_step=True)
     assert uses == {"env.step": [], "reverse_once": [], "control_step": []}
+
+
+TRACED_PATHS = {"go2_stand": ("go2_stand", {}),
+                "go2_stand[fused=off]": ("go2_stand", {"fused": "off"})}
+
+
+@pytest.mark.parametrize("name", list(TRACED_PATHS))
+def test_no_host_data_or_read_with_the_tracer_on(name):
+    task, overrides = TRACED_PATHS[name]
+    env = get_env(task, device="cpu", n_substeps=1, **overrides)
+    probe = HostUses()
+    if env.on_fused_path:
+        env._fused_step = _PausedPlain(env.fused_step, probe)
+    spans.reset()
+    spans.enable()
+    try:
+        uses = _windows(env, probe, batch_step=not env.on_fused_path)
+        spans.collect()
+        traced = spans.summary()
+    finally:
+        spans.disable()
+        spans.reset()
+    assert all(u == [] for u in uses.values()), uses
+    assert {"execute", "rollout/ctrl", "rollout/reward", "score_update"} <= set(traced)
 
 
 def test_the_probe_sees_host_data_in_the_window():

@@ -11,9 +11,9 @@ nq + nv + 1 adds that sum its outputs into one scalar; the port's
 counts the substep alone.  The two are held equal, exactly, after those
 adds.
 
-Timings on the CPU are not the card's and are asserted for shape only;
-`phase_timings` runs with its chains cut to lengths 1 and 2 (the chain
-estimator's defaults would take minutes of plain-substep rollouts here).
+Timings on the CPU are not the card's and are asserted for shape only:
+`phase_timings` reads the tracer's spans of an eager `reverse_once` on the
+host clock there (a captured one's on the card).
 """
 
 import functools
@@ -28,6 +28,7 @@ from torch_port_helpers import jax_standin_model, port_model_from
 from tpu_dialmpc.telemetry import profile as jprof
 from tpu_dialmpc_torch.cli import main as tcli
 from tpu_dialmpc_torch.telemetry import profile as prof
+from tpu_dialmpc_torch.telemetry import spans
 
 PHASE_KEYS = {"reverse_once_ms", "sample_spline_ms", "rollout_ms", "score_update_ms"}
 
@@ -88,18 +89,17 @@ def test_amortized_attempts_spread():
     assert all(a > 0 for a in attempts)
 
 
-@pytest.fixture
-def short_chains(monkeypatch):
-    monkeypatch.setattr(prof, "_amortized",
-                        functools.partial(prof._amortized, r_lo=1, r_hi=2, reps=1))
-
-
-def test_phase_timings_shape_tiny(short_chains):
+def test_phase_timings_shape_tiny():
+    """One call's phases (reps=1): each spent, the three inside the whole
+    call; the tracer left off as it was."""
+    assert not spans.enabled()
     out = prof.phase_timings(task="go2_stand", nsample=8, hsample=4, hnode=2, n_substeps=1,
-                             device="cpu")
+                             device="cpu", reps=1)
     assert set(out) == PHASE_KEYS
-    assert all(v >= 0 for v in out.values())
-    assert out["score_update_ms"] == max(out["reverse_once_ms"] - out["rollout_ms"], 0.0)
+    assert all(v > 0 for v in out.values())
+    parts = out["sample_spline_ms"] + out["rollout_ms"] + out["score_update_ms"]
+    assert parts <= out["reverse_once_ms"]
+    assert not spans.enabled()
 
 
 def test_fma_chain_plain_version_is_the_recurrence():
@@ -123,12 +123,12 @@ def test_fma_chain_plain_version_is_the_recurrence():
     assert chain.ops(64, k) == 2 * chain.NACC * k * 64
 
 
-def test_cli_profile_runs_on_the_cpu(short_chains, tmp_path, capsys):
+def test_cli_profile_runs_on_the_cpu(tmp_path, capsys):
     trace = tmp_path / "trace"
     assert tcli.main(["profile", "--task", "go2_stand", "--device", "cpu", "--nsample", "4",
                       "--hsample", "2", "--substeps", "1", "--out", str(trace)]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0] == "phase timings (amortized, ms):"
+    assert lines[0] == "phase timings (spans of one reverse_once, ms):"
     assert {line.split(":")[0].strip() for line in lines[1:5]} == PHASE_KEYS
     assert lines[5].startswith("roofline skipped: fused path unavailable")
     assert lines[-1] == f"profiler trace written to {trace}"

@@ -468,7 +468,7 @@ class EagerGraph:
     def warm(self, fn):
         return fn()
 
-    def capture(self, fn):
+    def capture(self, fn, setup=True):
         self.fn, self.captures = fn, self.captures + 1
         self.out = fn()
         return self.out
@@ -501,3 +501,54 @@ def use_eager_graphs(setattr_=setattr):
     setattr_(capture, "pick_capture", pick)
     setattr_(capture, "CudaGraph", make)
     return graphs
+
+
+EVENT_RECORD = 7  # CU_GRAPH_NODE_TYPE_EVENT_RECORD
+
+
+def graph_node_types(cuda_graph) -> dict:
+    """{node type: count} of a kept `torch.cuda.CUDAGraph`, from libcuda's
+    cuGraphGetNodes and cuGraphNodeGetType."""
+    import collections
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphGetNodes.restype = cuda.cuGraphNodeGetType.restype = ctypes.c_int
+    graph, n = ctypes.c_void_p(cuda_graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds[kind.value] += 1
+    return dict(kinds)
+
+
+def fused_kernel_records(fn):
+    """`fn()` under torch.profiler after a pre-roll of spin kernels (a
+    trace's first records can be lost) and a settle wait (its last ones can
+    come late): (start ns, duration ns) of each fused-kernel record, in
+    start order."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dialmpc_torch.telemetry.profile import TRACE_SETTLE_S
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):
+            torch.cuda._sleep(40_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+    return sorted((e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                  if "fused_step_kernel" in e.name()
+                  and not str(e.device_type()).endswith("CPU"))

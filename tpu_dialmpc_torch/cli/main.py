@@ -35,7 +35,8 @@ physics pipeline) from its saved start state (`qpos0`, `qvel0`,
 reward and control charts (matplotlib); `env-test` steps zero actions from
 the reset state.  `ik` solves the feet IK for a base offset (`--mode ik`) or
 settles the PD-held home pose under the physics (`--mode settle`).
-`profile` prints the amortized phase timings of one annealing iteration and
+`profile` prints the phase timings of one annealing iteration, read from the
+tracer's spans in its captured graph (`telemetry/spans.py`), and
 the fused kernel's roofline (`telemetry/profile.py`) and, with `--out`,
 writes a profiler trace of one `reverse_once`.  `bench` prints the
 `reverse_once` row of the JAX package's benchmark schema as one JSON line
@@ -285,7 +286,7 @@ def cmd_profile(args):
 
     width = dict(task=args.task, nsample=args.nsample or 2048, hsample=args.hsample or 20,
                  n_substeps=args.substeps or 8, device=args.device)
-    print("phase timings (amortized, ms):")
+    print("phase timings (spans of one reverse_once, ms):")
     for k, v in prof.phase_timings(**width).items():
         print(f"  {k}: {v:.3f}")
     try:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from tpu_dialmpc_torch.dynamics import _build, fused
+from tpu_dialmpc_torch.telemetry import spans
 from tpu_dialmpc_torch.dynamics.model import (
     GEOM_BOX,
     GEOM_CAPSULE,
@@ -588,10 +589,11 @@ class FusedStep:
         return _compile(self.model, self.meta, self.spec)[4]
 
     def library(self, device: torch.device) -> _Library:
-        """The kernel for `device`, built and uploaded at first use."""
+        """The kernel for `device`, built and uploaded at first use (the
+        span `setup/kernel`, `telemetry/spans.py`)."""
         idx = device.index if device.index is not None else torch.cuda.current_device()
         if idx not in self._libs:
-            with torch.cuda.device(idx):
+            with spans.span("setup/kernel"), torch.cuda.device(idx):
                 lib, self.build_log, _ = build_library(self.model, self.meta, self.spec)
             self._libs[idx] = lib
         return self._libs[idx]

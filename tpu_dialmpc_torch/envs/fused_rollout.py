@@ -25,6 +25,10 @@ The physics (`on_fused_path`, from the config's `fused`):
 Both are choices made once, from the model, when the env is built.  A kernel
 that fails to build or launch raises; it never gives way to the pipeline.
 
+Device spans (`telemetry/spans.py`): an env step's `ctrl` (the PD map),
+`physics` and `reward` (the reward and termination stack), and in
+`rollout_batch` each horizon step's `rollout` around them.
+
 Requires the host env to provide:
   model, config, device, _torso_idx, _dtype,
   _ctrl_batch(action (B,nu), qpos (B,nq), qvel (B,nv)) -> ctrl (B,nu)
@@ -42,6 +46,7 @@ import torch
 from tpu_dialmpc_torch.dynamics import fused, fused_cuda, pipeline
 from tpu_dialmpc_torch.dynamics.fused_cuda import FusedStep
 from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState, map_tensors
+from tpu_dialmpc_torch.telemetry import spans
 
 FUSED_MODES = ("auto", "on", "off")
 
@@ -119,11 +124,15 @@ class FusedRolloutMixin:
     def _step_batch(self, qpos, qvel, ws, info, action, use_fused=None):
         """One env step for a batch: (B, ...) state, (B, nu) action, on the
         env's physics unless `use_fused` says which."""
-        ctrl = self._ctrl_batch(action, qpos, qvel)
-        qpos2, qvel2, ws2, der, ps = self._physics(
-            qpos, qvel, ws, ctrl, self._on_fused if use_fused is None else use_fused)
-        reward, done, info2 = self._post_physics(qpos=qpos2, qvel=qvel2, **der, info=info,
-                                                 ctrl=ctrl)
+        device = qpos.device
+        with spans.span("ctrl", device=device, follows=True):
+            ctrl = self._ctrl_batch(action, qpos, qvel)
+        with spans.span("physics", device=device, follows=True):
+            qpos2, qvel2, ws2, der, ps = self._physics(
+                qpos, qvel, ws, ctrl, self._on_fused if use_fused is None else use_fused)
+        with spans.span("reward", device=device, follows=True):
+            reward, done, info2 = self._post_physics(qpos=qpos2, qvel=qvel2, **der, info=info,
+                                                     ctrl=ctrl)
         return qpos2, qvel2, ws2, der, ctrl, reward, done, info2, ps
 
     def step_lean(self, state, action) -> LeanEnvState:
@@ -173,9 +182,10 @@ class FusedRolloutMixin:
         us = all_us.to(dtype)
         rews, qss, qdss, xss = [], [], [], []
         for t in range(T):
-            qpos, qvel, ws, der, _, reward, _, info, _ = self._step_batch(
-                qpos, qvel, ws, info, us[:, t]
-            )
+            with spans.span("rollout", device=qpos.device, follows=t > 0):
+                qpos, qvel, ws, der, _, reward, _, info, _ = self._step_batch(
+                    qpos, qvel, ws, info, us[:, t]
+                )
             rews.append(reward)
             if want_states:
                 qss.append(qpos)

@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
+from tpu_dialmpc_torch.telemetry import spans
+
 _REGISTRY: Dict[str, Callable[..., object]] = {}
 _DIAL_DEFAULTS: Dict[str, dict] = {}
 
@@ -56,7 +58,8 @@ def get_env(name: str, device="cuda", **overrides):
     caller asks for the CPU), with config-field overrides."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown task {name!r}; known: {sorted(_REGISTRY)}")
-    return _REGISTRY[name](device=device, **overrides)
+    with spans.span("setup/env"):
+        return _REGISTRY[name](device=device, **overrides)
 
 
 def list_envs():

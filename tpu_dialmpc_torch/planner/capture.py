@@ -51,6 +51,19 @@ unit's kernels are recorded once and replayed with one launch.
   `ShardedMBDPI.reduced_bytes`.  Each graph keeps what its capture added
   to them (taken back out: a captured launch runs nothing) and adds it at
   every replay.
+- Spans (`telemetry/spans.py`), where the tracer is on: a unit's first
+  call is `setup/first_call`, its capture `setup/capture` and
+  `setup/instantiate` (the same clock reads as `capture_s` and
+  `instantiate_s`), each call's input copies `graph/load`, its launch
+  `graph/replay` and its output clones `graph/clone`.  A unit's graph
+  holds no span, whether the tracer is on or off: its device spans are
+  held off while it is captured.  While the tracer's device spans are on,
+  a unit replays a second graph of the same function (`traced`), captured
+  at the first such call with the spans' timing events as event-record
+  nodes; the unit owns those (`owned`) and each replay hands them to the
+  tracer.  The second graph is kept apart because a graph with events
+  costs its launches (on an H100, go2_stand: ~1.1 % a step, and a launch
+  waits for the graph's previous replay, which stalls a queue of steps).
 
 `graph` is the backend: `CudaGraph` on the card; the tests give a stand-in
 that replays by calling the captured function into the same buffers.
@@ -65,6 +78,7 @@ from typing import Callable, List
 import torch
 
 from tpu_dialmpc_torch.envs.base import LeanEnvState, LeanPipelineState
+from tpu_dialmpc_torch.telemetry import spans
 
 CAPTURE_MODES = ("auto", True, False)
 
@@ -142,7 +156,8 @@ class CudaGraph:
         cur.wait_stream(self.stream)
         return out
 
-    def capture(self, fn):
+    def capture(self, fn, setup=True):
+        """Capture `fn()`; `setup`: its two times are set-up spans."""
         t0 = time.perf_counter()
         # thread_local: another thread's host reads (a telemetry writer's)
         # do not break this capture
@@ -151,11 +166,16 @@ class CudaGraph:
             out = fn()
         t1 = time.perf_counter()
         self.graph.instantiate()
-        self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
+        t2 = time.perf_counter()
+        self.capture_s, self.instantiate_s = t1 - t0, t2 - t1
+        if setup:
+            spans.record_host("setup/capture", t0, t1)
+            spans.record_host("setup/instantiate", t1, t2)
         return out
 
     def replay(self):
-        self.graph.replay()
+        with spans.span("graph/replay"):
+            self.graph.replay()
 
 
 class Unit:
@@ -176,6 +196,9 @@ class Unit:
         self.calls = 0
         self.out = None  # the graph's outputs, after the capture
         self.per_replay = None  # what a replay adds to each counter
+        # the graph with the tracer's device spans, its outputs and its spans
+        # (spans.Owned), made at the first call with those spans on
+        self.traced = self.traced_out = self.owned = None
 
     def _busy(self, thunk):
         self.owner.busy = True
@@ -198,29 +221,46 @@ class Unit:
                 f"{self.name} was captured for the inputs {_layout(self.static)}, got "
                 f"{_layout(inputs)}: a planner captures one state layout (build a new MBDPI "
                 "for another)")
-        for dst, src in zip(self.static, inputs):
-            dst.copy_(src)
+        with spans.span("graph/load"):
+            for dst, src in zip(self.static, inputs):
+                dst.copy_(src)
 
     def __call__(self, inputs):
         self.load(inputs)
         self.calls += 1
         if self.calls == 1:
-            return _clone(self._busy(lambda: self.graph.warm(self.fn)))
+            with spans.span("setup/first_call"):
+                out = self._busy(lambda: self.graph.warm(self.fn))
+            return _clone(out)
         if self.out is None:
-            before = self._counts()
-            self.out = self._busy(lambda: self.graph.capture(self.fn))
-            # the capture ran nothing: its counts go back, and each replay
-            # adds them
-            self.per_replay = [c - b for c, b in zip(self._counts(), before)]
-            self._set_counts(before)
+            with spans.held():
+                self.out = self._capture(self.graph)
+        graph, out, owned = self.graph, self.out, None
+        if spans.device_on():
+            if self.traced is None:
+                self.traced = self.owner.graph(self.static[0].device)
+                with spans.capturing() as self.owned:
+                    self.traced_out = self._capture(self.traced, setup=False)
+            graph, out, owned = self.traced, self.traced_out, self.owned
         before = self._counts()
-        self._busy(self.graph.replay)
+        with spans.replaying(owned):
+            self._busy(graph.replay)
         self._set_counts([b + k for b, k in zip(before, self.per_replay)])
-        return _clone(self.out)
+        return _clone(out)
+
+    def _capture(self, graph, setup=True):
+        before = self._counts()
+        out = self._busy(lambda: graph.capture(self.fn, setup))
+        # the capture ran nothing: its counts go back, and each replay adds
+        # them
+        self.per_replay = [c - b for c, b in zip(self._counts(), before)]
+        self._set_counts(before)
+        return out
 
 
 def _clone(out):
-    return _rebuild(out, iter([t.clone() for t in _flatten(out)]))
+    with spans.span("graph/clone"):
+        return _rebuild(out, iter([t.clone() for t in _flatten(out)]))
 
 
 def _static(t: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,10 @@ Counterpart of `tpu_dialmpc/planner/dial.py`, in PyTorch:
 - `compat_q1` (reference quirk Q1) chains the candidates' physics: each
   starts where the one before ended, one `env.step` at a time.  A parity
   fixture, sequential over candidates by design, not for production.
+
+Device spans (`telemetry/spans.py`): `shift`, `candidates` (the noisy
+candidates and their splines), each horizon step's `rollout` off the env's
+`rollout_batch`, and `score_update`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from tpu_dialmpc_torch.core import spline
 from tpu_dialmpc_torch.envs.base import map_tensors, to_lean
 from tpu_dialmpc_torch.planner import capture as capture_mod
+from tpu_dialmpc_torch.telemetry import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +162,8 @@ class MBDPI:
 
     def shift(self, Y: torch.Tensor) -> torch.Tensor:
         """Receding-horizon shift as one precomposed linear map."""
-        return torch.einsum("qn,...nu->...qu", self._const("shift", Y.dtype), Y)
+        with spans.span("shift", device=self.device):
+            return torch.einsum("qn,...nu->...qu", self._const("shift", Y.dtype), Y)
 
     # ------------------------------------------------------------------
     def _lean(self, state):
@@ -194,11 +200,12 @@ class MBDPI:
                         lambda x: x.expand((B,) + tuple(x.shape)).contiguous())
         outs = []
         for t in range(all_us.shape[1]):
-            if self._step_graphs:
-                s, reward, x = self.graphs.step("rollout step", self._rollout_step, s,
-                                                all_us[:, t])
-            else:
-                s, reward, x = self._rollout_step(s, all_us[:, t])
+            with spans.span("rollout", device=self.device, follows=t > 0):
+                if self._step_graphs:
+                    s, reward, x = self.graphs.step("rollout step", self._rollout_step, s,
+                                                    all_us[:, t])
+                else:
+                    s, reward, x = self._rollout_step(s, all_us[:, t])
             ps = s.pipeline
             outs.append((reward, ps.qpos, ps.qvel, x) if want_states else (reward,))
         stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
@@ -396,8 +403,9 @@ class MBDPI:
 
     def _reverse_once(self, state, generator, Ybar_i, noise_scale, noise=None):
         """`reverse_once`, eagerly: what its graph captures."""
-        all_Y0s = self._candidates(generator, Ybar_i, noise_scale, noise)
-        all_us = self.node2u(all_Y0s)  # (Nsample+1, Hsample+1, nu)
+        with spans.span("candidates", device=self.device):
+            all_Y0s = self._candidates(generator, Ybar_i, noise_scale, noise)
+            all_us = self.node2u(all_Y0s)  # (Nsample+1, Hsample+1, nu)
         diag = None
         if self.args.compat_q1:
             rewss, _ = self.rollout_us_batch_compat_q1(state, all_us)
@@ -405,7 +413,8 @@ class MBDPI:
             rewss, *diag = self.rollout_us_batch_diag(state, all_us)
         else:
             rewss = self.rollout_us_batch(state, all_us)  # (Nsample+1, Hsample+1)
-        return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)
+        with spans.span("score_update", device=self.device):
+            return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)
 
     def reverse_once_compat(
         self,

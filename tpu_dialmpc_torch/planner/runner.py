@@ -27,7 +27,8 @@ the fused path (or with `compat_q1`) the env steps are the graphs: the
 executed step replays the graph of `env.step` at B=1, the rollouts that of
 their horizon step.  The step returns copies of the graphs' outputs, so
 the records kept per step are not overwritten by the next replay.
-`capture=False` runs every step eagerly.
+`capture=False` runs every step eagerly.  The executed step is the device
+span `execute` (`telemetry/spans.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 from tpu_dialmpc_torch import checkpoint
 from tpu_dialmpc_torch.envs.base import to_lean
 from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
+from tpu_dialmpc_torch.telemetry import spans
 
 
 class RunResult(NamedTuple):
@@ -75,7 +77,8 @@ def make_control_step(mbdpi: MBDPI, n_diffuse: int):
     execute = mbdpi.env.step_lean if _lean_capable(mbdpi.env) else mbdpi.env_step
 
     def control_step(state, Y0: torch.Tensor, generator: torch.Generator, noise=None):
-        state2 = execute(state, Y0[0])
+        with spans.span("execute", device=mbdpi.device):
+            state2 = execute(state, Y0[0])
         Y1 = mbdpi.shift(Y0)
         Y2, infos = mbdpi.improve(state2, Y1, generator, n_diffuse, noise=noise)
         return state2, Y2, infos

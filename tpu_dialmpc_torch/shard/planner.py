@@ -51,6 +51,7 @@ import torch.distributed as dist
 
 from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI, ReverseInfo
 from tpu_dialmpc_torch.shard.mesh import Mesh, sample_sharding
+from tpu_dialmpc_torch.telemetry import spans
 
 
 class ShardedMBDPI(MBDPI):
@@ -92,11 +93,13 @@ class ShardedMBDPI(MBDPI):
         Ybar and info."""
         if noise is None:
             noise = self.draw_noise(generator, Ybar_i)
-        all_Y0s = self._candidates(None, Ybar_i, noise_scale, noise[self.block])
-        us = self.node2u(all_Y0s)  # (block + 1, Hsample+1, nu), the anchor last
+        with spans.span("candidates", device=self.device):
+            all_Y0s = self._candidates(None, Ybar_i, noise_scale, noise[self.block])
+            us = self.node2u(all_Y0s)  # (block + 1, Hsample+1, nu), the anchor last
         diag = None
         if self.args.diag_states and hasattr(state, "pipeline"):
             rewss, *diag = self.rollout_us_batch_diag(state, us)
         else:
             rewss = self.rollout_us_batch(state, us)
-        return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)
+        with spans.span("score_update", device=self.device):
+            return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)

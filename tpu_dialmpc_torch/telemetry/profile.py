@@ -3,10 +3,10 @@
 Counterpart of `tpu_dialmpc/telemetry/profile.py`, with its functions and
 their keys:
 
-- `phase_timings`: amortized ms per phase of one annealing iteration
-  (sample + spline, rollout, score + update), each the slope between a short
-  and a long chain of calls, which removes the fixed cost of the chain's one
-  synchronisation;
+- `phase_timings`: ms per phase of one annealing iteration (sample +
+  spline, rollout, score + update), read from the tracer's device spans
+  (`telemetry/spans.py`) in a captured `reverse_once` on the card (the host
+  clock on the CPU);
 - `fused_kernel_roofline`: the fused substep kernel's operation count
   (`fused.count_ops`, the plain substep's arithmetic) against the measured
   time of the rollouts that launch it: the achieved fraction of the card's
@@ -16,8 +16,8 @@ their keys:
   `csrc/fp32_peak.cu`; the memory rate by an in-place scale of 256 MiB);
 - `capture_trace`: a `torch.profiler` trace (Chrome trace JSON).
 
-The estimators are the JAX module's: the min over repetitions of anything
-timed (interference on a shared host only adds time), the max over
+The roofline's estimators are the JAX module's: the min over repetitions of
+anything timed (interference on a shared host only adds time), the max over
 calibration attempts of the roof, and the roof raised to a kernel's
 observed rate if a quiet kernel window beats a noisy microbench window, so
 the fraction stays at or below 1.  The roof is measured independently of the
@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import statistics
 import time
 from typing import Dict
 
@@ -338,44 +339,74 @@ def fused_kernel_roofline(task: str = "go2_stand", nsample: int = 2048,
     }
 
 
+PHASES = {"sample_spline_ms": ("candidates",), "rollout_ms": ("rollout",),
+          "score_update_ms": ("score_update",)}
+
+
 def phase_timings(task: str = "go2_stand", nsample: int = 2048,
                   hsample: int = 20, hnode: int = 5,
-                  n_substeps: int = 8, device: str = "cuda") -> Dict[str, float]:
-    """Amortized ms per phase of one annealing iteration (`MBDPI.reverse_once`):
-    the whole iteration, the candidates and their splines (`_candidates` +
-    `node2u`), the rollouts (`rollout_us_batch`), and score + update as the
-    rest."""
+                  n_substeps: int = 8, device: str = "cuda",
+                  reps: int = 5) -> Dict[str, float]:
+    """ms per phase of one annealing iteration (`MBDPI.reverse_once`), the
+    median of `reps` calls after its eager first call and its capture: the
+    whole call on the device's clock (its input copies, the graph and its
+    output clones), and the tracer's device spans in it
+    (`telemetry/spans.py`): the candidates and their splines (`candidates`),
+    the rollouts (every horizon step's `rollout`) and score + update
+    (`score_update`).  On the card the planner captures, so the spans are the
+    graph's event-record nodes; on the CPU it runs eagerly and they read the
+    host clock.  The tracer is on for the call and as it was after."""
     from tpu_dialmpc_torch.envs import get_env
     from tpu_dialmpc_torch.envs.base import to_lean
     from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
+    from tpu_dialmpc_torch.telemetry import spans
 
-    env = get_env(task, device=device, n_substeps=n_substeps)
-    cfg = DialConfig(Hsample=hsample, Hnode=hnode, Nsample=nsample, Ndiffuse=2)
-    mb = MBDPI(cfg, env, capture=False)  # a CUDA graph has no phases to time apart
-    state = to_lean(env.reset())
-    dtype = state.obs.dtype
-    Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=dtype, device=env.device)
-    scale = torch.as_tensor(mb.sigma_control, dtype=dtype, device=env.device)
-    gen = torch.Generator(device=env.device).manual_seed(1)
+    was_on = spans.enabled()
+    spans.enable()
+    try:
+        env = get_env(task, device=device, n_substeps=n_substeps)
+        cfg = DialConfig(Hsample=hsample, Hnode=hnode, Nsample=nsample, Ndiffuse=2)
+        mb = MBDPI(cfg, env)
+        state = to_lean(env.reset())
+        dtype = state.obs.dtype
+        Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=dtype, device=env.device)
+        scale = torch.as_tensor(mb.sigma_control, dtype=dtype, device=env.device)
+        gen = torch.Generator(device=env.device).manual_seed(1)
+        for _ in range(2):  # the eager first call, then the capture
+            mb.reverse_once(state, gen, Y0, scale)
+        spans.collect()
+        reps_ms = []
+        for _ in range(reps):
+            before = spans.summary()
+            whole = _device_seconds(lambda: mb.reverse_once(state, gen, Y0, scale), env.device)
+            spans.collect()
+            after = spans.summary()
 
-    def full(acc):
-        Y2, _ = mb.reverse_once(state, gen, Y0, scale)
-        return acc + Y2.sum()
+            def spent(paths):
+                return sum(after[p]["device_s"] - before.get(p, {}).get("device_s", 0.0)
+                           for p in paths)
 
-    def sample_and_spline(acc):
-        ys = mb._candidates(gen, Y0, scale, None)
-        return acc + mb.node2u(ys).sum()
+            reps_ms.append(dict(reverse_once_ms=1e3 * whole,
+                                **{k: 1e3 * spent(p) for k, p in PHASES.items()}))
+    finally:
+        if not was_on:
+            spans.disable()
+    return {k: statistics.median(r[k] for r in reps_ms) for k in reps_ms[0]}
 
-    def rollout_only(acc):
-        us = mb.node2u(mb._candidates(gen, Y0, scale, None))
-        return acc + mb.rollout_us_batch(state, us).sum()
 
-    out = {}
-    out["reverse_once_ms"] = 1e3 * _amortized(full, ())
-    out["sample_spline_ms"] = 1e3 * _amortized(sample_and_spline, ())
-    out["rollout_ms"] = 1e3 * _amortized(rollout_only, ())
-    out["score_update_ms"] = max(out["reverse_once_ms"] - out["rollout_ms"], 0.0)
-    return out
+def _device_seconds(fn, device) -> float:
+    """Seconds `fn()` takes on `device`: between two CUDA events around it on
+    the card, on the host clock on the CPU."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return 1e-3 * e0.elapsed_time(e1)
 
 
 def capture_trace(path: str, fn, *args):
