@@ -83,6 +83,16 @@ checkpoint and a resume to 6, and `--scan`, each with its launch count
 checked, the resumed and scanned trajectories bit-equal to the host loop's;
 and one `reverse_once` with diag_states, whose Ybar must equal the plain
 one's to the bit.
+Then [env-kernels]: the Go2 env step's two kernels (csrc/go2_env_step.cu,
+go2_ctrl and go2_post_physics) against their plain version (the env's
+`_ctrl_batch_plain` and `_post_physics_plain`) on the same CUDA tensors, on
+each Go2 path's env at B=2049 (info broadcast with stride 0) and B=1:
+integers and bools equal, floats within REL_TOL; their launches on
+go2_stand's captured control step at its benchmark cell's width
+(N2048/H25/Hnode5, Ndiffuse 2), 3 replays counted from 0, 53 each a step;
+and each kernel's time per call at B=2049 and B=1 captured 50 times in one
+graph, its own device time from the profiler, the plain ops' time captured
+and eager, and its bound (the bytes it moves at 3.35 TB/s).
 Then [mjcf]: the port's MJCF compiler (`dynamics/mjcf.py`,
 no mujoco, which the script checks is never imported) compiles the seven
 stand-in scenes of tests/assets, each held to its shipped .npz (integers
@@ -174,6 +184,7 @@ It needs a CUDA device and the repository around it; it never runs on a CPU.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import shutil
@@ -598,6 +609,199 @@ def phase_wide_pattern(wide, device, all_envs):
     check(all(finite), "[wide] the chained rollout is not finite")
     return dict(fused_record(tag, launches, max_err, ms, plain_ms, bound, ops),
                 path=f"{WIDE_CHAIN} chained FusedStep calls at B=2049 (no env runs this model)")
+
+
+# [env-kernels]: go2_stand at its benchmark cell's width (benchmark/configs/go2_stand.json)
+ENV_KERNELS_WIDTH = dict(Nsample=2048, Hsample=25, Hnode=5, Ndiffuse=2)
+ENV_KERNELS_STEPS = 3  # captured control steps whose launches are counted
+ENV_KERNELS_REPEAT = 50  # calls captured in one graph to time one call
+H100_HBM_BYTES = 3.35e12  # the H100 SXM's memory rate (NVIDIA's data sheet)
+
+
+def env_kernel_bytes(env, B):
+    """(go2_ctrl, go2_post_physics) bytes a call at B reads and writes, from
+    the fields each reads and writes per sample (info broadcast: read once)."""
+    m, s = env.model, env._dtype.itemsize
+    ctrl = B * (m.nu if env.config.leg_control == "position" else 3 * m.nu) * s + B * m.nu * s
+    per_sample_in = (m.nu + 4 * 3 + 3 + 4 + 6 + 3) * s  # joints, feet, torso, cvel, com
+    info_in = (3 + 3 + 3 + 1 + 4) * s + 4 + 4 + 8  # targets, air time; step, contact, seed
+    out = (1 + 3 + 3 + 4 + 4 + 4) * s + 1 + 4 + 4  # reward, targets, feet; done, step, contact
+    return ctrl, B * (per_sample_in + out) + (info_in if B > 1 else B * info_in)
+
+
+def _graph_ms(fn, device):
+    """ms per call of `fn` captured ENV_KERNELS_REPEAT times in one CUDA
+    graph (node gaps included, as the planner's graph runs it): the median
+    of 7 replays timed by two events; returns (ms, graph)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    stream, graph = torch.cuda.Stream(device), torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(ENV_KERNELS_REPEAT):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(7):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / ENV_KERNELS_REPEAT)
+    return statistics.median(times), graph
+
+
+def _kernel_device_ms(graph, name):
+    """Mean device ms of the kernel records named `name` in one replay of
+    `graph` under the profiler (after a pre-roll of spin kernels, as
+    `_profile_window`); None where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dialmpc_torch.telemetry.profile import TRACE_SETTLE_S
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PREROLL_LAUNCHES):
+            torch.cuda._sleep(PREROLL_CYCLES)
+        torch.cuda.synchronize()
+        graph.replay()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+    d = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+         if name in e.name() and not str(e.device_type()).endswith("CPU")]
+    return 1e-6 * statistics.mean(d) if d else None
+
+
+def _env_kernels_against_plain(env, tag, device):
+    """go2_ctrl and go2_post_physics against `_ctrl_batch_plain` and
+    `_post_physics_plain` on the same CUDA tensors, at B=2049 (the rollout:
+    info broadcast with stride 0, the reward inputs views of one row block)
+    and B=1 (the executed step): integers and bools equal, floats within
+    REL_TOL of each output's scale.  Returns {kernel: max abs err}."""
+    import torch
+
+    from tpu_dialmpc_torch.envs.base import StateInfo
+
+    from torch_port_helpers import go2_env_inputs
+
+    worst = {"go2_ctrl": 0.0, "go2_post_physics": 0.0}
+    for B in (2049, 1):
+        args, info, action = go2_env_inputs(env, B, seed=B, broadcast_info=B > 1, device=device)
+        check(B == 1 or info.pos_tar.stride(0) == 0, "the B=2049 info is not broadcast")
+        got_c = env._ctrl_batch(action, args["qpos"], args["qvel"])
+        want_c = env._ctrl_batch_plain(action, args["qpos"], args["qvel"])
+        r1, d1, i1 = env._post_physics(**args, info=info, ctrl=got_c)
+        r0, d0, i0 = env._post_physics_plain(**args, info=info)
+        torch.cuda.synchronize()
+        pairs = [("go2_ctrl", "ctrl", got_c, want_c), ("go2_post_physics", "reward", r1, r0),
+                 ("go2_post_physics", "done", d1, d0)]
+        pairs += [("go2_post_physics", f.name, getattr(i1, f.name), getattr(i0, f.name))
+                  for f in dataclasses.fields(StateInfo)]
+        line = []
+        for kernel, name, g, w in pairs:
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"[env-kernels {tag}] B={B} {name}: {g.dtype}{tuple(g.shape)} != "
+                  f"{w.dtype}{tuple(w.shape)}")
+            if not w.is_floating_point():
+                check(torch.equal(g, w), f"[env-kernels {tag}] B={B} {name}: not equal to the "
+                      f"plain version's")
+                continue
+            err = (g - w).abs().max().item()
+            tol = REL_TOL * max(1.0, w.abs().max().item())
+            worst[kernel] = max(worst[kernel], err)
+            line.append(f"{name} {err:.2e}")
+            check(err <= tol, f"[env-kernels {tag}] B={B} {name}: max abs diff {err:.3e} over "
+                  f"the tolerance {tol:.3e}")
+        print(f"[env-kernels {tag}] B={B} kernels vs plain, max abs diff: {', '.join(line)}; "
+              f"done, step, last_contact equal")
+    return worst
+
+
+def phase_env_kernels(go2_paths, device):
+    """[env-kernels] The Go2 env step's two kernels (csrc/go2_env_step.cu):
+    against their plain version on each Go2 path's env; their launches on
+    go2_stand's captured control step at its benchmark cell's width, counted
+    from 0; each kernel's and its plain version's time per call at B=2049
+    and B=1 and its bound.  Returns the kernels' records."""
+    import torch
+
+    from tpu_dialmpc_torch.envs import dial_defaults
+    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
+    from tpu_dialmpc_torch.planner.runner import make_control_step
+
+    from torch_port_helpers import go2_env_inputs
+
+    worst = {"go2_ctrl": 0.0, "go2_post_physics": 0.0}
+    for path, env in go2_paths:
+        for k, err in _env_kernels_against_plain(env, path.label, device).items():
+            worst[k] = max(worst[k], err)
+    env = next(env for path, env in go2_paths if path.task == "go2_stand")
+    kernels = env._env_kernels
+
+    # the main path: go2_stand's control step, captured, at the cell's width
+    cfg = dataclasses.replace(DialConfig(**dial_defaults("go2_stand")), **ENV_KERNELS_WIDTH)
+    mbdpi = MBDPI(cfg, env)
+    check(mbdpi.captured, "[env-kernels] go2_stand did not capture on the card")
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    step = make_control_step(mbdpi, cfg.Ndiffuse)
+    state = to_lean(env.reset())
+    Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=torch.float32, device=device)
+    for _ in range(2):  # the unit's eager first call, then its capture and first replay
+        state, Y0, _ = step(state, Y0, gen)
+    torch.cuda.synchronize()
+    kernels.ctrl_launches = kernels.post_physics_launches = env.fused_step.launches = 0
+    for _ in range(ENV_KERNELS_STEPS):
+        state, Y0, infos = step(state, Y0, gen)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(infos.rews).all()), "[env-kernels] non-finite rollout rewards")
+    per_step = cfg.Ndiffuse * (cfg.Hsample + 1) + 1
+    launches = {"go2_ctrl": kernels.ctrl_launches,
+                "go2_post_physics": kernels.post_physics_launches}
+    print(f"[env-kernels go2_stand] N{cfg.Nsample}/H{cfg.Hsample}/Hnode{cfg.Hnode}/Ndiffuse"
+          f"{cfg.Ndiffuse}, {ENV_KERNELS_STEPS} captured control steps: launches {launches}, "
+          f"fused {env.fused_step.launches} (expected {ENV_KERNELS_STEPS} x {per_step} = "
+          f"{cfg.Ndiffuse} x (H{cfg.Hsample} + 1) + 1 each)")
+    for n in list(launches.values()) + [env.fused_step.launches]:
+        check(n == ENV_KERNELS_STEPS * per_step, "[env-kernels] the captured control step did "
+              "not launch each env kernel once per env step")
+
+    # time per call, as a graph runs it, and the bound
+    records = {}
+    for B in (2049, 1):
+        args, info, action = go2_env_inputs(env, B, seed=B, broadcast_info=B > 1, device=device)
+        q, qd = args["qpos"], args["qvel"]
+        calls = {"go2_ctrl": (lambda: env._ctrl_batch(action, q, qd),
+                              lambda: env._ctrl_batch_plain(action, q, qd)),
+                 "go2_post_physics": (lambda: env._post_physics(**args, info=info, ctrl=None),
+                                      lambda: env._post_physics_plain(**args, info=info))}
+        for (name, (kernel, plain)), nbytes in zip(calls.items(), env_kernel_bytes(env, B)):
+            ms, graph = _graph_ms(kernel, device)
+            dev_ms = _kernel_device_ms(graph, name)
+            library_ms, _ = _graph_ms(plain, device)  # the parent's path: the ops captured
+            plain_ms = cuda_ms(plain, ENV_KERNELS_REPEAT)  # eager, each op launched by the host
+            bound = nbytes / H100_HBM_BYTES * 1e3
+            check(dev_ms is not None, f"[env-kernels] the trace holds no {name} record")
+            print(f"[env-kernels go2_stand] {name} B={B}: {ms * 1e3:.2f} us per call in a graph "
+                  f"(the kernel's own device time {dev_ms * 1e3:.2f} us); the plain PyTorch ops "
+                  f"{library_ms * 1e3:.2f} us in a graph, {plain_ms * 1e3:.2f} us eager; bound "
+                  f"{bound * 1e3:.4f} us ({nbytes} bytes at 3.35 TB/s), share {bound / ms:.5f}")
+            suffix = "" if B > 1 else "_b1"
+            records.setdefault(name, {}).update(
+                {"ms" + suffix: ms, "plain_ms" + suffix: plain_ms, "bound_ms" + suffix: bound,
+                 "library_ms" + suffix: library_ms, "device_ms" + suffix: dev_ms})
+    return [dict({"name": name, "route": "cuda",
+                  "source": "tpu_dialmpc_torch/csrc/go2_env_step.cu",
+                  "replaces": None,  # the JAX package left these ops to XLA's fusion
+                  "launches": launches[name], "max_abs_err": worst[name]},
+                 **rec, bound_by="bytes", share=rec["bound_ms"] / rec["ms"],
+                 path=f"go2_stand N2048/H25 captured control step x {ENV_KERNELS_STEPS}")
+            for name, rec in records.items()]
 
 
 MJCF_TIMESTEP = 0.0025  # the envs' timestep, as tests/assets/export_npz.py compiles at
@@ -2352,6 +2556,15 @@ def main():
         summary.append(f"fused_step[{WIDE_PATTERN.tag}] (nv={wide.model.nv}) "
                        f"{records[-1]['ms']:.3f} ms vs plain {records[-1]['plain_ms']:.1f} ms, "
                        f"bound {records[-1]['bound_ms']:.4f} ms")
+        t0 = time.perf_counter()
+        env_records = phase_env_kernels(
+            [(path, env) for path, env, _ in envs if path.task.startswith("go2_")], device)
+        records += env_records
+        print(f"[time env-kernels] phase wall {time.perf_counter() - t0:.1f} s")
+        summary.append("; ".join(
+            f"{r['name']} {r['ms'] * 1e3:.2f} us in a graph (plain ops {r['library_ms'] * 1e3:.2f} "
+            f"us), {r['launches']} launches in {ENV_KERNELS_STEPS} control steps"
+            for r in env_records))
         t0 = time.perf_counter()
         mjcf_launches = phase_mjcf(envs, device, all_envs)
         print(f"[time mjcf] phase wall {time.perf_counter() - t0:.1f} s")

@@ -150,6 +150,7 @@ def cell(workload, seed, seconds):
         graph_clone_ms=1e3 * in_window["graph/clone"]["host_s"] / len(window.outs),
         env_build_s=set_up["setup/env"]["self_s"],
         kernel_load_s=set_up.get("setup/kernel", {}).get("host_s"),
+        env_kernels_load_s=set_up.get("setup/env_kernels", {}).get("host_s"),
         first_call_s=set_up["setup/first_call"]["self_s"],
         capture_span_s=set_up["setup/capture"]["host_s"] + set_up["setup/instantiate"]["host_s"],
         setup_s=setup_s, setup_clock=run.clock, unread=unread, window_steps=len(window.outs),
@@ -160,6 +161,7 @@ def cell(workload, seed, seconds):
         physics_over_kernel_minus_executed=readings["rollout_physics_ms"] / kernel_only,
         launch_le_enqueue=readings["graph_launch_ms"] <= per_layer["host_enqueue_ms"],
         split_le_setup=(readings["env_build_s"] + (readings["kernel_load_s"] or 0)
+                        + (readings["env_kernels_load_s"] or 0)
                         + readings["first_call_s"] + per_layer["capture_s"] <= setup_s))
     print("RESULT " + json.dumps(dict(workload=workload, seed=seed, card=card_name(),
                                       readings=readings, per_layer=per_layer, checks=checks,

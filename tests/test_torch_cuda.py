@@ -10,8 +10,9 @@ run on the card; the tracer's device spans inside CUDA graphs (timing events
 replayed in a graph against the profiler's record of the kernel they
 bracket, the nodes of the captured control step with the tracer off and on
 and of its traced second graph, `rollout/physics` against the profiler's
-B=2049 kernel records): marked `cuda`, and each test skips without a CUDA
-device.
+B=2049 kernel records); the Go2 env step's two kernels against their plain
+version on the card, in a captured rollout and in the captured control
+step: marked `cuda`, and each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -36,6 +37,7 @@ from torch_port_helpers import (
     PORT_NPZ,
     crate_states,
     fused_kernel_records,
+    go2_env_inputs,
     graph_node_types,
     h1_crate_states,
     h1_floor_states,
@@ -447,9 +449,10 @@ def test_tracer_adds_only_its_event_nodes_to_the_captured_step_on_card(card):
     """go2_stand at N64/H4/Hnode2: the captured control step's graph holds
     no event-record node, node for node the same with the tracer off and
     on; the traced second graph holds those nodes and one event-record node
-    per mark the spans recorded.  The set-up spans: the kernel's load once,
-    the capture's two spans equal to `capture_s` and `instantiate_s` (the
-    traced graph's capture is not set-up)."""
+    per mark the spans recorded.  The set-up spans: each kernel library's
+    load once (the fused kernel's and the Go2 env kernels'), the capture's
+    two spans equal to `capture_s` and `instantiate_s` (the traced graph's
+    capture is not set-up)."""
     from tpu_dialmpc_torch.planner.dial import DialConfig
     from tpu_dialmpc_torch.telemetry import spans
 
@@ -472,6 +475,7 @@ def test_tracer_adds_only_its_event_nodes_to_the_captured_step_on_card(card):
     assert kinds_traced.pop(EVENT_RECORD) == n_marks == 5 + 2 + 2 * (2 + 1 + 4 * 5 + 2)
     assert kinds_traced == kinds_off
     assert got["setup/kernel"]["count"] == got["setup/first_call"]["count"] == 1
+    assert got["setup/env_kernels"]["count"] == 1
     assert got["setup/capture"]["host_s"] == on.graph.capture_s
     assert got["setup/instantiate"]["host_s"] == on.graph.instantiate_s
     assert got["graph/replay"]["count"] == 2
@@ -511,3 +515,99 @@ def test_rollout_physics_span_equals_the_kernel_records_on_card(card, tracer):
     whole = 1e-3 * e0.elapsed_time(e1)
     print(f"[spans] top-level spans {top * 1e3:.4f} ms, the replay {whole * 1e3:.4f} ms")
     assert top <= whole and top >= 0.98 * whole
+
+
+GO2_CONFIGS = {  # tests/test_torch_go2_env_kernel.py's configs, at the registry's settings
+    "go2_stand": {},
+    "go2_trot_position": {},
+    "go2_crate_climb": {},
+    "go2_turn": dict(energy_weight=0.5, yaw_mode="eigen"),
+    "go2_trot": dict(randomize_tasks=True),
+}
+
+
+def _close(got, want):
+    """Equal for integers and bools; floats within 1e-6 of the output's
+    scale (the module's tolerance): PyTorch's CUDA ops sum the feet and a
+    vector's components as a tree and contract products into FMAs where
+    the kernel, built with -fmad=false, keeps the plain version's order and
+    roundings, so a few outputs differ in their last bits."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    scale = max(1.0, want.abs().max().item()) if want.numel() else 1.0
+    return (got - want).abs().max().item() <= 1e-6 * scale if want.numel() else True
+
+
+@pytest.mark.parametrize("B", [1, 2049])
+@pytest.mark.parametrize("task", sorted(GO2_CONFIGS))
+def test_go2_env_kernels_match_plain_on_card(card, task, B):
+    """go2_ctrl and go2_post_physics on CUDA tensors (float32, the rollout's
+    layouts: info broadcast with stride 0, the reward inputs views of one
+    row block) against `_ctrl_batch_plain` and `_post_physics_plain` on the
+    same tensors: `done`, `step` and `last_contact` equal, floats within
+    `_close`'s bound; one launch each."""
+    import dataclasses
+
+    from tpu_dialmpc_torch.envs.base import StateInfo
+    from tpu_dialmpc_torch.envs.registry import get_env
+
+    env = get_env(task, device=card, **GO2_CONFIGS[task])
+    args, info, action = go2_env_inputs(env, B, seed=B, broadcast_info=B > 1, device=card)
+    assert B == 1 or info.pos_tar.stride(0) == 0
+    want = env._ctrl_batch_plain(action, args["qpos"], args["qvel"])
+    got = env._ctrl_batch(action, args["qpos"], args["qvel"])
+    r0, d0, i0 = env._post_physics_plain(**args, info=info)
+    r1, d1, i1 = env._post_physics(**args, info=info, ctrl=got)
+    torch.cuda.synchronize()
+    kernels = env._env_kernels
+    assert kernels.ctrl_launches == kernels.post_physics_launches == 1
+    gaps = {"ctrl": (got - want).abs().max().item(), "reward": (r1 - r0).abs().max().item()}
+    print(f"[go2 env kernels] {task} B={B} exact ctrl {torch.equal(got, want)} "
+          f"reward {torch.equal(r1, r0)} gaps {gaps}")
+    assert _close(got, want) and _close(r1, r0) and torch.equal(d1, d0)
+    for f in dataclasses.fields(StateInfo):
+        assert _close(getattr(i1, f.name), getattr(i0, f.name)), f.name
+
+
+def test_captured_rollout_launches_the_go2_kernels_on_card(card):
+    """A `rollout_batch` (go2_stand, B=257, T=6) captured in a CUDA graph:
+    the capture launches each env kernel once per horizon step, and the
+    replay's rewards equal the eager rollout's to the bit."""
+    from tpu_dialmpc_torch.envs.registry import get_env
+
+    env = get_env("go2_stand", device=card, n_substeps=8)
+    state = env.reset()
+    gen = torch.Generator(device=card).manual_seed(7)
+    us = torch.rand((257, 6, env.action_size), generator=gen, device=card) * 2 - 1
+    eager = env.rollout_batch(state, us)
+    kernels = env._env_kernels
+    before = (kernels.ctrl_launches, kernels.post_physics_launches, env.fused_step.launches)
+    assert before == (6, 6, 6)
+    stream, graph = torch.cuda.Stream(card), torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.graph(graph, stream=stream):
+        out = env.rollout_batch(state, us)
+    assert (kernels.ctrl_launches, kernels.post_physics_launches) == (12, 12)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_control_step_counts_the_go2_kernels_on_card(card):
+    """go2_stand at N64/H4/Hnode2, Ndiffuse 2, the control step captured
+    whole: each replay adds 2 x (H + 1) + 1 = 11 launches to each env
+    kernel's counter, as to the fused kernel's (`launch_counters`)."""
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    cfg = DialConfig(Nsample=64, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
+    unit, step = _captured_step(card, cfg, False)
+    env = unit.owner.mbdpi.env
+    names = {id(env.fused_step): "fused", id(env._env_kernels): "env"}
+    before = [getattr(o, n) for o, n in unit.counters]
+    step()
+    torch.cuda.synchronize()
+    added = {f"{names[id(o)]}.{n}": getattr(o, n) - b
+             for (o, n), b in zip(unit.counters, before)}
+    assert added == {"fused.launches": 11, "env.ctrl_launches": 11,
+                     "env.post_physics_launches": 11}

@@ -409,6 +409,10 @@ class TorchStubEnv:
     def action_size(self):
         return self.nu
 
+    def launch_counters(self):
+        """No kernel of its own: no launch counter for a graph to add to."""
+        return []
+
     def reset(self, generator=None):
         import torch
 
@@ -552,3 +556,80 @@ def fused_kernel_records(fn):
     return sorted((e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
                   if "fused_step_kernel" in e.name()
                   and not str(e.device_type()).endswith("CPU"))
+
+
+def _unit_quats(rng, n):
+    """Unit quaternions: a third near upright, a third tilted up to 90
+    degrees, a third anywhere (upside down too)."""
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = np.select([np.arange(n) % 3 == 0, np.arange(n) % 3 == 1],
+                      [rng.uniform(-0.2, 0.2, n), rng.uniform(-1.6, 1.6, n)],
+                      rng.uniform(-np.pi, np.pi, n))
+    yaw = rng.uniform(-np.pi, np.pi, n)
+    q = np.concatenate([np.cos(angle / 2)[:, None], np.sin(angle / 2)[:, None] * axis], 1)
+    z = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)], 1)
+    w1, v1, w2, v2 = z[:, :1], z[:, 1:], q[:, :1], q[:, 1:]
+    return np.concatenate([w1 * w2 - np.sum(v1 * v2, 1, keepdims=True),
+                           w1 * v2 + w2 * v1 + np.cross(v1, v2)], 1)
+
+
+def go2_env_inputs(env, B, seed, broadcast_info=False, device="cpu"):
+    """Reward inputs that take every branch somewhere in the batch: feet in
+    and out of contact and of the crate's footprint, torsos above and below
+    0.18 m, upside down, past the crate's front and `goal_x`, joints inside
+    and outside their ranges; steps at and off the redraw and turn periods.
+    Made on the CPU from `seed`, then moved to `device`.  Returns (kwargs of
+    `_post_physics` but info and ctrl, info, action (B, nu), a strided view
+    as `rollout_batch` hands it); the reward inputs are views of one (B, ND)
+    tensor, as the fused substep returns them."""
+    import torch
+
+    from tpu_dialmpc_torch.dynamics import fused
+    from tpu_dialmpc_torch.envs.base import StateInfo
+
+    m, dtype = env.model, env._dtype
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype)  # noqa: E731
+    qpos = np.tile(np.asarray(m.key_qpos["home"], np.float64), (B, 1))
+    qpos[:, 7:] += rng.normal(scale=0.5, size=(B, m.nq - 7))
+    qvel = rng.normal(scale=2.0, size=(B, m.nv))
+    der = torch.as_tensor(rng.normal(size=(B, fused.derived_size(m, env._fused_spec()))),
+                          dtype=dtype)
+    d = fused.split_derived(m, env._fused_spec(), der)
+    cx = env._crate[0] if env._crate is not None else 0.3
+    d["torso_xpos"].copy_(t(np.stack([rng.uniform(-0.5, 2.0, B), rng.uniform(-0.3, 0.3, B),
+                                      rng.uniform(0.1, 0.45, B)], 1)))
+    d["torso_xquat"].copy_(t(_unit_quats(rng, B)))
+    d["torso_cvel"].copy_(t(rng.normal(size=(B, 6))))
+    d["root_com"].copy_(d["torso_xpos"] + t(rng.normal(scale=0.05, size=(B, 3))))
+    sites = rng.normal(scale=0.5, size=(B, m.nsite, 3))
+    sites[..., 0] += cx
+    sites[..., 2] = rng.uniform(0.0, 0.4, (B, m.nsite))
+    sites[:, :, 2][rng.uniform(size=(B, m.nsite)) < 0.3] = 0.0175 + rng.uniform(-2e-3, 2e-3)
+    d["site_xpos"].copy_(t(sites))
+    d["qfrc_actuator"].copy_(t(rng.normal(scale=20.0, size=(B, m.nv))))
+    steps = rng.integers(0, 2000, B)
+    pick = rng.uniform(size=B) < 0.3  # the redraw and turn periods, and steps beside them
+    steps[pick] = rng.choice([0, 500, 1000, 75, 150, 499, 74], int(pick.sum()))
+    info = StateInfo(
+        pos_tar=t(np.array([0.282, 0.0, 0.3]) + rng.normal(scale=0.05, size=(B, 3))),
+        vel_tar=t(rng.normal(size=(B, 3))),
+        ang_vel_tar=t(rng.normal(size=(B, 3))),
+        yaw_tar=t(rng.uniform(-4, 4, B)),
+        step=torch.as_tensor(steps, dtype=torch.int32),
+        z_feet=t(rng.normal(size=(B, 4))),
+        z_feet_tar=t(rng.normal(size=(B, 4))),
+        last_contact=torch.as_tensor(rng.uniform(size=(B, 4)) < 0.5),
+        feet_air_time=t(rng.uniform(0, 0.5, (B, 4))),
+        seed=torch.as_tensor(rng.integers(0, 2**62, B), dtype=torch.int64),
+    )
+    info = StateInfo(**{f.name: getattr(info, f.name).to(device)
+                        for f in dataclasses.fields(info)})
+    if broadcast_info:
+        info = StateInfo(**{f.name: getattr(info, f.name)[0].expand_as(getattr(info, f.name))
+                            for f in dataclasses.fields(info)})
+    us = t(rng.uniform(-1.5, 1.5, (B, 3, m.nu))).to(device)
+    args = dict(qpos=t(qpos).to(device), qvel=t(qvel).to(device),
+                **fused.split_derived(m, env._fused_spec(), der.to(device)))
+    return args, info, us[:, 1]

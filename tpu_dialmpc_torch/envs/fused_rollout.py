@@ -84,6 +84,12 @@ class FusedRolloutMixin:
         (else the physics pipeline); fixed when the env is built."""
         return self._on_fused
 
+    def launch_counters(self):
+        """The (object, attribute) pairs of the Python launch counters an
+        env step adds to (`planner/capture.py` adds a graph's share at each
+        replay): the fused kernel's, on its path."""
+        return [(self.fused_step, "launches")] if self.on_fused_path else []
+
     def _fused_spec(self) -> fused.DerivedSpec:
         """The reward inputs the env's substep returns."""
         return fused.DerivedSpec(

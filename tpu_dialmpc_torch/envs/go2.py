@@ -9,6 +9,10 @@ batch; the executed step `step_lean` and the planner's rollouts
 (`envs/fused_rollout.py`): the fused substep, as on the JAX package's TPU
 path, or the pipeline.
 
+On CUDA tensors the PD map and the reward stack are one launch each, the
+hand-written kernels of `csrc/go2_env_step.cu` (`envs/go2_cuda.py`); on CPU
+tensors they run as the PyTorch ops below, their plain version.
+
 Legs are torque-controlled (the PD map onto `<motor>`s) or, with
 `leg_control="position"`, position-controlled: the action's joint targets go
 to the model's `<position>` servos as ctrl (the go2_position scene).
@@ -24,6 +28,7 @@ ranges for any other value.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from tpu_dialmpc_torch.dynamics.model import JNT_HINGE, PhysicsModel, load_scene
 from tpu_dialmpc_torch.envs import gait
 from tpu_dialmpc_torch.envs.base import EnvState, StateInfo
 from tpu_dialmpc_torch.envs.fused_rollout import pick_physics
+from tpu_dialmpc_torch.envs.go2_cuda import Go2EnvKernels
 from tpu_dialmpc_torch.envs.legged import LeggedEnv
 
 
@@ -139,6 +145,15 @@ class UnitreeGo2Env(LeggedEnv):
         self._feet_site_id = self._tensor(feet, torch.long)
         self._up_global = self._tensor([0.0, 0.0, 1.0])
         self._on_fused = pick_physics(self.model, config.fused, self.device, self._fused_spec())
+        # the PD map's and the reward stack's CUDA kernels, with the config
+        # packed once, on a CUDA env (built at their first launch)
+        self._env_kernels = Go2EnvKernels(self) if self.device.type == "cuda" else None
+
+    def launch_counters(self):
+        """The Python launch counters a captured env step adds to: the fused
+        kernel's on its path, and on a CUDA env the env kernels'."""
+        out = super().launch_counters()
+        return out + self._env_kernels.counters if self._env_kernels is not None else out
 
     def _place_crate(self, model: PhysicsModel, config) -> PhysicsModel:
         """Move the mocap crate `box_body` as the JAX env does before
@@ -175,7 +190,15 @@ class UnitreeGo2Env(LeggedEnv):
 
     def _ctrl_batch(self, action, qpos, qvel):
         """Batched action (..., nu) -> ctrl (..., nu): the joint targets in
-        position mode, else the PD torque map."""
+        position mode, else the PD torque map.  CUDA tensors: one launch of
+        `go2_ctrl`; CPU tensors: `_ctrl_batch_plain`."""
+        if action.device.type == "cuda":
+            flat = (x.reshape(-1, x.shape[-1]) for x in (action, qpos, qvel))
+            return self._env_kernels.ctrl(*flat).reshape(action.shape)
+        return self._ctrl_batch_plain(action, qpos, qvel)
+
+    def _ctrl_batch_plain(self, action, qpos, qvel):
+        """`_ctrl_batch` as PyTorch ops, on any device."""
         if self.config.leg_control == "position":
             return self.act2joint(action)
         nu = self.model.nu
@@ -211,7 +234,17 @@ class UnitreeGo2Env(LeggedEnv):
     ):
         """Command schedule + rewards + termination + info update, over a
         leading batch shape (...) — the JAX package's `_post_physics`, which
-        `step_lean` and `rollout_batch` both call."""
+        `step_lean` and `rollout_batch` both call.  CUDA tensors: one launch of
+        `go2_post_physics`; CPU tensors: `_post_physics_plain`."""
+        if qpos.device.type == "cuda":
+            return self._post_physics_kernel(qpos, qvel, site_xpos, torso_xpos, torso_xquat,
+                                             torso_cvel, root_com, qfrc_actuator, info)
+        return self._post_physics_plain(qpos, qvel, site_xpos, torso_xpos, torso_xquat,
+                                        torso_cvel, root_com, qfrc_actuator, info)
+
+    def _post_physics_plain(self, qpos, qvel, site_xpos, torso_xpos, torso_xquat, torso_cvel,
+                            root_com, qfrc_actuator, info: StateInfo):
+        """`_post_physics` as PyTorch ops, on any device."""
         cfg = self.config
         dtype = self._dtype
         dt = self.dt
@@ -327,3 +360,27 @@ class UnitreeGo2Env(LeggedEnv):
             seed=info.seed,
         )
         return reward, done, new_info
+
+    def _post_physics_kernel(self, qpos, qvel, site_xpos, torso_xpos, torso_xquat, torso_cvel,
+                             root_com, qfrc_actuator, info: StateInfo):
+        """`_post_physics` as one launch of `go2_post_physics`: the inputs as
+        (B, ...) views over the leading batch shape, the outputs back in it."""
+        lead = tuple(qpos.shape[:-1])
+        m = self.model
+
+        def b(x, *inner):  # a view where lead is one dimension; stride 0 stays 0
+            return x.expand(lead + inner).reshape((math.prod(lead),) + inner)
+
+        flat_info = dataclasses.replace(
+            info, pos_tar=b(info.pos_tar, 3), vel_tar=b(info.vel_tar, 3),
+            ang_vel_tar=b(info.ang_vel_tar, 3), yaw_tar=b(info.yaw_tar), step=b(info.step),
+            last_contact=b(info.last_contact, 4), feet_air_time=b(info.feet_air_time, 4),
+            seed=b(info.seed))
+        reward, done, out = self._env_kernels.post_physics(
+            b(qpos, m.nq), b(qvel, m.nv), b(site_xpos, m.nsite, 3), b(torso_xpos, 3),
+            b(torso_xquat, 4), b(torso_cvel, 6), b(root_com, 3), b(qfrc_actuator, m.nv),
+            flat_info)
+        out = {k: v.reshape(lead + v.shape[1:]) for k, v in out.items()}
+        new_info = dataclasses.replace(info, step=out.pop("step"),
+                                       yaw_tar=out.pop("yaw_tar", info.yaw_tar), **out)
+        return reward.reshape(lead), done.reshape(lead), new_info

@@ -47,7 +47,8 @@ unit's kernels are recorded once and replayed with one launch.
   rank's block, as the eager planner does.
 - Outputs are cloned out of the graph's buffers at every call: the next
   replay overwrites them, and some alias the static inputs.
-- Python counters do not run in a replay: `FusedStep.launches` and
+- Python counters do not run in a replay: the env's launch counters
+  (`launch_counters()`: `FusedStep.launches`, the Go2 env kernels') and
   `ShardedMBDPI.reduced_bytes`.  Each graph keeps what its capture added
   to them (taken back out: a captured launch runs nothing) and adds it at
   every replay.
@@ -282,8 +283,7 @@ class PlannerGraphs:
         self.units = {}
         env = mbdpi.env
         self.whole = getattr(env, "on_fused_path", True) and not mbdpi.args.compat_q1
-        self.counters = [(env.fused_step, "launches")] if getattr(env, "on_fused_path", False) \
-            else []
+        self.counters = list(env.launch_counters())
         self.counters += [(mbdpi, name) for name in mbdpi.COUNTERS]
 
     # the static state: the live part (`to_lean`'s pipeline and info)
