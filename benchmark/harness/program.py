@@ -4,12 +4,15 @@ that the comparison reads.
 
 This is the only module of the harness that imports the program, and it
 imports it inside functions, so the rest of the harness and the reference
-load without it.
+load without it.  The `spans_*` functions drive the program's tracer
+(`tpu_dialmpc_torch/telemetry/spans.py`); on a program without it each
+returns None.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -54,6 +57,16 @@ def fused_launches(prog) -> int:
     return prog.env.fused_step.launches
 
 
+def launch_counts(prog) -> dict:
+    """The program's kernel launch counters by `<class>.<attribute>` (the
+    env's `launch_counters()`: the physics kernel's and, on a CUDA Go2 env,
+    the PD map's and reward stack's); {} where the env has none."""
+    counters = getattr(prog.env, "launch_counters", None)
+    if counters is None:
+        return {}
+    return {f"{type(o).__name__}.{a}": getattr(o, a) for o, a in counters()}
+
+
 def capture_seconds(prog) -> float | None:
     """Host seconds the planner's graphs took to capture and instantiate."""
     graphs = prog.mbdpi.graphs
@@ -63,6 +76,57 @@ def capture_seconds(prog) -> float | None:
     if not spans or any(c is None for pair in spans for c in pair):
         return None
     return sum(c + i for c, i in spans)
+
+
+def _tracer():
+    """The program's tracer module, or None where the program has none."""
+    name = "tpu_dialmpc_torch.telemetry.spans"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name is None or not (name + ".").startswith(e.name + "."):
+            raise  # a module that the tracer itself imports is missing
+        return None
+
+
+def spans_on(device: bool) -> bool | None:
+    """Turn the tracer on: its host spans, and its device spans too where
+    `device` (a unit then replays its traced graph)."""
+    tr = _tracer()
+    if tr is None:
+        return None
+    tr.enable(device=device)
+    return True
+
+
+def spans_collect() -> int | None:
+    """Read the device spans of every replay since the last collect (waits
+    for the device); the replays that a later one overwrote unread."""
+    tr = _tracer()
+    return None if tr is None else tr.collect()
+
+
+def spans_summary() -> dict | None:
+    """Collect, then the spans since the last reset by path (count and host
+    and self seconds of a host span, count and device seconds of a device
+    span); the tracer starts afresh."""
+    tr = _tracer()
+    if tr is None:
+        return None
+    tr.collect()
+    out = tr.summary()
+    tr.reset()
+    return out
+
+
+def spans_off() -> bool | None:
+    """Turn the tracer off and forget what it holds."""
+    tr = _tracer()
+    if tr is None:
+        return None
+    tr.disable()
+    tr.reset()
+    return True
 
 
 def state_dict(state) -> dict:

@@ -19,3 +19,32 @@ def kernel_seconds(ctx, pattern: str, launched: int | None = None):
             return None
         seconds *= launched / count
     return seconds, count
+
+
+def kernel_ms_per_step(ctx, pattern: str, counter: str) -> float | None:
+    """`kernel_seconds` per traced control step, in ms, with the trace's
+    count held against the program's launch counter `counter`
+    (`program.launch_counts`' key); None where the counter reads no
+    launch or the records do not match it."""
+    launched = (getattr(ctx, "kernel_launches", None) or {}).get(counter)
+    if not launched:
+        return None
+    got = kernel_seconds(ctx, pattern, launched)
+    return None if got is None else 1e3 * got[0] / ctx.traced_steps
+
+
+def span_seconds(ctx, phase: str, key: str, *paths: str) -> float | None:
+    """The `key` seconds ("host_s", "self_s" or "device_s") of the
+    program's spans `paths`, summed, as its tracer recorded them over
+    `phase` of a traced run ("setup", "host" or "device", `run.run_cell`);
+    None where one of them is absent."""
+    spans = (getattr(ctx, "spans", None) or {}).get(phase, {})
+    if any(p not in spans for p in paths):
+        return None
+    return sum(spans[p][key] for p in paths)
+
+
+def span_ms_per_step(ctx, phase: str, key: str, *paths: str) -> float | None:
+    """`span_seconds` per control step that the phase ran, in ms."""
+    s = span_seconds(ctx, phase, key, *paths)
+    return None if s is None else 1e3 * s / ctx.span_steps[phase]

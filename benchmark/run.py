@@ -11,8 +11,9 @@ then judges a sample of the window's steps against the plain reference
 (`benchmark/harness/correct.py`).  With `--trace 0` the result holds the
 cell's end-to-end metrics; with `--trace 1` its per-layer metrics, read by
 `benchmark/metrics/<name>.py` from a profile of the steps that close the
-window.  The last line of standard output is the result, as JSON; the last
-lines of standard error are the numbers compared, each beside its limit.
+window and from the program's own spans (`run_cell`).  The last line of
+standard output is the result, as JSON; the last lines of standard error are
+the numbers compared, each beside its limit.
 
 Without a CUDA card (or with fewer than the cell asks for) it exits with 3
 and prints no result; it never falls back to the CPU.
@@ -43,6 +44,11 @@ from benchmark.harness import cells  # noqa: E402
 # a result: JAX and the JAX package (the port's name begins with it, so
 # names are compared whole)
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_dialmpc")
+# a traced run's steps with the program's host spans on, between the timed
+# window (the spans' own host time would sit in its enqueue times) and the
+# profiled steps (after a profile a graph's launch reads ~4x longer on the
+# host): ~1 s of go2_stand
+HOST_SPAN_STEPS = 20
 
 
 def forbidden_modules() -> list:
@@ -84,7 +90,17 @@ def run_cell(found, seed: int, seconds: float, trace: bool, device="cuda",
     """One run of the cell `found` (`cells.find_cell`) on `device`: the
     result's keys.  `overrides` replace parts of the configuration (the CPU
     rehearsals shrink the planner with it).  On the card the planner
-    captures its graphs or raises; on the CPU it runs eagerly."""
+    captures its graphs or raises; on the CPU it runs eagerly.
+
+    With `trace` the program's tracer records three phases, each read into
+    `ctx.spans[phase]` (a summary by span path, `program.spans_summary`) and
+    `ctx.span_steps[phase]` (the control steps it ran): "setup", host spans
+    from before the build to the end of the warm-up; "host", after the
+    timed window, host spans over `HOST_SPAN_STEPS` steps of the untraced
+    graph; "device", after the profiled steps, the device spans of
+    `trace_steps` steps, each replay read before the next.  The window and
+    the profiled steps run with the tracer off; without `trace` it stays
+    off, and the run is the untraced program's."""
     import torch
 
     from benchmark.harness import correct, loop, program, work
@@ -95,9 +111,17 @@ def run_cell(found, seed: int, seconds: float, trace: bool, device="cuda",
     traffic = found.traffic
     device = torch.device(device)
     on_card = device.type == "cuda"
+    spans, span_steps = {}, {}
+
+    def take(phase, steps):
+        got = program.spans_summary()
+        if got is not None:
+            spans[phase], span_steps[phase] = got, steps
 
     # set-up: the program, its reset state, and the warm-up steps (eager,
     # capture, replays), each with its read-back
+    if trace:
+        program.spans_on(device=False)
     prog = program.build(config, device, True if on_card else "auto")
     state0, Y0 = program.reset(prog)
     start = correct.snapshot(program.state_dict(state0))
@@ -110,6 +134,9 @@ def run_cell(found, seed: int, seconds: float, trace: bool, device="cuda",
     del warm.outs, warm.ins
     capture_s = program.capture_seconds(prog) if on_card else None
     setup_s = time.perf_counter() - t_process
+    if trace:
+        take("setup", int(traffic["warmup_steps"]))
+        program.spans_off()
 
     if on_card:
         log(f"[card] before the window: {card_state()}", file=sys.stderr)
@@ -118,21 +145,53 @@ def run_cell(found, seed: int, seconds: float, trace: bool, device="cuda",
                       seconds=seconds, start=begin)
     if on_card:
         log(f"[card] after the window: {card_state()}", file=sys.stderr)
+    # the program's peak: the traced run's later phases (the host spans' and
+    # the profile's steps, the traced graph) are the instrument's
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
 
     summary, traced_launches, traced_steps = None, None, int(traffic["trace_steps"])
+    kernel_launches = {}
     if trace:
-        if not on_card:
-            raise RuntimeError("a traced run needs the card")
         from torch.profiler import record_function
 
+        last = window
+        if program.spans_on(device=False):
+            last = loop.run(prog.step, window.state, window.Y, noise, window.k, traffic,
+                            device, n=HOST_SPAN_STEPS, start=begin)
+            del last.outs, last.ins
+            take("host", HOST_SPAN_STEPS)
+            program.spans_off()
+
         def traced():
-            return loop.run(prog.step, window.state, window.Y, noise, window.k, traffic,
+            return loop.run(prog.step, last.state, last.Y, noise, last.k, traffic,
                             device, n=traced_steps, span=record_function, start=begin)
 
-        before = program.fused_launches(prog)
-        summary, _ = tracing.profile(traced, device)
+        before, counts = program.fused_launches(prog), program.launch_counts(prog)
+        summary, after = tracing.profile(traced, device)
         traced_launches = program.fused_launches(prog) - before
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        kernel_launches = {k: v - counts[k] for k, v in program.launch_counts(prog).items()
+                           if k in counts}
+    if trace:
+        if program.spans_on(device=True):
+            # one step captures the traced graph; then each step's replay is
+            # read before the next one overwrites its events
+            last = loop.run(prog.step, after.state, after.Y, noise, after.k, traffic, device,
+                            n=1, start=begin)
+            program.spans_summary()
+            unread = 0
+            for _ in range(traced_steps):
+                last = loop.run(prog.step, last.state, last.Y, noise, last.k, traffic, device,
+                                n=1, start=begin)
+                unread += program.spans_collect()
+            if unread:
+                log(f"[spans] {unread} replays not read: no device spans", file=sys.stderr)
+            else:
+                take("device", traced_steps)
+                log("[spans] device ms per step " + json.dumps(
+                    {k: 1e3 * v["device_s"] / traced_steps
+                     for k, v in spans["device"].items() if "device_s" in v}), file=sys.stderr)
+        program.spans_off()
+        del after, last
     failed = program.non_finite(window.outs)
 
     # the judged steps, copied out; then the program is freed
@@ -146,7 +205,7 @@ def run_cell(found, seed: int, seconds: float, trace: bool, device="cuda",
     ctx = SimpleNamespace(
         config=config, traffic=traffic, window=window, setup_s=setup_s, capture_s=capture_s,
         trace=summary, traced_steps=traced_steps, traced_launches=traced_launches,
-        ops_per_step=work.ops_per_step(config))
+        kernel_launches=kernel_launches, ops_per_step=work.ops_per_step(config), spans=spans, span_steps=span_steps)
     names = [m["name"] for m in (found.per_layer if trace else found.end_to_end)]
     units = {m["name"]: m["unit"] for m in found.per_layer + found.end_to_end}
     metrics = {}
