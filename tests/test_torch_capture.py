@@ -57,10 +57,11 @@ def expected_launches(cfg, n_steps):
 
 class CountingPlain:
     """The env's FusedStep on the CPU (its plain version), with the launch
-    count the kernel's wrapper keeps on the card."""
+    count the kernel's wrapper keeps on the card (its wave count stays 0:
+    the CPU has no SMs to fill)."""
 
     def __init__(self, fs):
-        self.fs, self.spec, self.launches = fs, fs.spec, 0
+        self.fs, self.spec, self.launches, self.waves = fs, fs.spec, 0, 0
 
     def __call__(self, *args):
         self.launches += 1

@@ -12,7 +12,8 @@ bracket, the nodes of the captured control step with the tracer off and on
 and of its traced second graph, `rollout/physics` against the profiler's
 B=2049 kernel records); the Go2 env step's two kernels against their plain
 version on the card, in a captured rollout and in the captured control
-step: marked `cuda`, and each test skips without a CUDA device.
+step; the kernel's wave counter in a replay of H1's captured control step:
+marked `cuda`, and each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
 installed; `--noconftest` keeps pytest from loading tests/conftest.py, which
@@ -425,7 +426,7 @@ def test_timing_events_replay_inside_a_graph_on_card(card, model):
     assert kernel_ms > 0.1 and kernel_ms <= ms <= kernel_ms + 0.05
 
 
-def _captured_step(card, cfg, tracer_on):
+def _captured_step(card, cfg, tracer_on, task="go2_stand"):
     from tpu_dialmpc_torch.envs.registry import get_env
     from tpu_dialmpc_torch.envs.base import to_lean
     from tpu_dialmpc_torch.planner.dial import MBDPI
@@ -433,7 +434,7 @@ def _captured_step(card, cfg, tracer_on):
     from tpu_dialmpc_torch.telemetry import spans
 
     (spans.enable if tracer_on else spans.disable)()
-    env = get_env("go2_stand", device=card, n_substeps=8)
+    env = get_env(task, device=card, n_substeps=8)
     mb = MBDPI(cfg, env, capture=True)
     step = make_control_step(mb, cfg.Ndiffuse)
     state = to_lean(env.reset())
@@ -597,7 +598,8 @@ def test_captured_rollout_launches_the_go2_kernels_on_card(card):
 def test_control_step_counts_the_go2_kernels_on_card(card):
     """go2_stand at N64/H4/Hnode2, Ndiffuse 2, the control step captured
     whole: each replay adds 2 x (H + 1) + 1 = 11 launches to each env
-    kernel's counter, as to the fused kernel's (`launch_counters`)."""
+    kernel's counter, as to the fused kernel's (`launch_counters`), and
+    as many waves to the fused kernel's (B=65 fits one)."""
     from tpu_dialmpc_torch.planner.dial import DialConfig
 
     cfg = DialConfig(Nsample=64, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
@@ -609,5 +611,28 @@ def test_control_step_counts_the_go2_kernels_on_card(card):
     torch.cuda.synchronize()
     added = {f"{names[id(o)]}.{n}": getattr(o, n) - b
              for (o, n), b in zip(unit.counters, before)}
-    assert added == {"fused.launches": 11, "env.ctrl_launches": 11,
+    assert added == {"fused.launches": 11, "fused.waves": 11, "env.ctrl_launches": 11,
                      "env.post_physics_launches": 11}
+
+
+def test_control_step_counts_the_kernel_waves_on_card(card):
+    """h1_push_crate at N2048/H4/Hnode2, Ndiffuse 2, the control step
+    captured whole: the card holds `launch_config`'s samples per SM on
+    every SM at once (the occupancy the runtime reports agrees), so each of the 10 rollout
+    launches at B=2049 takes ceil(2049 / resident) waves and the executed
+    step's one; a replay adds exactly that to `FusedStep.waves`."""
+    from tpu_dialmpc_torch.planner.dial import DialConfig
+
+    cfg = DialConfig(Nsample=2048, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
+    unit, step = _captured_step(card, cfg, False, task="h1_push_crate")
+    fs = unit.owner.mbdpi.env.fused_step
+    lib = fs.library(card)
+    info = lib.launch_info()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert lib.resident == info["blocks_per_sm"] * info["samples_per_block"] * sms
+    per_step = 2 * 5 * fused_cuda.waves(2049, lib.resident) + 1
+    assert per_step > 2 * 5 + 1  # more than one wave a rollout launch
+    launches, waves = fs.launches, fs.waves
+    step()
+    torch.cuda.synchronize()
+    assert (fs.launches - launches, fs.waves - waves) == (11, per_step)

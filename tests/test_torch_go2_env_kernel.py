@@ -204,10 +204,10 @@ def test_params_layout_and_empty_batch(host_dir):
 
 def test_cpu_env_launches_nothing():
     """A CPU env runs the plain version and makes no kernels; its capture
-    counters are the fused kernel's alone."""
+    counters are the fused kernel's alone, its launches and waves."""
     env = make_env("stand", "float32")
     assert env._env_kernels is None
-    assert env.launch_counters() == [(env.fused_step, "launches")]
+    assert env.launch_counters() == [(env.fused_step, "launches"), (env.fused_step, "waves")]
     args, info, action = go2_env_inputs(env, 4, seed=5, broadcast_info=False)
     env._post_physics(**args, info=info, ctrl=None)
     env._ctrl_batch(action, args["qpos"], args["qvel"])

@@ -5,6 +5,8 @@ points' device, on the CPU.
   set (`struct Work` of csrc/fused_step.cu) in shared memory; the bytes per
   sample are the struct's (the host build reports its sizeof), and every
   model of the port fits a block's 227 KB.
+- `fused_cuda.waves`: a launch's waves, ceil(B / the samples an H100's
+  132 SMs hold at once), for the builds of go2_stand and h1_push_crate.
 - `fused.count_ops`: the arithmetic of one plain substep, the kernel's
   bound's numerator, against the JAX package's `count_fused_ops` on the
   same stand-in scenes.  Margin, with its reasons: the port counts the
@@ -44,6 +46,23 @@ def _models(scene):
 def _defines(tm):
     spec = fused.DerivedSpec(torso_body=1)
     return fused_cuda.pack_model(tm, fused._meta(tm), spec)[0]
+
+
+# (bytes per sample, samples per SM) of each task's build, and its waves at
+# B = 1, 2049 (go2_stand's rollouts) and 8193 (h1_push_crate_n8192's) on
+# an H100 (132 SMs): 22 x 132 = 2904 and 8 x 132 = 1056 samples a wave
+WAVES = {"go2_stand": (9848, 22, {1: 1, 2049: 1, 8193: 3}),
+         "h1_push_crate": (28728, 8, {1: 1, 2049: 2, 8193: 8})}
+
+
+@pytest.mark.parametrize("task,B", [(t, b) for t in WAVES for b in (1, 2049, 8193)])
+def test_waves_per_launch_follow_the_launch_config(task, B):
+    env = get_env(task, device="cpu", fused="on")
+    defines = fused_cuda.kernel_sizes(env.model, fused._meta(env.model), env._fused_spec())[0]
+    nbytes, per_sm, want = WAVES[task]
+    assert fused_cuda.samples_per_sm(*fused_cuda.launch_config(defines)) == per_sm
+    assert fused_cuda.work_bytes(defines) == nbytes
+    assert fused_cuda.waves(B, per_sm * 132) == want[B] == -(-B // (per_sm * 132))
 
 
 @pytest.mark.parametrize("scene", SCENES)

@@ -13,8 +13,10 @@ The kernel is built from the checkout's sources at the first CUDA call
 values are packed here into the kernel's `FusedModel` struct (uploaded to
 its `__constant__` memory and to a global copy once), and the index lists
 its lanes walk into `FusedTables`.  `launches` counts kernel launches and
-nothing else; a CUDA graph that holds launches adds them at each replay
-(`planner/capture.py`), and takes back those its capture counted.
+nothing else, `waves` the waves they took (`waves`: ceil(B / the samples
+the card holds at once)); a CUDA graph that holds launches adds both at
+each replay (`planner/capture.py`), and takes back those its capture
+counted.
 
 Launch shape: one warp per sample, `samples_per_block` samples per block,
 each sample's working set (`Work` in the source) in the block's dynamic
@@ -200,6 +202,13 @@ def kernel_limits(model: PhysicsModel, spec: fused.DerivedSpec, meta=None) -> Li
                                   spec)[0])
 
 
+def samples_per_sm(nbytes: int, spb: int) -> int:
+    """Samples an SM holds at once, `spb` to a block of `nbytes` each: as
+    many blocks as its shared memory takes, at most 32."""
+    blocks = SMEM_PER_SM // (spb * nbytes + SMEM_RESERVED_PER_BLOCK)
+    return spb * min(blocks, MAX_BLOCKS_PER_SM)
+
+
 def launch_config(defines: dict) -> Tuple[int, int]:
     """(bytes per sample, samples per block): the samples per block (up to
     4) that let the most samples share an SM's shared memory, the larger on
@@ -208,13 +217,13 @@ def launch_config(defines: dict) -> Tuple[int, int]:
     if nbytes > SMEM_PER_BLOCK:
         raise ValueError(f"one sample's working set is {nbytes} bytes; a block holds at most "
                          f"{SMEM_PER_BLOCK}")
-
-    def per_sm(spb):
-        blocks = SMEM_PER_SM // (spb * nbytes + SMEM_RESERVED_PER_BLOCK)
-        return spb * min(blocks, MAX_BLOCKS_PER_SM)
-
     fits = [k for k in range(1, MAX_SAMPLES_PER_BLOCK + 1) if k * nbytes <= SMEM_PER_BLOCK]
-    return nbytes, max(fits, key=lambda k: (per_sm(k), k))
+    return nbytes, max(fits, key=lambda k: (samples_per_sm(nbytes, k), k))
+
+
+def waves(batch: int, resident: int) -> int:
+    """Waves a launch of `batch` samples takes: ceil(batch / resident)."""
+    return -(-batch // resident)
 
 
 def _bits(idx, nw: int) -> List[int]:
@@ -578,6 +587,7 @@ class FusedStep:
         self.meta = fused._meta(model)
         self.nd = fused.derived_size(model, spec)
         self.launches = 0
+        self.waves = 0
         self.build_log = None  # nvcc's output, after the first CUDA call
         self._libs = {}  # device index -> _Library
 
@@ -590,11 +600,16 @@ class FusedStep:
 
     def library(self, device: torch.device) -> _Library:
         """The kernel for `device`, built and uploaded at first use (the
-        span `setup/kernel`, `telemetry/spans.py`)."""
+        span `setup/kernel`, `telemetry/spans.py`), with the samples one of
+        its waves holds on that card (`resident`: `launch_config`'s samples
+        per SM on every SM)."""
         idx = device.index if device.index is not None else torch.cuda.current_device()
         if idx not in self._libs:
             with spans.span("setup/kernel"), torch.cuda.device(idx):
                 lib, self.build_log, _ = build_library(self.model, self.meta, self.spec)
+            info = lib.launch_info()
+            lib.resident = (samples_per_sm(info["bytes_per_sample"], info["samples_per_block"])
+                            * torch.cuda.get_device_properties(idx).multi_processor_count)
             self._libs[idx] = lib
         return self._libs[idx]
 
@@ -633,4 +648,5 @@ class FusedStep:
         if err != 0:
             raise RuntimeError(f"fused_step kernel launch failed: cudaGetLastError() = {err}")
         self.launches += 1
+        self.waves += waves(B, lib.resident)
         return outs

@@ -87,8 +87,10 @@ class FusedRolloutMixin:
     def launch_counters(self):
         """The (object, attribute) pairs of the Python launch counters an
         env step adds to (`planner/capture.py` adds a graph's share at each
-        replay): the fused kernel's, on its path."""
-        return [(self.fused_step, "launches")] if self.on_fused_path else []
+        replay): the fused kernel's launches and waves, on its path."""
+        if not self.on_fused_path:
+            return []
+        return [(self.fused_step, "launches"), (self.fused_step, "waves")]
 
     def _fused_spec(self) -> fused.DerivedSpec:
         """The reward inputs the env's substep returns."""

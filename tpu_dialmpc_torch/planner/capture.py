@@ -48,7 +48,7 @@ unit's kernels are recorded once and replayed with one launch.
 - Outputs are cloned out of the graph's buffers at every call: the next
   replay overwrites them, and some alias the static inputs.
 - Python counters do not run in a replay: the env's launch counters
-  (`launch_counters()`: `FusedStep.launches`, the Go2 env kernels') and
+  (`launch_counters()`: `FusedStep.launches` and `waves`, the Go2 env kernels') and
   `ShardedMBDPI.reduced_bytes`.  Each graph keeps what its capture added
   to them (taken back out: a captured launch runs nothing) and adds it at
   every replay.
