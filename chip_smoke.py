@@ -432,7 +432,8 @@ def phase_build(env, device, tag):
     info = lib.launch_info()
     print(f"[build {tag}] one warp per sample: {info['bytes_per_sample']} bytes of shared memory "
           f"per sample, {info['samples_per_block']} samples per block, "
-          f"{info['blocks_per_sm']} blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+          f"{info['blocks_per_sm']} blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+          f"{lib.resident} samples a wave")
     check(info["blocks_per_sm"] > 0, "the kernel's block does not fit an SM")
     return secs
 

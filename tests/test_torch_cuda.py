@@ -199,9 +199,8 @@ def test_launch_shapes_match_plain_on_card(card, scene, batch):
     spb = fused_cuda.launch_config(fused_cuda.pack_model(m, fs.meta, spec)[0])[1]
     if batch == "one":
         B = 1
-    elif batch == "partial":
-        B = next(b for b in range(2049, 2049 + 8) if b % spb)
-        assert spb > 1, "with one sample per block no block is partly filled"
+    elif batch == "partial":  # with one sample a block, 2049 blocks of one
+        B = next((b for b in range(2049, 2049 + 8) if b % spb), 2049)
     else:
         B = batch
     args = _scene_inputs(m, scene, B, B, card)
@@ -212,6 +211,41 @@ def test_launch_shapes_match_plain_on_card(card, scene, batch):
     for o, r in zip(out, ref):
         assert o.shape == r.shape and bool(torch.isfinite(o).all())
         assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("scene", [
+    "go2_force", "go2_force_crate", "go2_position", "h1_walk", "h1_loco", "h1_push_crate",
+    "tests/assets/unitree_h1/mjx_scene_h1_2_walk.xml",
+    "tests/assets/pairs/mjx_scene_pair_kinds_fused.xml",
+])
+def test_the_card_holds_the_samples_of_the_launch_config_on_card(card, scene):
+    """Every stand-in build: the samples a wave holds (`lib.resident`) are
+    the runtime's occupancy on every SM and `samples_per_sm` at the build's
+    shared memory and ptxas' registers, which do not bind on H1's build;
+    ptxas spills nothing in the fused kernel; the H1 push-crate build holds
+    11 samples an SM or more, and go2_force's B=2049 launch is one wave."""
+    from tpu_dialmpc_torch.dynamics.model import load_scene
+
+    root = PORT_NPZ.parents[2]
+    m = (load_scene(str(root / scene)) if scene.endswith(".xml")
+         else load_model(str(PORT_NPZ.with_name(f"{scene}.npz"))))
+    torso = "pelvis" if "h1" in scene else "base"
+    spec = fused.DerivedSpec(torso_body=m.body_names.index(torso), want_sites=True,
+                             want_qfrc_actuator=True)
+    fs = fused_cuda.FusedStep(m, 8, spec)
+    lib = fs.library(card)
+    info = lib.launch_info()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    nbytes, spb = fused_cuda.launch_config(fused_cuda.pack_model(m, fs.meta, spec)[0])
+    use = fused_cuda.ptxas_usage(fs.build_log)
+    assert use["registers"] > 0, fs.build_log
+    assert use["spill_stores"] == use["spill_loads"] == 0, use
+    assert lib.resident == info["blocks_per_sm"] * info["samples_per_block"] * sms
+    assert lib.resident == fused_cuda.samples_per_sm(nbytes, spb, use["registers"]) * sms
+    if scene == "h1_push_crate":
+        assert lib.resident == fused_cuda.samples_per_sm(nbytes, spb) * sms >= 11 * 132
+    if scene == "go2_force":
+        assert fused_cuda.waves(2049, lib.resident) == 1
 
 
 @pytest.mark.parametrize("scene", ["go2_position", "h1_loco"])
@@ -617,8 +651,8 @@ def test_control_step_counts_the_go2_kernels_on_card(card):
 
 def test_control_step_counts_the_kernel_waves_on_card(card):
     """h1_push_crate at N2048/H4/Hnode2, Ndiffuse 2, the control step
-    captured whole: the card holds `launch_config`'s samples per SM on
-    every SM at once (the occupancy the runtime reports agrees), so each of the 10 rollout
+    captured whole: the card holds the blocks per SM the runtime's
+    occupancy reports on every SM at once, so each of the 10 rollout
     launches at B=2049 takes ceil(2049 / resident) waves and the executed
     step's one; a replay adds exactly that to `FusedStep.waves`."""
     from tpu_dialmpc_torch.planner.dial import DialConfig

@@ -3,8 +3,9 @@ points' device, on the CPU.
 
 - `fused_cuda.launch_config`: one warp per sample, each sample's working
   set (`struct Work` of csrc/fused_step.cu) in shared memory; the bytes per
-  sample are the struct's (the host build reports its sizeof), and every
-  model of the port fits a block's 227 KB.
+  sample are the struct's (the host build reports its sizeof) for every
+  stand-in scene the port builds a kernel for, and each fits a block's
+  227 KB.
 - `fused_cuda.waves`: a launch's waves, ceil(B / the samples an H100's
   132 SMs hold at once), for the builds of go2_stand and h1_push_crate.
 - `fused.count_ops`: the arithmetic of one plain substep, the kernel's
@@ -32,6 +33,9 @@ from tpu_dialmpc_torch.envs.h1 import UnitreeH1Env
 from tpu_dialmpc_torch.planner.dial import MBDPI, DialConfig
 
 SCENES = ("go2_force", "go2_force_crate", "h1_push_crate")
+# every stand-in scene the port builds a kernel for
+KERNEL_SCENES = SCENES + ("go2_position", "h1_walk", "h1_loco", "h1_2_walk",
+                          "go2_pair_kinds_fused")
 
 
 def _models(scene):
@@ -48,11 +52,13 @@ def _defines(tm):
     return fused_cuda.pack_model(tm, fused._meta(tm), spec)[0]
 
 
-# (bytes per sample, samples per SM) of each task's build, and its waves at
-# B = 1, 2049 (go2_stand's rollouts) and 8193 (h1_push_crate_n8192's) on
-# an H100 (132 SMs): 22 x 132 = 2904 and 8 x 132 = 1056 samples a wave
-WAVES = {"go2_stand": (9848, 22, {1: 1, 2049: 1, 8193: 3}),
-         "h1_push_crate": (28728, 8, {1: 1, 2049: 2, 8193: 8})}
+# (bytes per sample, samples per SM by shared memory) of each task's build,
+# and its waves at B = 1, 2049 (go2_stand's rollouts) and 8193
+# (h1_push_crate_n8192's) on an H100 (132 SMs): 28 x 132 = 3696 and
+# 13 x 132 = 1716 samples a wave (tests/test_torch_cuda.py holds the card's
+# occupancy, registers included, against these)
+WAVES = {"go2_stand": (7472, 28, {1: 1, 2049: 1, 8193: 3}),
+         "h1_push_crate": (16856, 13, {1: 1, 2049: 2, 8193: 5})}
 
 
 @pytest.mark.parametrize("task,B", [(t, b) for t in WAVES for b in (1, 2049, 8193)])
@@ -75,7 +81,7 @@ def test_count_ops_matches_the_jax_count(scene):
     assert no_select < total <= 1.1 * want, (total, want)
 
 
-@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.parametrize("scene", KERNEL_SCENES)
 def test_launch_config_fits_shared_memory(scene, tmp_path):
     _, tm = _models(scene)
     defines = _defines(tm)
@@ -100,7 +106,7 @@ def test_launch_config_picks_the_most_samples_per_sm_and_raises_beyond_a_block()
         return k * min(blocks, fused_cuda.MAX_BLOCKS_PER_SM)
 
     assert all(per_sm(spb) >= per_sm(k) for k in range(1, 5))
-    too_big = dict(defines, FS_NCROW=defines["FS_NCROW"] * 40)
+    too_big = dict(defines, FS_NCROW=defines["FS_NCROW"] * 40, FS_NJ=defines["FS_NJ"] * 40)
     with pytest.raises(ValueError):
         fused_cuda.launch_config(too_big)
 
@@ -146,3 +152,24 @@ def test_cpu_when_asked(task):
     assert env.device == torch.device("cpu")
     assert state.pipeline.qpos.device.type == "cpu"
     assert MBDPI(DialConfig(Nsample=4, Hsample=4, Hnode=2), env).device == torch.device("cpu")
+
+
+def test_samples_per_sm_takes_registers_and_the_warp_cap():
+    """An SM's registers (4 sub-partitions of 16K, 256 to a warp at a time)
+    and its 64 warps cap the samples it holds, besides its shared memory
+    (the occupancies the card reported for builds of 96-128 registers);
+    ptxas' count is read from a card build's log (none in a host build's)."""
+    assert fused_cuda.samples_per_sm(16856, 1) == 13
+    assert fused_cuda.samples_per_sm(16856, 1, registers=128) == 13  # 4 warps a partition
+    assert fused_cuda.samples_per_sm(16856, 1, registers=129) == 12  # 3 of 4352 registers
+    assert fused_cuda.samples_per_sm(9588, 2, registers=109) == 16  # not 18: 4 a partition
+    assert fused_cuda.samples_per_sm(12020, 3, registers=112) == 15
+    assert fused_cuda.samples_per_sm(7472, 4, registers=96) == 20  # 5 warps a partition
+    assert fused_cuda.samples_per_sm(1024, 4) == 64  # the warp cap, not 32 blocks of 4
+    log = ("ptxas info    : Compiling entry function '_Z17fused_step_kernelPK10FusedModel' "
+           "for 'sm_90a'\nptxas info    : Function properties for _Z17fused_step_kernelPK10"
+           "FusedModel\n    96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 118 registers, used 0 barriers\n")
+    assert fused_cuda.ptxas_usage(log) == dict(registers=118, stack_frame=96, spill_stores=0,
+                                               spill_loads=0)
+    assert fused_cuda.ptxas_usage("")["registers"] == 0

@@ -198,12 +198,14 @@ def _defines(scene="h1_2_walk"):
 
 
 BREAKS = {
-    "work": (dict(FS_NCROW=3000), "working set (Work)"),
+    "work": (dict(FS_NCROW=3000, FS_NJ=60000), "working set (Work)"),
     "constant": (dict(FS_NGEOM=1200), "__constant__"),
     "slots": (dict(FS_NSLOT=256), "256 contact slots"),
     "dofs": (dict(FS_NV=256), "256 dofs"),
     "slot_dofs": (dict(FS_MAXD=300), "300 dofs in one contact slot"),
     "rows": (dict(FS_NFL=40000, FS_NLIM=30000), "constraint rows"),
+    "row_rounds": (dict(FS_NCROW=1000), "in registers"),
+    "jl": (dict(FS_NJ=70000), "Jacobian values"),
 }
 
 
@@ -215,7 +217,7 @@ def test_kernel_limits_name_each_limit(limit):
     change, words = BREAKS[limit]
     found = fused_cuda.limits_of(dict(defines, **change))
     assert len(found) >= 1 and any(words in f for f in found), found
-    if limit in ("slots", "slot_dofs"):  # nothing else moved past a limit
+    if limit in ("slots", "slot_dofs", "row_rounds"):  # nothing else moved past a limit
         assert len(found) == 1, found
 
 

@@ -40,9 +40,18 @@
 //
 // What the design does about it:
 // - one warp per sample, FS_SPB samples per block; the sample's working set
-//   (struct Work: M, H and its factor, the rows' J, aref, D and per-row
-//   terms, the body quantities) lives in dynamic shared memory, so nothing
-//   spills and several samples share an SM;
+//   (struct Work: M, H and its factor, the rows' J and per-row terms, the
+//   body quantities) lives in dynamic shared memory, so nothing spills and
+//   several samples share an SM;
+// - at B=8193 a launch takes ceil(B / the samples the card holds) waves of
+//   about one sample's latency each, so Work is kept small: the values of a
+//   row that only its own lane reads (aref, D, active, and the solver's x
+//   and J.delta) stay in that lane's registers (RowRegs); each contact row's
+//   J takes its slot's dof count, its Hessian weight beside it; the
+//   smooth dynamics' intermediates (body frames and velocities, inertias,
+//   the actuator force) share memory with the rows and the solver's
+//   vectors, which are dead until the rows are built; and the reward
+//   inputs go straight to global memory;
 // - lanes take independent outputs, each with the exact operation sequence
 //   of the sequential version (and so of the plain version and the JAX
 //   graph): bodies of one tree level, components of a sum up the tree,
@@ -68,16 +77,20 @@
 // - sizes are compile-time (-D FS_*), one build per model; dof masks take
 //   (nv + 31) / 32 words (FS_NW), so a build runs any nv < 256, and the
 //   limits a model can break (shared memory, the constant bank, the byte
-//   tables and term fields) are checked on the host before it is built
-//   (fused_cuda.py kernel_limits);
+//   tables and term fields, the rows a lane keeps in registers) are
+//   checked on the host before it is built (fused_cuda.py kernel_limits);
 // - -fmad=false: each product and sum rounds on its own, like the plain
 //   version's separate elementwise ops, so the check on the card holds the
 //   two equal to the last bit.  FMA contraction is a later, measured change.
 //
 // What it left: a sample's substep is a few hundred short lane sections
 // (the LDL^T column steps, the row passes, the serial sums), each a chain of
-// shared-memory round trips, so the warp's latency, not the SM's issue
-// rate, sets the time (PERF.md section 5 has the split by stage).
+// shared-memory round trips, so one warp's latency, not the SM's
+// instruction throughput, sets the time of a wave.  How many samples a
+// wave holds is set by Work's size (H1 push-crate: 16,856 B, 13 an SM) and
+// by the registers (up to 128 a thread, an SM holds 16 warps; above, 12).
+// No split of the latency by stage has been measured on this design (the
+// card has no ncu).
 //
 // The same source builds as plain C++ for the host (g++ -x c++): there one
 // lane takes every index of a lane section in order, and fused_step_launch
@@ -124,7 +137,7 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
     !defined(FS_NFL) || !defined(FS_MAXD) || !defined(FS_ND) ||                    \
     !defined(FS_IMPLICIT) || !defined(FS_WANT_SITES) || !defined(FS_WANT_QFRC) ||  \
     !defined(FS_NLEVEL) || !defined(FS_NLDLPAIR) || !defined(FS_NHTERM) ||         \
-    !defined(FS_NGTERM) || !defined(FS_SPB)
+    !defined(FS_NGTERM) || !defined(FS_SPB) || !defined(FS_NJ)
 #error "fused_step.cu needs the FS_* size definitions"
 #endif
 
@@ -132,11 +145,24 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #define FS_NROW (FS_NFL + FS_NLIM + FS_NCROW)
 #define FS_TRI(n) ((n) * ((n) + 1) / 2)
 #define FS_IDX(i, j) ((i) * ((i) + 1) / 2 + (j))  // lower triangle, j <= i
-// row stride of the contact rows' J: odd, so lanes over rows hit distinct
-// shared-memory banks
-#define FS_JS (FS_DIM(FS_MAXD) | 1)
-#define FS_JC(c, k) (FS_NFL + FS_NLIM + (c) * FS_JS + (k))
+// Work.jl: per row its Hessian weight hc, then its Jacobian values (one for
+// a friction-loss or limit row, its slot's dof count for a contact row;
+// FS_NJ in all for the contact rows)
+#define FS_NJL (2 * (FS_NFL + FS_NLIM) + FS_NCROW + FS_NJ)
 #define FS_R4(n) ((FS_DIM(n) + 3) / 4 * 4)  // a byte array's length, in whole words
+
+// A lane's rows: FS_ROWS(k, r) gives lane l the rows r = l + 32 k, k the
+// round, unrolled, so a value of row r that only its lane reads is element
+// k of a register array (RowRegs).  In the host build the one lane takes
+// every row, k = r.
+#ifdef __CUDACC__
+#define FS_RR ((FS_NROW + 31) / 32)
+#define FS_ROWS(k, r) \
+  _Pragma("unroll") for (int k = 0, r = FS_LANE; k < FS_RR; ++k, r += 32) if (r < FS_NROW)
+#else
+#define FS_RR FS_NROW
+#define FS_ROWS(k, r) for (int k = 0, r = 0; r < FS_NROW; ++k, ++r)
+#endif
 
 // Dof masks (a pattern row, a body's dofs): bit j is bit j % 32 of word
 // j / 32, FS_NW words per mask.  A loop that tests one mask takes it once
@@ -254,17 +280,21 @@ struct FusedTables {
   int ldl_pair[FS_DIM(FS_NLDLPAIR)];
   // every lower-triangle entry p of the Newton Hessian, longest term list
   // first (idx | i << 16 | j << 24), its list's length, and its rows'
-  // terms in row order: row | ki << 16 | kj << 24, ki and kj the places of
-  // dofs i and j in the row's dof list (its Jacobian values are at
-  // jl_row(row) + k).  Term t of entry p sits at h_base[p / 32] + t * 32 +
-  // p % 32: the lanes of a round of 32 entries read one line per step
-  // (fused_cuda.py _tables, _interleave).
+  // terms in row order: j0 | ki << 16 | kj << 24, j0 the place in Work.jl
+  // of the row's first Jacobian value (its weight hc sits at j0 - 1), ki
+  // and kj the places of dofs i and j in the row's dof list.  Term t of
+  // entry p sits at h_base[p / 32] + t * 32 + p % 32: the lanes of a round
+  // of 32 entries read one line per step (fused_cuda.py _tables, _encode,
+  // _interleave).
   int h_ent[FS_TRI(FS_NV)], h_len[FS_TRI(FS_NV)], h_base[(FS_TRI(FS_NV) + 31) / 32];
   uint32_t h_term[FS_DIM(FS_NHTERM)];
-  // per dof d: the rows that hold it, in row order (row | k << 16), term t
-  // at g_base[d / 32] + t * 32 + d % 32, stored as the Hessian's are
+  // per dof d: the rows that hold it, in row order (the place in Work.jl of
+  // the row's value for d | row << 16), term t at g_base[d / 32] + t * 32 +
+  // d % 32, stored as the Hessian's are
   int g_len[FS_NV], g_base[FS_NW];
   uint32_t g_term[FS_DIM(FS_NGTERM)];
+  // per contact row: slot | dof count << 8 | j0 << 16 (Work.rinfo)
+  uint32_t crow_info[FS_DIM(FS_NCROW)];
 };
 
 // The model twice: in constant memory for values every lane reads alike,
@@ -376,49 +406,64 @@ FS_DEVICE float dot6(const float* a, const float* b) {
 struct Work {
   // the model's tables that the row and matvec loops read, copied once per
   // sample (global memory is an L2 round trip: the shared memory leaves
-  // little L1): dof patterns, each contact row's slot, each slot's dofs
+  // little L1): dof patterns, each contact row's slot, dof count and place
+  // in jl (FusedTables.crow_info), each slot's dofs
   uint32_t anc[2][FS_NV][FS_NW];
-  unsigned char rslot[FS_R4(FS_NCROW)], sndof[FS_R4(FS_NSLOT)];
+  uint32_t rinfo[FS_DIM(FS_NCROW)];
   unsigned char sdof[FS_R4(FS_NSLOT * FS_MAXD)];
-  // state and outputs, carried across substeps
-  float q[FS_NQ], v[FS_NV], w[FS_NV], ctrl[FS_NU], der[FS_ND];
-  // kinematics and smooth dynamics
-  float xpos[FS_NBODY][3], xquat[FS_NBODY][4];
-  float xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
-  float com[FS_NBODY][3];
-  CInert cin[FS_NBODY], crb[FS_NBODY];
-  float cdof[FS_NV][6], cvel[FS_NBODY][6];
+  // state, carried across substeps
+  float q[FS_NQ], v[FS_NV], w[FS_NV], ctrl[FS_NU];
+  // live from the kinematics until the rows are built
+  float com[FS_NBODY][3], cdof[FS_NV][6];
   float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
-  float M[FS_TRI(FS_NV)], H[FS_TRI(FS_NV)], dinv[FS_NV];
-  float qfrc_act[FS_NV], qsm[FS_NV];
-  // constraint rows: jl holds every row's Jacobian values, a friction-loss
-  // or limit row's one value, then contact row c's on its slot's dofs at
-  // FS_JC(c, k) (jl_row gives a row's first)
-  float jl[FS_NFL + FS_NLIM + FS_DIM(FS_NCROW) * FS_JS];
-  float aref[FS_DIM(FS_NROW)], D[FS_DIM(FS_NROW)];
-  int active[FS_DIM(FS_NROW)];
-  float sdist[FS_DIM(FS_NSLOT)];
-  // the Newton solve and integration
-  float a[FS_NV], a_new[FS_NV], da[FS_NV], mda[FS_NV], grad[FS_NV], delta[FS_NV];
-  float md[FS_NV], qacc[FS_NV], qfrc_con[FS_NV], qacc_int[FS_NV], tv[FS_NV], tm[FS_NV];
-  // the smooth dynamics' intermediates are dead once the rows are built:
-  // the rows' per-row values share their memory (t1, t2: terms of sums
-  // over rows)
+  float M[FS_TRI(FS_NV)], H[FS_TRI(FS_NV)], dinv[FS_NV], qsm[FS_NV];
+  // Two phases share the rest.  sm: the kinematics' and the smooth
+  // dynamics' intermediates, dead once the smooth acceleration's bias and
+  // the reward inputs are taken (so the world body's frame and velocity are
+  // set again each substep).  rw: the rows and the solve, first written
+  // when the rows are built.
   union {
     struct {
+      float xpos[FS_NBODY][3], xquat[FS_NBODY][4];
+      float xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
+      CInert cin[FS_NBODY], crb[FS_NBODY];
+      float cvel[FS_NBODY][6], qfrc_act[FS_NV];
       float xipos[FS_NBODY][3], ximat[FS_NBODY][9], sub_mpos[FS_NBODY][3];
       float cdof_dot[FS_NV][6], crbf[FS_NV][6], cacc[FS_NBODY][6], cfrc[FS_NBODY][6];
     } sm;
     struct {
-      float x[FS_DIM(FS_NROW)], hc[FS_DIM(FS_NROW)], dc[FS_DIM(FS_NROW)];
-      float jd[FS_DIM(FS_NROW)], t1[FS_DIM(FS_NROW)], t2[FS_DIM(FS_NROW)];
+      // per row: its Hessian weight hc, then its Jacobian values (a
+      // friction-loss or limit row's one at 2 r + 1, a contact row's on its
+      // slot's dofs from rinfo's j0)
+      float jl[FS_DIM(FS_NJL)];
+      // terms of sums over rows.  dc (the solver's dcost) is dead while
+      // the line search and the costs write t1; before the solve t1 holds
+      // the contact rows' J.v, and sdist the slots' distances
+      union { float dc[FS_DIM(FS_NROW)], t1[FS_DIM(FS_NROW)]; };
+      union { float t2[FS_DIM(FS_NROW)], sdist[FS_DIM(FS_NSLOT)]; };
+      // the Newton solve and integration
+      float a[FS_NV], a_new[FS_NV], da[FS_NV], mda[FS_NV], grad[FS_NV], delta[FS_NV];
+      float md[FS_NV], tv[FS_NV], tm[FS_NV], qacc[FS_NV], qfrc_con[FS_NV], qacc_int[FS_NV];
     } rw;
   };
 };
 
-static_assert(FS_NSLOT < 256 && FS_NV < 256, "the byte tables of Work");
+static_assert(FS_NSLOT < 256 && FS_NV < 256 && FS_MAXD < 256, "the byte tables of Work");
+static_assert(FS_NJL <= 65536, "the term lists' 16-bit places in Work.jl");
 static_assert(sizeof(Work) % 4 == 0 && sizeof(Work) <= 232448,
               "a sample's working set must fit one block's 227 KB of shared memory");
+
+// A lane's per-row values (FS_ROWS' round k): the rows' aref, D and active
+// (a bit per round) for the whole solve, x = J a - aref and J delta for one
+// Newton iteration.
+struct RowRegs {
+  float aref[FS_DIM(FS_RR)], D[FS_DIM(FS_RR)], x[FS_DIM(FS_RR)], jd[FS_DIM(FS_RR)];
+  uint32_t active[(FS_DIM(FS_RR) + 31) / 32];
+};
+#ifdef __CUDACC__
+static_assert(FS_RR <= 32, "a lane keeps at most 32 rounds of rows in registers");
+#endif
+FS_DEVICE bool row_active(const RowRegs& R, int k) { return (R.active[k >> 5] >> (k & 31)) & 1u; }
 
 FS_DEVICE float& cin_comp(CInert& c, int k) {
   return k < 6 ? c.ul[k] : (k < 9 ? c.h[k - 6] : c.m);
@@ -515,9 +560,9 @@ FS_DEVICE float sum_prod(float acc, const float* a, const float* b, int n) {
 FS_DEVICE void body_frame(const FusedModel& m, Work& W, int b) {
   int p = m.body_parent[b];
   float t[3], pos[3], quat[4];
-  qrotate(m.body_pos[b], W.xquat[p], t);
-  for (int i = 0; i < 3; ++i) pos[i] = W.xpos[p][i] + t[i];
-  qmul(W.xquat[p], m.body_quat[b], quat);
+  qrotate(m.body_pos[b], W.sm.xquat[p], t);
+  for (int i = 0; i < 3; ++i) pos[i] = W.sm.xpos[p][i] + t[i];
+  qmul(W.sm.xquat[p], m.body_quat[b], quat);
   int j = m.body_jnt[b];
   if (j >= 0) {
     int qa = m.jnt_qadr[j];
@@ -528,16 +573,16 @@ FS_DEVICE void body_frame(const FusedModel& m, Work& W, int b) {
       for (int i = 0; i < 3; ++i) pos[i] = W.q[qa + i];
       for (int i = 0; i < 4; ++i) quat[i] = W.q[qa + 3 + i];
       qnormalize(quat);
-      for (int i = 0; i < 3; ++i) { W.xanchor[j][i] = pos[i]; W.xaxis[j][i] = ax[i]; }
+      for (int i = 0; i < 3; ++i) { W.sm.xanchor[j][i] = pos[i]; W.sm.xaxis[j][i] = ax[i]; }
     } else if (jt == JNT_SLIDE) {
       float aw[3], t2[3];
       qrotate(ax, quat, aw);
       qrotate(jp, quat, t2);
       float trans = W.q[qa] - m.qpos0[qa];
       for (int i = 0; i < 3; ++i) {
-        W.xanchor[j][i] = pos[i] + t2[i];
+        W.sm.xanchor[j][i] = pos[i] + t2[i];
         pos[i] = pos[i] + aw[i] * trans;
-        W.xaxis[j][i] = aw[i];
+        W.sm.xaxis[j][i] = aw[i];
       }
     } else {  // hinge
       float anchor[3], t2[3];
@@ -552,13 +597,13 @@ FS_DEVICE void body_frame(const FusedModel& m, Work& W, int b) {
       qrotate(jp, quat, t2);
       for (int i = 0; i < 3; ++i) {
         pos[i] = anchor[i] - t2[i];
-        W.xanchor[j][i] = anchor[i];
+        W.sm.xanchor[j][i] = anchor[i];
       }
-      qrotate(ax, quat, W.xaxis[j]);
+      qrotate(ax, quat, W.sm.xaxis[j]);
     }
   }
-  for (int i = 0; i < 3; ++i) W.xpos[b][i] = pos[i];
-  for (int i = 0; i < 4; ++i) W.xquat[b][i] = quat[i];
+  for (int i = 0; i < 3; ++i) W.sm.xpos[b][i] = pos[i];
+  for (int i = 0; i < 4; ++i) W.sm.xquat[b][i] = quat[i];
 }
 
 // every body's frame, level by level down the tree (ends synced)
@@ -579,9 +624,9 @@ FS_DEVICE void geom_frame(const FusedModel& m, Work& W, int g) {
   }
   int b = m.geom_body[g];
   float t[3], gq[4];
-  qrotate(m.geom_pos[g], W.xquat[b], t);
-  for (int i = 0; i < 3; ++i) W.gpos[g][i] = W.xpos[b][i] + t[i];
-  qmul(W.xquat[b], m.geom_quat[g], gq);
+  qrotate(m.geom_pos[g], W.sm.xquat[b], t);
+  for (int i = 0; i < 3; ++i) W.gpos[g][i] = W.sm.xpos[b][i] + t[i];
+  qmul(W.sm.xquat[b], m.geom_quat[g], gq);
   qmat(gq, W.gmat[g]);
 }
 
@@ -849,17 +894,22 @@ FS_DEVICE float row_dot(const FusedModel& m, const Work& W, int r, const float* 
     int l = r - FS_NFL;
     return m.lim_sign[l] * a[m.lim_dadr[l]];
   }
-  int c = r - FS_NFL - FS_NLIM;
-  int s = W.rslot[c];
-  int nd = W.sndof[s];
-  const unsigned char* dofs = W.sdof + s * FS_MAXD;
+  uint32_t info = W.rinfo[r - FS_NFL - FS_NLIM];
+  int nd = (info >> 8) & 0xffu;
+  const float* J = W.rw.jl + (info >> 16);
+  const unsigned char* dofs = W.sdof + (info & 0xffu) * FS_MAXD;
   float acc = 0.0f;
 #pragma unroll 4
-  for (int k = 0; k < nd; ++k) acc = acc + W.jl[FS_JC(c, k)] * a[dofs[k]];
+  for (int k = 0; k < nd; ++k) acc = acc + J[k] * a[dofs[k]];
   return acc;
 }
-// per-row cost, dcost, hcost (fused.py _s_terms)
-FS_DEVICE void s_terms(const FusedModel& m, const Work& W, int r, float x, float* cost,
+// where row r's Jacobian values start in Work.jl (its weight hc one before)
+FS_DEVICE int jl_start(const Work& W, int r) {
+  return r < FS_NFL + FS_NLIM ? 2 * r + 1 : (int)(W.rinfo[r - FS_NFL - FS_NLIM] >> 16);
+}
+// per-row cost, dcost, hcost (fused.py _s_terms), given the row's active
+// flag and D
+FS_DEVICE void s_terms(const FusedModel& m, int r, float x, bool active, float D, float* cost,
                        float* dc, float* hc) {
   if (r < FS_NFL) {  // Huber friction-loss row, always active
     float D = m.fl_D[r], fl = m.fl_floss[r];
@@ -870,19 +920,19 @@ FS_DEVICE void s_terms(const FusedModel& m, const Work& W, int r, float x, float
     *hc = quad ? D : 0.0f;
     return;
   }
-  bool act = W.active[r] && (x < 0.0f);
-  float D = W.D[r];
+  bool act = active && (x < 0.0f);
   *cost = act ? 0.5f * (D * (x * x)) : 0.0f;
   *dc = act ? D * x : 0.0f;
   *hc = act ? D : 0.0f;
 }
 
 // contact slot s: geometry, point Jacobians of the contact point on body2
-// minus body1 (fused.py _point_jac), its rows' J and J.v (into t1)
+// minus body1 (fused.py _point_jac), its rows' J (at their places in jl)
+// and J.v (into t1)
 FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
   float pos[3], n[3], t1[3], t2[3];
   float dist = contact_geometry(m, s, W.gpos, W.gmat, pos, n, t1, t2);
-  W.sdist[s] = dist;
+  W.rw.sdist[s] = dist;
   const float* c2 = W.com[m.body_root[m.slot_body2[s]]];
   const float* c1 = W.com[m.body_root[m.slot_body1[s]]];
   float off2[3] = {pos[0] - c2[0], pos[1] - c2[1], pos[2] - c2[2]};
@@ -890,6 +940,10 @@ FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
   int c0 = m.slot_crow0[s], nr = m.slot_ncrow[s], nd = m.slot_ndof[s];
   DofMask b2 = dof_mask(m.slot_body2_dofs[s]), b1 = dof_mask(m.slot_body1_dofs[s]);
   float vel[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int j0[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < nr) j0[q] = (int)(W.rinfo[c0 + q] >> 16);
   for (int k = 0; k < nd; ++k) {
     int d = m.slot_dof[s][k];
     float j2[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f}, cr[3];
@@ -912,18 +966,13 @@ FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
       float jr = jn;
       if (t == 0) jr = jr + m.crow_coef[c] * jt1;
       else if (t == 1) jr = jr + m.crow_coef[c] * jt2;
-      W.jl[FS_JC(c, k)] = jr;
+      W.rw.jl[j0[q] + k] = jr;
       vel[q] = vel[q] + jr * vd;
     }
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     if (q < nr) W.rw.t1[FS_NFL + FS_NLIM + c0 + q] = vel[q];
-}
-
-// where row r's Jacobian values start in Work.jl
-FS_DEVICE int jl_row(int r) {
-  return r < FS_NFL + FS_NLIM ? r : FS_JC(r - (FS_NFL + FS_NLIM), 0);
 }
 
 // where dof d's term list starts: its round's base, then its lane
@@ -949,15 +998,13 @@ FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* o
       for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        int r = u[q] & 0xffff;
-        float tj = W.jl[jl_row(r) + (u[q] >> 16)] * W.rw.dc[r];
+        float tj = W.rw.jl[u[q] & 0xffffu] * W.rw.dc[u[q] >> 16];
         g = subtract ? g - tj : g + tj;
       }
     }
     for (; t < n; ++t) {
       uint32_t u = term[t * 32];
-      int r = u & 0xffff;
-      float tj = W.jl[jl_row(r) + (u >> 16)] * W.rw.dc[r];
+      float tj = W.rw.jl[u & 0xffffu] * W.rw.dc[u >> 16];
       g = subtract ? g - tj : g + tj;
     }
     out[d] = g;
@@ -965,17 +1012,17 @@ FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* o
 }
 
 // 0.5 (a - qsm)' M (a - qsm) + the rows' costs at a (ends synced)
-FS_DEVICE float total_cost(const FusedModel& m, Work& W, const float* a) {
-  FS_FOR(i, FS_NV) W.tv[i] = a[i] - W.qsm[i];
-  FS_FOR(r, FS_NROW) {
+FS_DEVICE float total_cost(const FusedModel& m, Work& W, const RowRegs& R, const float* a) {
+  FS_FOR(i, FS_NV) W.rw.tv[i] = a[i] - W.qsm[i];
+  FS_ROWS(k, r) {
     float cost, dc, hc;
-    s_terms(m, W, r, row_dot(m, W, r, a) - W.aref[r], &cost, &dc, &hc);
+    s_terms(m, r, row_dot(m, W, r, a) - R.aref[k], row_active(R, k), R.D[k], &cost, &dc, &hc);
     W.rw.t1[r] = cost;
   }
   FS_SYNC();
-  m_vec(W, W.M, W.tv, W.tm);
+  m_vec(W, W.M, W.rw.tv, W.rw.tm);
   FS_SYNC();
-  float c = 0.5f * sum_prod(0.0f, W.tv, W.tm, FS_NV);
+  float c = 0.5f * sum_prod(0.0f, W.rw.tv, W.rw.tm, FS_NV);
 #pragma unroll 8
   for (int r = 0; r < FS_NROW; ++r) c = c + W.rw.t1[r];
   FS_SYNC();
@@ -984,38 +1031,40 @@ FS_DEVICE float total_cost(const FusedModel& m, Work& W, const float* a) {
 
 // ---- the truncated Newton solve (fused.py _newton_solve): qacc, and the
 // constraint force into qfrc_con.  done, any_active and the iteration
-// count are one sample's, so uniform over the warp. ----
-FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
-  FS_FOR(i, FS_NV) { W.qacc[i] = W.qsm[i]; W.qfrc_con[i] = 0.0f; }
+// count are one sample's, so uniform over the warp.  R: the rows' aref, D
+// and active, from substep; x and jd are set here. ----
+FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W, RowRegs& R) {
+  FS_FOR(i, FS_NV) { W.rw.qacc[i] = W.qsm[i]; W.rw.qfrc_con[i] = 0.0f; }
   FS_SYNC();
 #if FS_NROW > 0
   bool any_active = FS_NFL > 0;
-  FS_FOR(r, FS_NROW) if (r >= FS_NFL && W.active[r]) any_active = true;
+  FS_ROWS(k, r) if (r >= FS_NFL && row_active(R, k)) any_active = true;
   any_active = FS_ANY(any_active);
   // start from the warmstart only where it is strictly cheaper
-  float cost_ws = total_cost(m, W, W.w);
-  float cost_sm = total_cost(m, W, W.qsm);
+  float cost_ws = total_cost(m, W, R, W.w);
+  float cost_sm = total_cost(m, W, R, W.qsm);
   bool better = cost_ws < cost_sm;
-  FS_FOR(i, FS_NV) W.a[i] = better ? W.w[i] : W.qsm[i];
+  FS_FOR(i, FS_NV) W.rw.a[i] = better ? W.w[i] : W.qsm[i];
   FS_SYNC();
   float cost_prev = fs_min(cost_ws, cost_sm);
   // done is sticky and a sample moves only while it was not done before,
   // so stopping at the top of an iteration is the same computation
   bool done = !any_active;
   for (int it = 0; it < c_model.iterations && !done; ++it) {
-    FS_FOR(i, FS_NV) W.da[i] = W.a[i] - W.qsm[i];
-    FS_FOR(r, FS_NROW) {
+    FS_FOR(i, FS_NV) W.rw.da[i] = W.rw.a[i] - W.qsm[i];
+    FS_ROWS(k, r) {
       float cost;
-      float x = row_dot(m, W, r, W.a) - W.aref[r];
-      W.rw.x[r] = x;
-      s_terms(m, W, r, x, &cost, &W.rw.dc[r], &W.rw.hc[r]);
+      float x = row_dot(m, W, r, W.rw.a) - R.aref[k];
+      R.x[k] = x;
+      s_terms(m, r, x, row_active(R, k), R.D[k], &cost, &W.rw.dc[r],
+              &W.rw.jl[jl_start(W, r) - 1]);
     }
     FS_SYNC();
-    m_vec(W, W.M, W.da, W.mda);
+    m_vec(W, W.M, W.rw.da, W.rw.mda);
     FS_SYNC();
     // the gradient mda + J' dc; H = M + J' diag(hc) J on the solver
     // pattern, one lane per entry, its rows in row order
-    jt_dc(T, W, W.mda, W.grad, false);
+    jt_dc(T, W, W.rw.mda, W.rw.grad, false);
     FS_FOR(p, FS_TRI(FS_NV)) {
       int e = T.h_ent[p], idx = e & 0xffff, i = (e >> 16) & 0xff, j = e >> 24;
       float h = (i == j || dof_bit(dof_mask(W.anc[0][i]), j)) ? W.M[idx] : 0.0f;
@@ -1027,36 +1076,34 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
         for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          int r = u[q] & 0xffff;
-          const float* jr = W.jl + jl_row(r);
-          h = h + W.rw.hc[r] * (jr[(u[q] >> 16) & 0xffu] * jr[u[q] >> 24]);
+          const float* jr = W.rw.jl + (u[q] & 0xffffu);
+          h = h + jr[-1] * (jr[(u[q] >> 16) & 0xffu] * jr[u[q] >> 24]);
         }
       }
       for (; t < n; ++t) {
         uint32_t u = term[t * 32];
-        int r = u & 0xffff;
-        const float* jr = W.jl + jl_row(r);
-        h = h + W.rw.hc[r] * (jr[(u >> 16) & 0xffu] * jr[u >> 24]);
+        const float* jr = W.rw.jl + (u & 0xffffu);
+        h = h + jr[-1] * (jr[(u >> 16) & 0xffu] * jr[u >> 24]);
       }
       W.H[idx] = h;
     }
     FS_SYNC();
     ldl_factor(T, 1, W.anc[1], W.H, W.dinv);
-    FS_FOR(i, FS_NV) W.delta[i] = -W.grad[i];
+    FS_FOR(i, FS_NV) W.rw.delta[i] = -W.rw.grad[i];
     FS_SYNC();
-    ldl_solve(W.anc[1], W.H, W.dinv, W.delta);
-    FS_FOR(r, FS_NROW) W.rw.jd[r] = row_dot(m, W, r, W.delta);
-    m_vec(W, W.M, W.delta, W.md);
+    ldl_solve(W.anc[1], W.H, W.dinv, W.rw.delta);
+    FS_ROWS(k, r) R.jd[k] = row_dot(m, W, r, W.rw.delta);
+    m_vec(W, W.M, W.rw.delta, W.rw.md);
     FS_SYNC();
-    float dmd = sum_prod(0.0f, W.delta, W.md, FS_NV);
-    float dma = sum_prod(0.0f, W.delta, W.mda, FS_NV);
+    float dmd = sum_prod(0.0f, W.rw.delta, W.rw.md, FS_NV);
+    float dma = sum_prod(0.0f, W.rw.delta, W.rw.mda, FS_NV);
 
     // exactly ls_iterations 1-D Newton steps on alpha, then alpha >= 0
     float alpha = 0.0f;
     for (int ls = 0; ls < c_model.ls_iterations; ++ls) {
-      FS_FOR(r, FS_NROW) {
-        float cost, dc, hc, jd = W.rw.jd[r];
-        s_terms(m, W, r, W.rw.x[r] + alpha * jd, &cost, &dc, &hc);
+      FS_ROWS(k, r) {
+        float cost, dc, hc, jd = R.jd[k];
+        s_terms(m, r, R.x[k] + alpha * jd, row_active(R, k), R.D[k], &cost, &dc, &hc);
         W.rw.t1[r] = jd * dc;
         W.rw.t2[r] = hc * (jd * jd);
       }
@@ -1072,47 +1119,61 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W) {
     }
     alpha = fs_max(alpha, 0.0f);
 
-    FS_FOR(i, FS_NV) W.a_new[i] = W.a[i] + alpha * W.delta[i];
+    FS_FOR(i, FS_NV) W.rw.a_new[i] = W.rw.a[i] + alpha * W.rw.delta[i];
     FS_SYNC();
-    float cost_new = total_cost(m, W, W.a_new);
+    float cost_new = total_cost(m, W, R, W.rw.a_new);
     float improved = cost_prev - cost_new;
-    float gn = sqrtf(sum_prod(0.0f, W.grad, W.grad, FS_NV));
-    FS_FOR(i, FS_NV) W.a[i] = W.a_new[i];
+    float gn = sqrtf(sum_prod(0.0f, W.rw.grad, W.rw.grad, FS_NV));
+    FS_FOR(i, FS_NV) W.rw.a[i] = W.rw.a_new[i];
     FS_SYNC();
     cost_prev = cost_new;
     done = (improved < c_model.tol_scale) || (gn < c_model.tol_scale);
   }
   if (any_active) {
-    FS_FOR(i, FS_NV) W.qacc[i] = W.a[i];
-    FS_FOR(r, FS_NROW) {
+    FS_FOR(i, FS_NV) W.rw.qacc[i] = W.rw.a[i];
+    FS_ROWS(k, r) {
       float cost, hc;
-      s_terms(m, W, r, row_dot(m, W, r, W.a) - W.aref[r], &cost, &W.rw.dc[r], &hc);
+      s_terms(m, r, row_dot(m, W, r, W.rw.a) - R.aref[k], row_active(R, k), R.D[k], &cost,
+              &W.rw.dc[r], &hc);
     }
     FS_SYNC();
-    jt_dc(T, W, nullptr, W.qfrc_con, true);
+    jt_dc(T, W, nullptr, W.rw.qfrc_con, true);
     FS_SYNC();
   }
 #endif
 }
 
-// ---- one substep for one sample (fused.py _substep) ----
-FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
-  const float dt = c_model.dt;
-
-  // _fk: body frames, inertial frames, subtree CoM
-  kinematics(m, W);
-  if (FS_LANE == 0) {  // the world's acceleration: gravity (in the union, so each substep)
+// the world body's frame, velocity and acceleration (gravity), which never
+// change; they lie in the phase sm, so each substep sets them
+FS_DEVICE void init_world(Work& W) {
+  if (FS_LANE == 0) {
+    for (int i = 0; i < 3; ++i) W.sm.xpos[0][i] = 0.0f;
+    W.sm.xquat[0][0] = 1.0f;
+    W.sm.xquat[0][1] = W.sm.xquat[0][2] = W.sm.xquat[0][3] = 0.0f;
+    for (int k = 0; k < 6; ++k) W.sm.cvel[0][k] = 0.0f;
     W.sm.cacc[0][0] = W.sm.cacc[0][1] = W.sm.cacc[0][2] = 0.0f;
     for (int i = 0; i < 3; ++i) W.sm.cacc[0][3 + i] = -c_model.gravity[i];
   }
+}
+
+// ---- one substep for one sample (fused.py _substep); the reward inputs
+// (derived) go to der ----
+FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float* der) {
+  const float dt = c_model.dt;
+
+  init_world(W);
+  FS_SYNC();
+  // _fk: body frames, inertial frames, subtree CoM; the geoms' world poses
+  kinematics(m, W);
   FS_FOR(b, FS_NBODY) {
     float t[3], qi[4];
-    qrotate(m.body_ipos[b], W.xquat[b], t);
-    for (int i = 0; i < 3; ++i) W.sm.xipos[b][i] = W.xpos[b][i] + t[i];
-    qmul(W.xquat[b], m.body_iquat[b], qi);
+    qrotate(m.body_ipos[b], W.sm.xquat[b], t);
+    for (int i = 0; i < 3; ++i) W.sm.xipos[b][i] = W.sm.xpos[b][i] + t[i];
+    qmul(W.sm.xquat[b], m.body_iquat[b], qi);
     qmat(qi, W.sm.ximat[b]);
     for (int i = 0; i < 3; ++i) W.sm.sub_mpos[b][i] = W.sm.xipos[b][i] * m.body_mass[b];
   }
+  FS_FOR(g, FS_NGEOM) geom_frame(m, W, g);
   FS_SYNC();
   FS_FOR(i, 3) {  // one lane per component, children before their parent
     for (int b = FS_NBODY - 1; b > 0; --b) {
@@ -1135,7 +1196,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     float c[3] = {W.sm.xipos[b][0] - croot[0], W.sm.xipos[b][1] - croot[1], W.sm.xipos[b][2] - croot[2]};
     float mb = m.body_mass[b];
     float cc = dot3(c, c);
-    CInert& ci = W.cin[b];
+    CInert& ci = W.sm.cin[b];
 #define FS_ENT(a_, b_) \
   ((I3[0] * R[3 * (a_)] * R[3 * (b_)] + I3[1] * R[3 * (a_) + 1] * R[3 * (b_) + 1]) + \
    I3[2] * R[3 * (a_) + 2] * R[3 * (b_) + 2])
@@ -1156,8 +1217,8 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
       for (int i = 0; i < 3; ++i)
         for (int k = 0; k < 6; ++k) W.cdof[adr + i][k] = (k == 3 + i) ? 1.0f : 0.0f;
       float R[9], off[3];
-      qmat(W.xquat[b], R);
-      for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.xpos[b][i];
+      qmat(W.sm.xquat[b], R);
+      for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.sm.xpos[b][i];
       for (int i = 0; i < 3; ++i) {
         float axc[3] = {R[i], R[3 + i], R[6 + i]};
         float cr[3];
@@ -1168,12 +1229,12 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
         }
       }
     } else if (jt == JNT_SLIDE) {
-      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = 0.0f; W.cdof[adr][3 + k] = W.xaxis[j][k]; }
+      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = 0.0f; W.cdof[adr][3 + k] = W.sm.xaxis[j][k]; }
     } else {
       float off[3], cr[3];
-      for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.xanchor[j][i];
-      cross3(W.xaxis[j], off, cr);
-      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = W.xaxis[j][k]; W.cdof[adr][3 + k] = cr[k]; }
+      for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.sm.xanchor[j][i];
+      cross3(W.sm.xaxis[j], off, cr);
+      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = W.sm.xaxis[j][k]; W.cdof[adr][3 + k] = cr[k]; }
     }
   }
   FS_SYNC();
@@ -1184,7 +1245,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     FS_FOR(t, c_model.level_off[l + 1] - o) {
       int b = m.body_order[o + t];
       float vel[6];
-      for (int k = 0; k < 6; ++k) vel[k] = W.cvel[m.body_parent[b]][k];
+      for (int k = 0; k < 6; ++k) vel[k] = W.sm.cvel[m.body_parent[b]][k];
       int j = m.body_jnt[b];
       if (j >= 0) {
         int adr = m.jnt_dadr[j];
@@ -1201,7 +1262,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
           for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr][k] * W.v[adr];
         }
       }
-      for (int k = 0; k < 6; ++k) W.cvel[b][k] = vel[k];
+      for (int k = 0; k < 6; ++k) W.sm.cvel[b][k] = vel[k];
     }
     FS_SYNC();
   }
@@ -1210,11 +1271,11 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   // their parent); _actuator_force (one lane per dof, its motors in order)
   FS_FOR(k, 10) {
     for (int b = 0; b < FS_NBODY; ++b)
-      cin_comp(W.crb[b], k) = (k < 9) ? cin_comp(W.cin[b], k) : c_model.subtree_mass[b];
+      cin_comp(W.sm.crb[b], k) = (k < 9) ? cin_comp(W.sm.cin[b], k) : c_model.subtree_mass[b];
     if (k < 9) {
       for (int b = FS_NBODY - 1; b > 0; --b) {
         int p = c_model.body_parent[b];
-        cin_comp(W.crb[p], k) = cin_comp(W.crb[p], k) + cin_comp(W.crb[b], k);
+        cin_comp(W.sm.crb[p], k) = cin_comp(W.sm.crb[p], k) + cin_comp(W.sm.crb[b], k);
       }
     }
   }
@@ -1233,11 +1294,11 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
       force = m.act_gear[a] * force;
       acc = acc + force;
     }
-    W.qfrc_act[d] = acc;
+    W.sm.qfrc_act[d] = acc;
   }
   FS_SYNC();
   // M on the tree pattern (+ armature), one lane per entry
-  FS_FOR(i, FS_NV) cinert_vec(W.crb[m.dof_body[i]], W.cdof[i], W.sm.crbf[i]);
+  FS_FOR(i, FS_NV) cinert_vec(W.sm.crb[m.dof_body[i]], W.cdof[i], W.sm.crbf[i]);
   FS_SYNC();
   FS_FOR(e, FS_TRI(FS_NV)) {
     int i, j;
@@ -1266,9 +1327,9 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   }
   FS_FOR(b, FS_NBODY) {
     float iv[6], ia[6], fx[6];
-    cinert_vec(W.cin[b], W.cvel[b], iv);
-    cinert_vec(W.cin[b], W.sm.cacc[b], ia);
-    force_cross(W.cvel[b], iv, fx);
+    cinert_vec(W.sm.cin[b], W.sm.cvel[b], iv);
+    cinert_vec(W.sm.cin[b], W.sm.cacc[b], ia);
+    force_cross(W.sm.cvel[b], iv, fx);
     for (int k = 0; k < 6; ++k) W.sm.cfrc[b][k] = ia[k] + fx[k];
   }
   FS_SYNC();
@@ -1280,47 +1341,71 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
   }
   FS_SYNC();
 
-  // smooth acceleration
+  // smooth acceleration; the derived reward inputs, from this
+  // (pre-integration) forward pass: the last reads of the phase sm
   FS_FOR(d, FS_NV) {
     float bias = dot6(W.cdof[d], W.sm.cfrc[m.dof_body[d]]);
-    W.qsm[d] = ((-m.dof_damping[d]) * W.v[d] + W.qfrc_act[d]) - bias;
+    W.qsm[d] = ((-m.dof_damping[d]) * W.v[d] + W.sm.qfrc_act[d]) - bias;
   }
   FS_FOR(e, FS_TRI(FS_NV)) W.H[e] = W.M[e];
+  FS_FOR(i, 16) {
+    int tb = c_model.torso;
+    der[i] = (i < 3) ? W.sm.xpos[tb][i]
+           : (i < 7) ? W.sm.xquat[tb][i - 3]
+           : (i < 13) ? W.sm.cvel[tb][i - 7]
+                      : W.com[c_model.torso_root][i - 13];
+  }
+#if FS_WANT_SITES
+  FS_FOR(s, FS_NSITE) {
+    float t[3];
+    int b = m.site_body[s];
+    qrotate(m.site_pos[s], W.sm.xquat[b], t);
+    for (int i = 0; i < 3; ++i) der[16 + 3 * s + i] = W.sm.xpos[b][i] + t[i];
+  }
+#endif
+#if FS_WANT_QFRC
+  FS_FOR(d, FS_NV) der[16 + 3 * FS_NSITE * FS_WANT_SITES + d] = W.sm.qfrc_act[d];
+#endif
   FS_SYNC();
   ldl_factor(T, 0, W.anc[0], W.H, W.dinv);
   ldl_solve(W.anc[0], W.H, W.dinv, W.qsm);
 
-  // _constraint_rows: friction loss, limits, then the contact slots (lanes
-  // take them grouped by kind) and their rows
-  FS_FOR(r, FS_NFL) {
-    W.aref[r] = m.fl_negb[r] * W.v[m.fl_dof[r]];
-    W.D[r] = m.fl_D[r];
-    W.active[r] = 1;
-    W.jl[r] = 1.0f;
-  }
-  FS_FOR(l, FS_NLIM) {
-    int r = FS_NFL + l;
-    float sign = m.lim_sign[l];
-    float dist = sign * (W.q[m.lim_qadr[l]] - m.lim_bound[l]);
-    float vel = sign * W.v[m.lim_dadr[l]];
-    aref_d(m.lim_imp[l], m.lim_invweight[l], dist, m.lim_margin[l], vel, &W.aref[r], &W.D[r]);
-    W.active[r] = dist < m.lim_margin[l];
-    W.jl[r] = sign;
-  }
-  FS_FOR(g, FS_NGEOM) geom_frame(m, W, g);
-  FS_SYNC();
+  // _constraint_rows: the contact slots (lanes take them grouped by kind),
+  // then each row's aref, D and active on its own lane (FS_ROWS), and the
+  // friction-loss and limit rows' J
   FS_FOR(t, FS_NSLOT) contact_slot(m, W, m.slot_order[t]);
   FS_SYNC();
-  FS_FOR(c, FS_NCROW) {
-    int r = FS_NFL + FS_NLIM + c;
-    int s = m.crow_slot[c];
-    aref_d(m.slot_imp[s], m.crow_diag[c], W.sdist[s], m.slot_margin[s], W.rw.t1[r], &W.aref[r],
-           &W.D[r]);
-    W.active[r] = W.sdist[s] < m.slot_margin[s];
+  RowRegs rows;
+  for (int i = 0; i < (FS_DIM(FS_RR) + 31) / 32; ++i) rows.active[i] = 0u;
+  FS_ROWS(k, r) {
+    float aref, D;
+    bool act;
+    if (r < FS_NFL) {
+      aref = m.fl_negb[r] * W.v[m.fl_dof[r]];
+      D = m.fl_D[r];
+      act = true;
+      W.rw.jl[2 * r + 1] = 1.0f;
+    } else if (r < FS_NFL + FS_NLIM) {
+      int l = r - FS_NFL;
+      float sign = m.lim_sign[l];
+      float dist = sign * (W.q[m.lim_qadr[l]] - m.lim_bound[l]);
+      float vel = sign * W.v[m.lim_dadr[l]];
+      aref_d(m.lim_imp[l], m.lim_invweight[l], dist, m.lim_margin[l], vel, &aref, &D);
+      act = dist < m.lim_margin[l];
+      W.rw.jl[2 * r + 1] = sign;
+    } else {
+      int c = r - FS_NFL - FS_NLIM, s = m.crow_slot[c];
+      aref_d(m.slot_imp[s], m.crow_diag[c], W.rw.sdist[s], m.slot_margin[s], W.rw.t1[r], &aref,
+             &D);
+      act = W.rw.sdist[s] < m.slot_margin[s];
+    }
+    rows.aref[k] = aref;
+    rows.D[k] = D;
+    if (act) rows.active[k >> 5] |= 1u << (k & 31);
   }
   FS_SYNC();
 
-  newton(m, T, W);
+  newton(m, T, W, rows);
 
   // integration; the optional implicit-damping re-solve (mj_Euler) solves
   // (M + dt diag(damping)) qacc_int = M qacc_smooth + qfrc_constraint
@@ -1332,38 +1417,18 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     if (i == j && m.dof_damp_dt[i] != 0.0f) h = h + m.dof_damp_dt[i];
     W.H[e] = h;
   }
-  m_vec(W, W.M, W.qsm, W.tm);
+  m_vec(W, W.M, W.qsm, W.rw.tm);
   FS_SYNC();
-  FS_FOR(d, FS_NV) W.qacc_int[d] = W.tm[d] + W.qfrc_con[d];
+  FS_FOR(d, FS_NV) W.rw.qacc_int[d] = W.rw.tm[d] + W.rw.qfrc_con[d];
   FS_SYNC();
   ldl_factor(T, 0, W.anc[0], W.H, W.dinv);
-  ldl_solve(W.anc[0], W.H, W.dinv, W.qacc_int);
+  ldl_solve(W.anc[0], W.H, W.dinv, W.rw.qacc_int);
 #else
-  FS_FOR(d, FS_NV) W.qacc_int[d] = W.qacc[d];
+  FS_FOR(d, FS_NV) W.rw.qacc_int[d] = W.rw.qacc[d];
   FS_SYNC();
 #endif
 
-  // derived reward inputs, from this (pre-integration) forward pass
-  FS_FOR(i, 16) {
-    int tb = c_model.torso;
-    W.der[i] = (i < 3) ? W.xpos[tb][i]
-             : (i < 7) ? W.xquat[tb][i - 3]
-             : (i < 13) ? W.cvel[tb][i - 7]
-                        : W.com[c_model.torso_root][i - 13];
-  }
-#if FS_WANT_SITES
-  FS_FOR(s, FS_NSITE) {
-    float t[3];
-    int b = m.site_body[s];
-    qrotate(m.site_pos[s], W.xquat[b], t);
-    for (int i = 0; i < 3; ++i) W.der[16 + 3 * s + i] = W.xpos[b][i] + t[i];
-  }
-#endif
-#if FS_WANT_QFRC
-  FS_FOR(d, FS_NV) W.der[16 + 3 * FS_NSITE * FS_WANT_SITES + d] = W.qfrc_act[d];
-#endif
-
-  FS_FOR(d, FS_NV) W.v[d] = W.v[d] + dt * W.qacc_int[d];
+  FS_FOR(d, FS_NV) W.v[d] = W.v[d] + dt * W.rw.qacc_int[d];
   FS_SYNC();
   FS_FOR(j, FS_NJNT) {
     int qa = m.jnt_qadr[j], da = m.jnt_dadr[j];
@@ -1386,18 +1451,8 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W) {
     }
   }
   // the warmstart output is the solver's qacc (not the damped qacc_int)
-  FS_FOR(d, FS_NV) W.w[d] = W.qacc[d];
+  FS_FOR(d, FS_NV) W.w[d] = W.rw.qacc[d];
   FS_SYNC();
-}
-
-// the world body's frame and velocity never change
-FS_DEVICE void init_world(Work& W) {
-  if (FS_LANE == 0) {
-    for (int i = 0; i < 3; ++i) W.xpos[0][i] = 0.0f;
-    W.xquat[0][0] = 1.0f;
-    W.xquat[0][1] = W.xquat[0][2] = W.xquat[0][3] = 0.0f;
-    for (int k = 0; k < 6; ++k) W.cvel[0][k] = 0.0f;
-  }
 }
 
 FS_DEVICE void step_sample(const FusedModel& m, const FusedTables& T, Work& W, int b,
@@ -1412,16 +1467,13 @@ FS_DEVICE void step_sample(const FusedModel& m, const FusedTables& T, Work& W, i
     W.anc[0][e / FS_NW][e % FS_NW] = m.anc_strict[e / FS_NW][e % FS_NW];
     W.anc[1][e / FS_NW][e % FS_NW] = m.anc_solver[e / FS_NW][e % FS_NW];
   }
-  FS_FOR(c, FS_NCROW) W.rslot[c] = (unsigned char)m.crow_slot[c];
+  FS_FOR(c, FS_NCROW) W.rinfo[c] = T.crow_info[c];
   FS_FOR(e, FS_NSLOT * FS_MAXD) W.sdof[e] = (unsigned char)m.slot_dof[e / FS_MAXD][e % FS_MAXD];
-  FS_FOR(t, FS_NSLOT) W.sndof[t] = (unsigned char)m.slot_ndof[t];
-  init_world(W);
   FS_SYNC();
-  for (int s = 0; s < n_substeps; ++s) substep(m, T, W);
+  for (int s = 0; s < n_substeps; ++s) substep(m, T, W, od + (size_t)b * FS_ND);
   FS_FOR(i, FS_NQ) oq[(size_t)b * FS_NQ + i] = W.q[i];
   FS_FOR(i, FS_NV) ov[(size_t)b * FS_NV + i] = W.v[i];
   FS_FOR(i, FS_NV) ow[(size_t)b * FS_NV + i] = W.w[i];
-  FS_FOR(i, FS_ND) od[(size_t)b * FS_ND + i] = W.der[i];
 }
 
 #define FS_THREADS (32 * FS_SPB)
@@ -1429,8 +1481,13 @@ FS_DEVICE void step_sample(const FusedModel& m, const FusedTables& T, Work& W, i
 
 #ifdef __CUDACC__
 // one warp per sample, FS_SPB samples per block, each warp's Work in the
-// block's dynamic shared memory
-__global__ void __launch_bounds__(FS_THREADS)
+// block's dynamic shared memory.  The launch bound's one block per SM lets
+// ptxas take the registers a build needs: with the thread count alone it
+// held some builds at 80-96 registers and spilled; so every stand-in build
+// takes 105-128 and spills nothing.  128 is the most at which each of an
+// SM's 4 register sub-partitions (16K) holds 4 warps (fused_cuda.py
+// samples_per_sm; H1's 13 samples an SM need it).
+__global__ void __launch_bounds__(FS_THREADS, 1)
 fused_step_kernel(const FusedModel* __restrict__ gm, const FusedTables* __restrict__ gt,
                   int batch, int n_substeps, const float* __restrict__ qpos,
                   const float* __restrict__ qvel, const float* __restrict__ ws,

@@ -20,11 +20,14 @@ counted.
 
 Launch shape: one warp per sample, `samples_per_block` samples per block,
 each sample's working set (`Work` in the source) in the block's dynamic
-shared memory; `launch_config` sizes both from the model.
+shared memory; `launch_config` sizes both from the model.  A wave holds
+what the runtime's occupancy reports (shared memory and registers;
+`samples_per_sm` models both).
 
 A build has limits: a sample's `Work` must fit a block's shared memory,
-the `FusedModel` copy the 64 KB `__constant__` bank, and the byte tables
-and term lists their 8- and 16-bit fields.  `kernel_limits(model, spec)`
+the `FusedModel` copy the 64 KB `__constant__` bank, the byte tables and
+term lists their 8- and 16-bit fields, and a lane's rows (32 a round, at
+most 32 rounds) its registers.  `kernel_limits(model, spec)`
 names each limit a model would break, before anything is built, so the
 envs choose their physics when they are built (`envs/fused_rollout.py:
 pick_physics`); `launch_config` and `_tables` still raise as the last guard.
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import re
 from typing import List, Tuple
 
 import numpy as np
@@ -100,18 +104,27 @@ def _static_geoms(model: PhysicsModel):
 
 
 # shared memory: a block may use 227 KB; an SM holds 228 KB, less 1 KB per
-# resident block (the H100's limits)
+# resident block; an SM runs at most 32 blocks and 64 warps; its 64K
+# registers lie in 4 sub-partitions of 16K, each giving a warp its registers
+# in units of 256 (the H100's limits)
 SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
 SMEM_RESERVED_PER_BLOCK = 1024
 MAX_BLOCKS_PER_SM = 32
+MAX_WARPS_PER_SM = 64
+REGS_PER_SM = 65536
+SUB_PARTITIONS = 4
+REG_UNIT = 256
 MAX_SAMPLES_PER_BLOCK = 4
 # the kernel's other limits: the __constant__ bank holding c_model; the
-# term lists' 16-bit row field; Work's byte tables (slots, dofs) and the
-# terms' 8-bit places in a row's dof list
+# term lists' 16-bit row field and 16-bit places in Work.jl; Work's byte
+# tables (slots, dofs) and the terms' 8-bit places in a row's dof list; a
+# lane's rows, 32 to a round, whose values it keeps in registers
 CONSTANT_BYTES = 65536
 MAX_ROWS = 1 << 16
+MAX_JL = 1 << 16
 BYTE_LIMIT = 256
+MAX_ROW_ROUNDS = 32
 
 
 def mask_words(nv: int) -> int:
@@ -119,33 +132,35 @@ def mask_words(nv: int) -> int:
     return (nv + 31) // 32
 
 
+def jl_words(defines: dict) -> int:
+    """Words of the kernel's Work.jl: per row its Hessian weight, then its
+    Jacobian values (one for a friction-loss or limit row)."""
+    d = defines
+    return 2 * (d["FS_NFL"] + d["FS_NLIM"]) + d["FS_NCROW"] + d["FS_NJ"]
+
+
 def work_bytes(defines: dict) -> int:
     """Bytes of one sample's working set, the kernel's `struct Work`, in its
     order (4-byte fields, and byte arrays in whole words)."""
     d = defines
-    nq, nv, nu, nd = d["FS_NQ"], d["FS_NV"], d["FS_NU"], d["FS_ND"]
+    nq, nv, nu = d["FS_NQ"], d["FS_NV"], d["FS_NU"]
     nb, nj, ng = d["FS_NBODY"], d["FS_NJNT"], d["FS_NGEOM"]
     nrow = max(d["FS_NFL"] + d["FS_NLIM"] + d["FS_NCROW"], 1)
     nw = mask_words(nv)
     tri = nv * (nv + 1) // 2
-    js = max(d["FS_MAXD"], 1) | 1
-
-    def words(n):  # a byte array, in whole words
-        return (max(n, 1) + 3) // 4
-
     floats = (
-        2 * nv * nw + words(d["FS_NCROW"]) + words(d["FS_NSLOT"])  # anc; rslot, sndof
-        + words(d["FS_NSLOT"] * d["FS_MAXD"])  # sdof
-        + nq + 2 * nv + nu + nd  # q, v, w, ctrl, der
-        + 7 * nb + 6 * nj + 3 * nb  # xpos, xquat; xanchor, xaxis; com
-        + 20 * nb + 6 * nv + 6 * nb  # cin, crb; cdof; cvel
-        + 12 * ng  # gpos, gmat
-        + 2 * tri + nv + 2 * nv  # M, H, dinv; qfrc_act, qsm
-        + d["FS_NFL"] + d["FS_NLIM"] + max(d["FS_NCROW"], 1) * js  # jl, J
-        + 3 * nrow + max(d["FS_NSLOT"], 1)  # aref, D, active; sdist
-        + 12 * nv  # the solver's vectors
-        # the union of the smooth dynamics' intermediates and the rows' values
-        + max(27 * nb + 12 * nv, 6 * nrow)
+        2 * nv * nw + max(d["FS_NCROW"], 1)  # anc; rinfo
+        + (max(d["FS_NSLOT"] * d["FS_MAXD"], 1) + 3) // 4  # sdof, bytes in whole words
+        + nq + 2 * nv + nu  # q, v, w, ctrl
+        + 3 * nb + 6 * nv + 12 * ng  # com, cdof; gpos, gmat
+        + 2 * tri + 2 * nv  # M, H; dinv, qsm
+        + max(
+            # sm: xpos, xquat; xanchor, xaxis; cin, crb; cvel, qfrc_act; the
+            # inertial frames, cdof_dot, crbf, cacc, cfrc
+            7 * nb + 6 * nj + 20 * nb + 6 * nb + nv + 27 * nb + 12 * nv,
+            # rw: jl; dc | t1; t2 | sdist; the solver's vectors
+            max(jl_words(d), 1) + nrow + max(nrow, d["FS_NSLOT"]) + 12 * nv,
+        )
     )
     return 4 * floats
 
@@ -192,6 +207,12 @@ def limits_of(defines: dict) -> List[str]:
     nrow = d["FS_NFL"] + d["FS_NLIM"] + d["FS_NCROW"]
     if nrow > MAX_ROWS:
         out.append(f"{nrow} constraint rows; the kernel's term lists hold at most {MAX_ROWS}")
+    if nrow > 32 * MAX_ROW_ROUNDS:
+        out.append(f"{nrow} constraint rows; a lane keeps its rows' values in registers, "
+                   f"at most {32 * MAX_ROW_ROUNDS} rows")
+    if jl_words(d) > MAX_JL:
+        out.append(f"the rows' weights and Jacobian values take {jl_words(d)} words; the "
+                   f"kernel's term lists place at most {MAX_JL}")
     return out
 
 
@@ -202,11 +223,29 @@ def kernel_limits(model: PhysicsModel, spec: fused.DerivedSpec, meta=None) -> Li
                                   spec)[0])
 
 
-def samples_per_sm(nbytes: int, spb: int) -> int:
+def samples_per_sm(nbytes: int, spb: int, registers: int = 0) -> int:
     """Samples an SM holds at once, `spb` to a block of `nbytes` each: as
-    many blocks as its shared memory takes, at most 32."""
-    blocks = SMEM_PER_SM // (spb * nbytes + SMEM_RESERVED_PER_BLOCK)
-    return spb * min(blocks, MAX_BLOCKS_PER_SM)
+    many blocks as its shared memory takes, at most 32 blocks and 64 warps,
+    and, given the build's registers a thread (ptxas' count), as many as
+    its register file takes."""
+    blocks = min(SMEM_PER_SM // (spb * nbytes + SMEM_RESERVED_PER_BLOCK), MAX_BLOCKS_PER_SM,
+                 MAX_WARPS_PER_SM // spb)
+    if registers:
+        per_warp = -(-registers * 32 // REG_UNIT) * REG_UNIT
+        warps = SUB_PARTITIONS * (REGS_PER_SM // SUB_PARTITIONS // per_warp)
+        blocks = min(blocks, warps // spb)
+    return spb * blocks
+
+
+def ptxas_usage(log: str) -> dict:
+    """The fused kernel's registers a thread, stack frame and spill bytes,
+    from ptxas' -v lines in a card build's log (all 0 where the log has
+    none: a host build)."""
+    found = re.findall(r"Function properties for \S*fused_step_kernel\S*\s+(\d+) bytes stack "
+                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
+                       r"(\d+) registers", log or "", re.S)
+    stack, stores, loads, regs = (int(x) for x in found[-1]) if found else (0, 0, 0, 0)
+    return dict(registers=regs, stack_frame=stack, spill_stores=stores, spill_loads=loads)
 
 
 def launch_config(defines: dict) -> Tuple[int, int]:
@@ -281,6 +320,25 @@ def _tables(nv, rows):
     return ents, [h[e] for e in ents], g
 
 
+def _encode(hterms, gterms, rows):
+    """The term lists as the kernel reads them, from `_tables`' row terms
+    and each row's dof list (in row order: friction loss, limits,
+    contacts): a Hessian term names the place in Work.jl of its row's
+    first Jacobian value (the row's weight one before it) instead of the
+    row; a gradient term the place of its row's value for the dof (16
+    bits) and the row (16 bits).  Also each row's first place."""
+    start, pos = [], 0
+    for dofs in rows:
+        start.append(pos + 1)
+        pos += 1 + len(dofs)
+    if pos > MAX_JL:
+        raise ValueError(f"the rows' weights and Jacobian values take {pos} words; the kernel's "
+                         f"term lists place at most {MAX_JL}")
+    h = [[start[u & 0xFFFF] | (u & ~0xFFFF) for u in x] for x in hterms]
+    g = [[(start[u & 0xFFFF] + (u >> 16)) | (u & 0xFFFF) << 16 for u in x] for x in gterms]
+    return h, g, start
+
+
 def _interleave(lists):
     """Term lists of outputs p = 0, 1, ... (lane p % 32 of round p // 32),
     stored round by round with term t of output p at base[p // 32] + t * 32
@@ -323,6 +381,7 @@ def kernel_sizes(model: PhysicsModel, meta, spec: fused.DerivedSpec) -> Tuple[di
         FS_IMPLICIT=int(bool(model.eulerdamp) and bool((model.dof_damping != 0).any())),
         FS_WANT_SITES=int(spec.want_sites), FS_WANT_QFRC=int(spec.want_qfrc_actuator),
         FS_NLEVEL=len(_tree_levels(model)[1]) - 1,
+        FS_NJ=sum(len(slots[c[0]]["dofs"]) for c in crows),
     )
     return defines, crows
 
@@ -345,6 +404,7 @@ def pack_model(
         raise ValueError("the kernel takes at most 4 rows per contact slot")
     rows = _row_dofs(meta, crows)
     ents, hterms, gterms = _tables(nv, rows)
+    hterms, gterms, jl_start = _encode(hterms, gterms, rows)
     pairs = [_ldl_pairs(anc, nv) for anc in (meta.anc_strict, meta.anc_solver)]
     h_base, h_words = _interleave(hterms)
     g_base, g_words = _interleave(gterms)
@@ -471,6 +531,9 @@ def pack_model(
     put([len(x) for x in gterms], "i")
     put(g_base, "i")
     put(g_words, "u", defines["FS_NGTERM"])
+    k0 = len(floss) + len(limits)
+    put([c[0] | len(rows[k0 + i]) << 8 | jl_start[k0 + i] << 16 for i, c in enumerate(crows)],
+        "u", nc)
     return defines, blob, b"".join(p.tobytes() for p in parts)
 
 
@@ -601,14 +664,16 @@ class FusedStep:
     def library(self, device: torch.device) -> _Library:
         """The kernel for `device`, built and uploaded at first use (the
         span `setup/kernel`, `telemetry/spans.py`), with the samples one of
-        its waves holds on that card (`resident`: `launch_config`'s samples
-        per SM on every SM)."""
+        its waves holds on that card (`resident`: the blocks an SM holds at
+        once, as the runtime's occupancy reports them, times the samples a
+        block takes, on every SM)."""
         idx = device.index if device.index is not None else torch.cuda.current_device()
         if idx not in self._libs:
             with spans.span("setup/kernel"), torch.cuda.device(idx):
                 lib, self.build_log, _ = build_library(self.model, self.meta, self.spec)
-            info = lib.launch_info()
-            lib.resident = (samples_per_sm(info["bytes_per_sample"], info["samples_per_block"])
+            with torch.cuda.device(idx):
+                info = lib.launch_info()
+            lib.resident = (info["blocks_per_sm"] * info["samples_per_block"]
                             * torch.cuda.get_device_properties(idx).multi_processor_count)
             self._libs[idx] = lib
         return self._libs[idx]
