@@ -117,7 +117,7 @@ package's XLA path as batched PyTorch ops, which has no kernel of its own):
     synchronising call and no host-device copy, and its kernels per substep;
   - [xla-path go2_stand] go2_stand with fused="off" at full width, the
     planner capturing its env steps as CUDA graphs (B=2049 for the
-    rollouts' horizon step, B=1 for the executed step): 3 `reverse_once`
+    env's horizon step, B=1 for the executed `step_lean`): 3 `reverse_once`
     and 2 chained control steps (graph replays, under
     set_sync_debug_mode("error")) bit-equal to `MBDPI(capture=False)`'s,
     median ms of both, each graph's nodes and capture and instantiate
@@ -1740,12 +1740,12 @@ def phase_xla_path(fused_env, device, all_envs):
     """go2_stand with fused="off" at full width (Nsample=2048, Hsample=20,
     Hnode=5, 8 substeps) through get_env, MBDPI and make_control_step.  The
     planner captures (`MBDPI(capture="auto")` on the card): each env step is
-    a replay of its CUDA graph, B=2049 for the rollouts' horizon step and
-    B=1 for the executed step (`planner/capture.py`).
+    a replay of its CUDA graph, B=2049 for the env's horizon step and B=1
+    for the executed step, `step_lean` (`planner/capture.py`).
     - reset, one reverse_once with injected noise (its first two horizon
       steps build the B=2049 graph: an eager call, then the capture); two
       chained control steps (the B=1 graph's eager call and capture),
-      executed by env.step;
+      executed by step_lean;
     - XLA_CALLS reverse_once and XLA_STEPS chained control steps, every one
       a replay, against `MBDPI(capture=False)` on the same state, plan and
       generator seed: every output field bit-equal, the generators alike
@@ -1764,7 +1764,7 @@ def phase_xla_path(fused_env, device, all_envs):
     import torch
 
     from tpu_dialmpc_torch.envs import dial_defaults, get_env
-    from tpu_dialmpc_torch.envs.base import to_lean
+    from tpu_dialmpc_torch.envs.base import LeanEnvState, to_lean
     from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
     from tpu_dialmpc_torch.planner.runner import make_control_step
 
@@ -1810,8 +1810,8 @@ def phase_xla_path(fused_env, device, all_envs):
         build_ms.append(ms)
         s2 = out[:2]
     state2, Y2 = s2
-    check(bool(torch.isfinite(Y2).all()) and state2.pipeline.efc_force is not None,
-          "the control step did not execute through env.step")
+    check(bool(torch.isfinite(Y2).all()) and isinstance(state2, LeanEnvState),
+          "the control step did not execute through step_lean")
 
     # captured (every call a replay) against eager, call for call
     gens = [torch.Generator(device=device).manual_seed(cfg.seed + 100) for _ in range(2)]
@@ -1872,13 +1872,13 @@ def phase_xla_path(fused_env, device, all_envs):
 
     med_ms = {key: statistics.median(v) for key, v in ms.items()}
     nodes = print_graphs("[xla-path go2_stand]", mb)
-    check(sorted(nodes) == ["env.step", "rollout step"],
+    check(sorted(nodes) == ["execute", "horizon step"],
           f"the pipeline path captured {sorted(nodes)}, not the env step at B=2049 and B=1")
     # where a replay's time goes: the B=2049 graph on its current inputs,
     # against [physics no-syncs]' eager pipeline.step
-    unit = mb.graphs.units["rollout step"]
+    unit = mb.graphs.units["horizon step"]
     window = _profile_window(lambda: unit(unit.static), XLA_WINDOW, SimpleNamespace(launches=0))
-    print(f"[profile xla-path go2_stand] rollout step (B=2049) x{XLA_WINDOW}, graph replays: "
+    print(f"[profile xla-path go2_stand] horizon step (B=2049) x{XLA_WINDOW}, graph replays: "
           f"{json.dumps(window)}")
     check(window["stream_syncs"] == 0, "a pipeline graph's replay synchronised with the host")
     peak = torch.cuda.max_memory_allocated()
@@ -1887,7 +1887,7 @@ def phase_xla_path(fused_env, device, all_envs):
           f"captured unit under set_sync_debug_mode('error'); N{cfg.Nsample}/H{cfg.Hsample}/"
           f"Hnode{cfg.Hnode}/sub{env.config.n_substeps} on the physics pipeline, median ms: "
           f"reverse_once captured {med_ms[('reverse_once', 0)]:.1f} / eager "
-          f"{med_ms[('reverse_once', 1)]:.1f}, control step (env.step + shift + {cfg.Ndiffuse} "
+          f"{med_ms[('reverse_once', 1)]:.1f}, control step (step_lean + shift + {cfg.Ndiffuse} "
           f"reverse_once) captured {med_ms[('control step', 0)]:.1f} / eager "
           f"{med_ms[('control step', 1)]:.1f}; the graphs' first calls: reverse_once "
           f"{first_ms:.1f} ms (B=2049: eager call, capture), control steps "
@@ -1928,7 +1928,7 @@ def phase_compat(device):
         out.append((res, time.perf_counter() - t0))
         if mb.captured:
             nodes = print_graphs("[xla-path compat_q1]", mb)
-            check(list(nodes) == ["env.step"], f"compat_q1 captured {list(nodes)}")
+            check(list(nodes) == ["compat env.step"], f"compat_q1 captured {list(nodes)}")
     ((Y32, i32, p32), s32), ((Y64, i64, p64), s64) = out
     drew = (i32.rews.double().cpu() - i64.rews).abs().max().item()
     dq = (p32[0].double().cpu() - p64[0]).abs().max().item()

@@ -18,10 +18,11 @@ On the CPU (runs here):
   the graph's buffers) with the kernel launches `expected_launches` counts;
   another state layout raises;
 - the same on go2_stand with fused="off" (the physics pipeline), where the
-  graphs are the env step at B=Nsample+1 (the rollouts' horizon step) and
-  at B=1 (the executed step, compat_q1's chain): the rollouts with and
-  without their states, `reverse_once`, the control step, a 4-step `run`
-  and `reverse_once_compat`, one capture per batch layout.
+  graphs are env steps: the env's horizon step at B=Nsample+1 (the
+  rollouts'), `step_lean` at B=1 (the executed step) and, under compat_q1,
+  `env.step` at B=1 (its chain): the rollouts with and without their
+  states, `reverse_once`, the control step, a 4-step `run` and
+  `reverse_once_compat`, one capture per unit.
 On the card (marked `cuda`, skipped without one; the file imports no jax,
 so `python -m pytest --noconftest tests/test_torch_capture.py` runs it
 there): the same equalities through real CUDA graphs at a small width, and
@@ -38,7 +39,7 @@ import torch
 
 from torch_port_helpers import use_eager_graphs
 from tpu_dialmpc_torch.envs import get_env
-from tpu_dialmpc_torch.envs.base import to_lean
+from tpu_dialmpc_torch.envs.base import LeanEnvState, to_lean
 from tpu_dialmpc_torch.planner import capture, runner
 from tpu_dialmpc_torch.planner.dial import DialConfig, MBDPI
 
@@ -232,10 +233,11 @@ def _graphs_by_unit(mb, standin):
 
 
 def test_pipeline_path_captured_rollouts_equal_eager(off, standin):
-    """rollout_us_batch and rollout_us_batch_diag, each horizon step a
-    replay of the B=Nsample+1 graph (the first step of the first call
-    eager, the second captured), equal the eager rollouts to the bit: the
-    first state, a broadcast view, copied into the graph's buffers."""
+    """rollout_us_batch with and without the states, each horizon step of
+    the env's rollout_batch a replay of the B=Nsample+1 graph (the first
+    step of the first call eager, the second captured), equal the eager
+    rollouts to the bit: the first state, a broadcast view, copied into the
+    graph's buffers."""
     state, Y = _start(off)
     captured, eager = MBDPI(CFG, off), MBDPI(CFG, off, capture=False)
     assert captured.captured and not captured.graphs.whole
@@ -243,19 +245,19 @@ def test_pipeline_path_captured_rollouts_equal_eager(off, standin):
     for k in range(3):
         assert _equal(captured.rollout_us_batch(state, us + 0.01 * k),
                       eager.rollout_us_batch(state, us + 0.01 * k)), k
-        assert _equal(captured.rollout_us_batch_diag(state, us - 0.01 * k),
-                      eager.rollout_us_batch_diag(state, us - 0.01 * k)), k
-    graph = _graphs_by_unit(captured, standin)["rollout step"]
+        assert _equal(captured.rollout_us_batch(state, us - 0.01 * k, want_states=True),
+                      eager.rollout_us_batch(state, us - 0.01 * k, want_states=True)), k
+    graph = _graphs_by_unit(captured, standin)["horizon step"]
     horizon = CFG.Hsample + 1
     assert (graph.captures, graph.replays) == (1, 6 * horizon - 1)
-    assert list(captured.graphs.units) == ["rollout step"]
+    assert list(captured.graphs.units) == ["horizon step"]
 
 
 def test_pipeline_path_captured_reverse_once_and_control_step_equal_eager(off, standin):
     """reverse_once and chained control steps (the executed step through
-    the B=1 graph of env.step, its EnvState with the pipeline's derived
-    fields) equal the eager ones to the bit, the generators alike after;
-    one capture per batch layout."""
+    the B=1 graph of step_lean, from a full EnvState at first and its
+    LeanEnvState after) equal the eager ones to the bit, the generators
+    alike after; one capture per unit."""
     state, Y = _start(off)
     captured, eager = MBDPI(CFG, off), MBDPI(CFG, off, capture=False)
     scale = torch.as_tensor(captured.sigma_control, dtype=Y.dtype)
@@ -273,13 +275,13 @@ def test_pipeline_path_captured_reverse_once_and_control_step_equal_eager(off, s
         sc, Yc, ic = step_c(sc, Yc, gc)
         se, Ye, ie = step_e(se, Ye, ge)
         assert _equal((sc, Yc, ic), (se, Ye, ie)), t
-        assert sc.pipeline.efc_force is not None
+        assert isinstance(sc, LeanEnvState)
         assert torch.equal(gc.get_state(), ge.get_state())
     graphs = _graphs_by_unit(captured, standin)
-    assert sorted(graphs) == ["env.step", "rollout step"]
+    assert list(graphs) == ["horizon step", "execute"]
     assert [(g.captures, g.replays) for g in graphs.values()] == [(1, 3 * 5 + 3 * 10 - 1),
                                                                    (1, 3 - 1)]
-    assert captured.graphs.units["env.step"].static[0].shape == (off.model.nq,)
+    assert captured.graphs.units["execute"].static[0].shape == (off.model.nq,)
 
 
 def test_pipeline_path_captured_run_equals_eager_run(off, standin):
@@ -294,7 +296,7 @@ def test_pipeline_path_captured_run_equals_eager_run(off, standin):
 
 
 def test_pipeline_path_captured_reverse_once_compat_equals_eager(off, standin):
-    """compat_q1's chain through the B=1 graph of env.step, in its
+    """compat_q1's chain through its B=1 graph of env.step, in its
     sequential order: Ybar, info and the final chained physics equal the
     eager ones to the bit."""
     cfg = dataclasses.replace(CFG, compat_q1=True)
@@ -307,6 +309,7 @@ def test_pipeline_path_captured_reverse_once_compat_equals_eager(off, standin):
                       eager.reverse_once_compat(state, ge, Y, scale))
     assert torch.equal(gc.get_state(), ge.get_state())
     (graph,) = standin
+    assert list(captured.graphs.units) == ["compat env.step"]
     calls = 2 * (CFG.Nsample + 1) * (CFG.Hsample + 1)
     assert (graph.captures, graph.replays) == (1, calls - 1)
 
@@ -376,9 +379,10 @@ CARD_OFF_CFG = DialConfig(Nsample=64, Hsample=4, Hnode=2, Ndiffuse=2, Ndiffuse_i
 
 @pytest.mark.cuda
 def test_on_the_card_pipeline_path_captured_units_equal_eager(card):
-    """go2_stand with fused="off", 2 substeps: the env-step graphs (B=65 and
-    B=1) through real CUDA graphs, reverse_once and chained control steps
-    bit-equal to the eager planner's, the generators alike."""
+    """go2_stand with fused="off", 2 substeps: the env-step graphs (the
+    horizon step at B=65, step_lean at B=1) through real CUDA graphs,
+    reverse_once and chained control steps bit-equal to the eager
+    planner's, the generators alike."""
     env = get_env("go2_stand", device=card, n_substeps=2, fused="off")
     captured, eager = MBDPI(CARD_OFF_CFG, env), MBDPI(CARD_OFF_CFG, env, capture=False)
     assert captured.captured and not captured.graphs.whole
@@ -398,5 +402,5 @@ def test_on_the_card_pipeline_path_captured_units_equal_eager(card):
         se, Ye, ie = step_e(se, Ye, ge)
         assert _equal((sc, Yc, ic), (se, Ye, ie))
     assert torch.equal(gc.get_state(), ge.get_state())
-    assert sorted(captured.graphs.units) == ["env.step", "rollout step"]
+    assert sorted(captured.graphs.units) == ["execute", "horizon step"]
     assert all(u.graph.capture_s is not None for u in captured.graphs.units.values())

@@ -1,6 +1,6 @@
 """torch port: no host data and no host read inside a warm `reverse_once` or
-control step, on every fused path, and inside a warm batched `env.step`,
-`reverse_once` and control step on the physics pipeline (what a CUDA graph
+control step, on every fused path, and inside a warm batched horizon step
+(`horizon_step`), `reverse_once` and control step on the physics pipeline (what a CUDA graph
 of each needs, and what keeps the host out of the horizon loop).
 
 A `TorchFunctionMode` records, inside the window:
@@ -106,7 +106,9 @@ CFG = DialConfig(Nsample=8, Hsample=4, Hnode=2, Ndiffuse=2, Ndiffuse_init=3, see
 
 def _windows(env, probe, batch_step=False):
     """A warm reverse_once and a warm control step, each recorded alone, and
-    with `batch_step` a warm env.step of Nsample+1 states: {unit: uses}."""
+    with `batch_step` a warm horizon step of Nsample+1 states (the env's
+    `horizon_step`, a captured planner's unit off the fused path): {unit:
+    uses}."""
     mb = MBDPI(CFG, env, capture=False)
     gen = torch.Generator().manual_seed(0)
     state = to_lean(env.reset(gen))
@@ -119,7 +121,7 @@ def _windows(env, probe, batch_step=False):
         B = CFG.Nsample + 1
         batch = map_tensors(state, lambda x: x.expand((B,) + tuple(x.shape)).contiguous())
         us = 0.3 * torch.randn((B, env.action_size), dtype=env._dtype, generator=gen)
-        units = {"env.step": lambda: env.step(batch, us), **units}
+        units = {"horizon step": lambda: env.horizon_step(batch, us), **units}
     out = {}
     for name, fn in units.items():
         fn()  # warm: the cached constants are made here
@@ -149,14 +151,15 @@ PIPELINE_PATHS = {
 
 @pytest.mark.parametrize("name", list(PIPELINE_PATHS))
 def test_no_host_data_or_read_on_the_physics_pipeline(name):
-    """The units a captured planner replays off the fused path (the env step
-    at a batch and at B=1) and what runs between them: no host data and no
+    """The units a captured planner replays off the fused path (the horizon
+    step at a batch, and `step_lean` at B=1 inside the control step) and
+    what runs between them: no host data and no
     host read anywhere in the window."""
     task, overrides = PIPELINE_PATHS[name]
     env = get_env(task, device="cpu", n_substeps=1, **overrides)
     assert not env.on_fused_path
     uses = _windows(env, HostUses(), batch_step=True)
-    assert uses == {"env.step": [], "reverse_once": [], "control_step": []}
+    assert uses == {"horizon step": [], "reverse_once": [], "control_step": []}
 
 
 TRACED_PATHS = {"go2_stand": ("go2_stand", {}),

@@ -17,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_helpers import use_eager_graphs
 from tpu_dialmpc_torch import checkpoint
 from tpu_dialmpc_torch.cli import main as tcli
 from tpu_dialmpc_torch.dynamics import pipeline
 from tpu_dialmpc_torch.envs import dial_defaults, get_env
-from tpu_dialmpc_torch.envs.base import EnvState
+from tpu_dialmpc_torch.envs.base import LeanEnvState
 from tpu_dialmpc_torch.planner import dial as tdial
 from tpu_dialmpc_torch.planner import runner
 from tpu_dialmpc_torch.telemetry import TelemetryStream
@@ -54,13 +55,20 @@ def test_full_state_equals_pipeline_init(task, scene):
         assert state.pipeline.efc_force is None and want.efc_force.shape[0] > 0
 
 
-def test_run_off_the_fused_path_executes_with_env_step():
-    """runner.run on a fused="off" env carries full EnvStates (env.step) and
-    resumes from its checkpoint as the uninterrupted run continues."""
+def test_run_off_the_fused_path_executes_with_env_step(monkeypatch):
+    """runner.run on a fused="off" env executes with step_lean on the
+    pipeline and carries its LeanEnvState, captured (each env step a unit,
+    through the CPU stand-in for a CUDA graph) as eagerly: the same
+    rewards, qpos, qvel and executed controls."""
     env = get_env("go2_stand", device="cpu", n_substeps=1, fused="off")
     cfg = tdial.DialConfig(**dict(dial_defaults("go2_stand"), Nsample=4, Hsample=2, Hnode=1))
+    eager = runner.run(env, cfg, n_steps=3, capture=False)
+    use_eager_graphs(monkeypatch.setattr)
     res = runner.run(env, cfg, n_steps=3)
-    assert isinstance(res.final_state, EnvState) and res.final_state.pipeline.efc_force is not None
+    assert res.captured and not eager.captured
+    assert isinstance(res.final_state, LeanEnvState)
+    for f in ("rewards", "qpos", "qvel", "us"):
+        assert torch.equal(getattr(res, f), getattr(eager, f)), f
     assert torch.isfinite(res.rewards).all() and res.qpos.shape == (3, env.model.nq)
 
 

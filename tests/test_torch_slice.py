@@ -30,14 +30,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import ASSETS
+from torch_port_helpers import ASSETS, use_eager_graphs
 from tpu_dialmpc.dynamics import pipeline as jpipeline
 from tpu_dialmpc.envs import get_env as jget_env
 from tpu_dialmpc.envs.base import EnvState as JEnvState
 from tpu_dialmpc.envs.registry import dial_defaults as jdial_defaults
 from tpu_dialmpc.planner import dial as jdial
 from tpu_dialmpc_torch.envs import dial_defaults, get_env
-from tpu_dialmpc_torch.envs.base import EnvState, map_tensors, to_lean
+from tpu_dialmpc_torch.envs.base import map_tensors, to_lean
 from tpu_dialmpc_torch.planner import dial as tdial
 from tpu_dialmpc_torch.planner import runner as trunner
 
@@ -322,24 +322,12 @@ def test_port_imports_neither_jax_nor_mujoco():
 # above, no new one ----
 
 
-class StepOnlyEnv:
-    """An env object that exposes `step` and no `rollout_batch`: MBDPI rolls
-    its candidates out with `env.step` over the batch-broadcast state."""
-
-    def __init__(self, env):
-        self._env = env
-        self.action_size, self.device = env.action_size, env.device
-
-    def step(self, state, action):
-        return self._env.step(state, action)
-
-
 @pytest.fixture(scope="module")
 def off(slice_):
     kw = dict(dial_defaults("go2_stand"), **SIZE)
     tenv = get_env("go2_stand", device="cpu", n_substeps=N_SUB, dtype="float64", fused="off")
-    return dict(tenv=tenv, tmb=tdial.MBDPI(tdial.DialConfig(**kw), tenv),
-                step_only=tdial.MBDPI(tdial.DialConfig(**kw), StepOnlyEnv(tenv)))
+    cfg = tdial.DialConfig(**kw)
+    return dict(tenv=tenv, cfg=cfg, tmb=tdial.MBDPI(cfg, tenv))
 
 
 def test_env_step_on_the_physics_pipeline_matches_jax(slice_, off):
@@ -369,13 +357,20 @@ def test_env_step_on_the_physics_pipeline_matches_jax(slice_, off):
     _close(tb.obs[0], ts.obs, 1e-12)
 
 
-@pytest.mark.parametrize("planner", ["off", "step_only"])
-def test_reverse_once_on_the_physics_pipeline_matches_jax(slice_, off, planner):
-    """reverse_once under injected noise: the fused="off" env's rollouts
-    (the pipeline, batched), and MBDPI's env.step fallback on an env object
-    that has no rollout_batch; JAX on the CPU takes the same fallback."""
+@pytest.mark.parametrize("planner", ["off", "off_captured"])
+def test_reverse_once_on_the_physics_pipeline_matches_jax(slice_, off, planner, monkeypatch):
+    """reverse_once under injected noise on the fused="off" env's rollouts
+    (the pipeline, batched): eagerly, and with each horizon step a unit of
+    a planner that captures env steps (through the CPU stand-in for a CUDA
+    graph: the first horizon step eager, the rest replays of the graph
+    captured at the second)."""
     Y = np.random.default_rng(1).uniform(-0.3, 0.3, size=(SIZE["Hnode"] + 1, 12))
-    mb = off["tmb" if planner == "off" else "step_only"]
+    if planner == "off":
+        mb, graphs = off["tmb"], None
+    else:
+        graphs = use_eager_graphs(monkeypatch.setattr)
+        mb = tdial.MBDPI(off["cfg"], off["tenv"])
+        assert mb.captured and not mb.graphs.whole
     scale = mb.sigma_control
     noise = _noise(2)
     jY, jinfo = slice_["jreverse_once"](
@@ -387,12 +382,16 @@ def test_reverse_once_on_the_physics_pipeline_matches_jax(slice_, off, planner):
     _close(tinfo.rew_Ybar, jinfo.rew_Ybar, 1e-9)
     _close(tinfo.weights, jinfo.weights, 1e-7)
     _close(tY, jY, 1e-7)
+    if graphs is not None:
+        (graph,) = graphs
+        assert list(mb.graphs.units) == ["horizon step"]
+        assert (graph.captures, graph.replays) == (1, SIZE["Hsample"])
 
 
 def test_control_step_on_the_physics_pipeline_executes_with_env_step(slice_, off):
     """make_control_step on the fused="off" env executes Y0[0] through
-    env.step (a full EnvState, as the JAX runner off the fused path), then
-    shifts and improves: against the JAX control step."""
+    step_lean on the pipeline, then shifts and improves: against the JAX
+    control step, which executes with env.step."""
     jmb, tmb = slice_["jmb"], off["tmb"]
     n_diffuse = tmb.args.Ndiffuse
     Y0 = np.random.default_rng(3).uniform(-0.3, 0.3, size=(SIZE["Hnode"] + 1, 12))
@@ -410,7 +409,6 @@ def test_control_step_on_the_physics_pipeline_executes_with_env_step(slice_, off
                                                               torch.as_tensor(Y0), None)
     finally:
         del tmb._candidates
-    assert isinstance(ts, EnvState) and ts.pipeline.efc_force is not None
     _close(ts.pipeline.qpos, js.pipeline.qpos, 1e-10)
     _close(ts.reward, js.reward, 1e-10)
     _close(tY, jY, 1e-7)

@@ -404,6 +404,7 @@ class TorchStubEnv:
     A = 0.9
     B = 0.1
     device = "cpu"
+    on_fused_path = True  # a planner captures its units whole
 
     @property
     def action_size(self):
@@ -431,7 +432,8 @@ class TorchStubEnv:
         reward = -((qpos2 - 1.0) ** 2).sum(-1) + 0.01 * qvel2.sum(-1)
         return qpos2, qvel2, reward
 
-    def rollout_batch(self, state, all_us, want_states=False):
+    def rollout_batch(self, state, all_us, want_states=False, step=None):
+        """`step` is never given: a planner on the stub captures no env step."""
         import torch
 
         B = all_us.shape[0]

@@ -1,15 +1,18 @@
 """Batched rollouts and the executed step, on the physics the env's config
-picks.
+picks: the env owns the physics and the horizon loop, the planner owns the
+CUDA graphs (`planner/capture.py`).
 
 Counterpart of `tpu_dialmpc/envs/fused_rollout.py`:
 
 - `rollout_batch(state, all_us)` rolls every candidate control sequence
   (B, T, nu) through the physics and the env's reward stack and returns the
-  (B, T) reward matrix the planner scores, the horizon a Python loop; with
-  `want_states` also the rollouts' qpos, qvel and torso positions (the
-  planner's `diag_states` diagnostics).
+  (B, T) reward matrix the planner scores, the horizon a Python loop over
+  `horizon_step`; with `want_states` also the rollouts' qpos, qvel and
+  torso positions (the planner's `diag_states` diagnostics).  It is the
+  port's one horizon loop, on either physics; a planner that captures each
+  horizon step hands it that step's graph replay (`step=`).
 - `step_lean(state, action)` is the executed control step: the same chain at
-  B=1.
+  B=1, on either physics.
 
 The physics (`on_fused_path`, from the config's `fused`):
 - "on": the fused substep (`dynamics/fused_cuda.py`: the CUDA kernel on
@@ -30,7 +33,7 @@ Device spans (`telemetry/spans.py`): an env step's `ctrl` (the PD map),
 `rollout_batch` each horizon step's `rollout` around them.
 
 Requires the host env to provide:
-  model, config, device, _torso_idx, _dtype,
+  model, config, device, _torso_idx, _dtype, _on_fused (`pick_physics`),
   _ctrl_batch(action (B,nu), qpos (B,nq), qvel (B,nv)) -> ctrl (B,nu)
   _post_physics(qpos, qvel, site_xpos, torso_xpos, torso_xquat, torso_cvel,
                 root_com, qfrc_actuator, info, ctrl) -> (reward, done, info')
@@ -171,13 +174,24 @@ class FusedRolloutMixin:
             info=info2,
         )
 
-    def rollout_batch(self, state, all_us, want_states=False):
+    def horizon_step(self, state, us):
+        """One horizon step of `rollout_batch` for a batch: (the next live
+        state, the rewards (B,), the torso's world position (B, 3))."""
+        ps = state.pipeline
+        qpos, qvel, ws, der, _, reward, _, info, _ = self._step_batch(
+            ps.qpos, ps.qvel, ps.qacc_warmstart, state.info, us)
+        return _live(qpos, qvel, ws, info), reward, der["torso_xpos"]
+
+    def rollout_batch(self, state, all_us, want_states=False, step=None):
         """Batched rollout (B, T, nu) -> per-step rewards (B, T).
 
         Every candidate starts from `state`; rewards, termination and info
         updates are the code path `step_lean` uses.  With `want_states`,
         returns (rewss (B,T), qss (B,T,nq), qdss (B,T,nv), xss (B,T,3)): the
-        states after each step and the torso's world position."""
+        states after each step and the torso's world position.  `step` runs
+        each horizon step in place of `horizon_step`: the planner's replay of
+        its CUDA graph, where it captures env steps."""
+        step = step or self.horizon_step
         B, T = all_us.shape[0], all_us.shape[1]
         dtype = self._dtype
         ps = state.pipeline
@@ -185,20 +199,20 @@ class FusedRolloutMixin:
         def bcast(x):
             return x.to(dtype).expand((B,) + tuple(x.shape)).contiguous()
 
-        qpos, qvel, ws = bcast(ps.qpos), bcast(ps.qvel), bcast(ps.qacc_warmstart)
-        info = map_tensors(state.info, lambda x: x.expand((B,) + tuple(x.shape)))
+        s = _live(bcast(ps.qpos), bcast(ps.qvel), bcast(ps.qacc_warmstart),
+                  map_tensors(state.info, lambda x: x.expand((B,) + tuple(x.shape))))
         us = all_us.to(dtype)
-        rews, qss, qdss, xss = [], [], [], []
+        outs = []
         for t in range(T):
-            with spans.span("rollout", device=qpos.device, follows=t > 0):
-                qpos, qvel, ws, der, _, reward, _, info, _ = self._step_batch(
-                    qpos, qvel, ws, info, us[:, t]
-                )
-            rews.append(reward)
-            if want_states:
-                qss.append(qpos)
-                qdss.append(qvel)
-                xss.append(der["torso_xpos"])
-        if want_states:
-            return tuple(torch.stack(x, dim=1) for x in (rews, qss, qdss, xss))
-        return torch.stack(rews, dim=1)
+            with spans.span("rollout", device=us.device, follows=t > 0):
+                s, reward, x = step(s, us[:, t])
+            ps = s.pipeline
+            outs.append((reward, ps.qpos, ps.qvel, x) if want_states else (reward,))
+        stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
+        return stacked if want_states else stacked[0]
+
+
+def _live(qpos, qvel, ws, info) -> LeanEnvState:
+    """The state a horizon step reads and returns: the physics and info."""
+    return LeanEnvState(pipeline=LeanPipelineState(qpos=qpos, qvel=qvel, qacc_warmstart=ws),
+                        obs=None, reward=None, done=None, info=info)

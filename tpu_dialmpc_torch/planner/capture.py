@@ -1,5 +1,8 @@
 """The planner's device programs as captured CUDA graphs: `reverse_once`
-and the control step on the fused path, one env step elsewhere.
+and the control step on the fused path, one env step elsewhere.  The env
+owns the physics and the horizon loop (`envs/fused_rollout.py`); the
+planner owns the graphs, and `PlannerGraphs.whole` is where it reads the
+env's physics.
 
 Counterpart of the JAX package's compiled programs: the jitted control step
 (`tpu_dialmpc/planner/runner.py:63`), the jitted warm start (`:112`),
@@ -22,11 +25,12 @@ unit's kernels are recorded once and replayed with one launch.
   ~2,900 kernels per substep, which would make one `reverse_once` ~490k
   graph nodes; and `compat_q1`, which chains the candidates through
   `env.step` one at a time): one env step (the ctrl map, `n_substeps` of
-  physics and the reward stack) per batch layout, the rollouts' horizon
-  step at B = the planner's block + 1 and `env.step` of one state (the
-  executed step, `compat_q1`'s chain), each replayed once per step; the
-  planner's ops between the steps (noise, `node2u`, scoring, `shift`) run
-  eagerly.
+  physics and the reward stack) per unit, each replayed once per step: the
+  env's `horizon_step` at B = the planner's block + 1 ("horizon step",
+  which the planner hands the env's `rollout_batch`), `step_lean` of one
+  state ("execute", the executed step) and, under `compat_q1`, `env.step`
+  of one state ("compat env.step", its chain); the planner's ops between
+  the steps (noise, `node2u`, scoring, `shift`) run eagerly.
 - A unit runs eagerly at its first call, on the side stream its capture
   will use: the call builds and loads the kernel library (nvcc cannot run
   inside a capture), makes the model's cached constants, settles the
@@ -271,8 +275,8 @@ def _static(t: torch.Tensor) -> torch.Tensor:
 
 class PlannerGraphs:
     """The captured units of one planner (module docstring): with `whole`,
-    `reverse_once` and a control step per `n_diffuse`; else an env step per
-    batch layout (`step`).  `busy` is True while a unit runs (its eager
+    `reverse_once` and a control step per `n_diffuse`; else each env step
+    the planner runs (`step`).  `busy` is True while a unit runs (its eager
     first call, its capture or a replay): the planner's own calls then run
     eagerly, inside it."""
 
@@ -282,7 +286,8 @@ class PlannerGraphs:
         self.busy = False
         self.units = {}
         env = mbdpi.env
-        self.whole = getattr(env, "on_fused_path", True) and not mbdpi.args.compat_q1
+        # the planner's one reader of the env's physics: what a unit is
+        self.whole = env.on_fused_path and not mbdpi.args.compat_q1
         self.counters = list(env.launch_counters())
         self.counters += [(mbdpi, name) for name in mbdpi.COUNTERS]
 
@@ -309,9 +314,8 @@ class PlannerGraphs:
         return self.units[key]
 
     def step(self, name, fn, state, action):
-        """The captured form of `fn(state, action)`, an env step (`env.step`,
-        or the rollouts' horizon step): one graph per `name`, each for one
-        batch layout."""
+        """The captured form of `fn(state, action)`, an env step (module
+        docstring): one graph per `name`, each for one batch layout."""
         def make():
             leaves = [_static(t) for t in self._state_leaves(state)]
             a = _static(action)

@@ -8,12 +8,12 @@ Counterpart of `tpu_dialmpc/planner/dial.py`, in PyTorch:
   package splits `jax.random` keys); `reverse_once(..., noise=)` takes
   injected noise, which is how the tests hold the port against the JAX
   package on the same draws;
-- rollouts go through the env's `rollout_batch` on the fused path (one
-  substep-kernel launch per horizon step for all Nsample+1 candidates); off
-  it, and for an env without one, the env's `step` runs over the
-  batch-broadcast state, horizon step by horizon step, as the JAX package's
-  vmap(scan(env.step)) fallback does: that horizon step is what a captured
-  planner replays as a CUDA graph there (`planner/capture.py`);
+- the env owns the physics and the horizon loop, the planner the CUDA
+  graphs (`planner/capture.py`): the rollouts are the env's
+  `rollout_batch` and the executed step its `step_lean`, on either
+  physics; where the planner captures env steps (`PlannerGraphs.whole`
+  false), it hands `rollout_batch` the replay of its horizon step's graph
+  and replays `step_lean`'s at B=1 (`execute`);
 - `reverse` and `improve` are Python loops over `reverse_once`;
 - `diag_states` (quirk Q4) adds the softmax-weighted rollout states
   qbar/qdbar/xbar to each iteration's info, from the same weights as the
@@ -23,20 +23,21 @@ Counterpart of `tpu_dialmpc/planner/dial.py`, in PyTorch:
   fixture, sequential over candidates by design, not for production.
 
 Device spans (`telemetry/spans.py`): `shift`, `candidates` (the noisy
-candidates and their splines), each horizon step's `rollout` off the env's
+candidates and their splines), each horizon step's `rollout` in the env's
 `rollout_batch`, and `score_update`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpu_dialmpc_torch.core import spline
-from tpu_dialmpc_torch.envs.base import map_tensors, to_lean
+from tpu_dialmpc_torch.envs.base import to_lean
 from tpu_dialmpc_torch.planner import capture as capture_mod
 from tpu_dialmpc_torch.telemetry import spans
 
@@ -166,70 +167,32 @@ class MBDPI:
             return torch.einsum("qn,...nu->...qu", self._const("shift", Y.dtype), Y)
 
     # ------------------------------------------------------------------
-    def _lean(self, state):
-        """The live part of a physics env's state (qpos, qvel, warmstart,
-        info): `env.step` reads nothing else.  A state with no `pipeline` is
-        live as a whole."""
-        return to_lean(state) if hasattr(state, "pipeline") else state
+    def _on_graphs(self, name, step):
+        """The env step `step(state, action)`, replayed through its CUDA graph
+        `name` where the planner captures env steps (`planner/capture.py`)."""
+        return functools.partial(self.graphs.step, name, step) if self._step_graphs else step
 
-    def env_step(self, state, action):
-        """`env.step(state, action)`, through its CUDA graph where the planner
-        captures env steps (`planner/capture.py`): the executed step off the
-        fused path, and `compat_q1`'s chain."""
+    def execute(self, state, action):
+        """The executed control step, the env's `step_lean` (B=1), whatever
+        its physics."""
+        return self._on_graphs("execute", self.env.step_lean)(state, action)
+
+    def rollout_us_batch(self, state, all_us: torch.Tensor, want_states=False):
+        """(B, Hsample+1, nu) -> rewards (B, Hsample+1), every rollout from
+        `state`, through the env's `rollout_batch`; with `want_states` also
+        the states (qss, qdss, xss) (its docstring)."""
+        step = None  # the env's own horizon step
         if self._step_graphs:
-            return self.graphs.step("env.step", self.env.step, state, action)
-        return self.env.step(state, action)
+            step = self._on_graphs("horizon step", self.env.horizon_step)
+        return self.env.rollout_batch(state, all_us, want_states, step=step)
 
-    def _rollout_step(self, state, us):
-        """One horizon step of `_step_rollouts`: (the next live state, the
-        rewards, the torso's world position: qpos[:3] where the env names no
-        torso)."""
-        s = self.env.step(state, us)
-        torso = getattr(self.env, "_torso_idx", None)
-        ps = s.pipeline
-        x = ps.xpos[:, torso] if torso is not None else ps.qpos[:, :3]
-        return self._lean(s), s.reward, x
-
-    def _step_rollouts(self, state, all_us, want_states=False):
-        """`env.step` over the batch-broadcast state, horizon step by horizon
-        step (each a replay of its CUDA graph where the planner captures env
-        steps): rewards (B, T), and with `want_states` also the states (qss,
-        qdss, xss), xss the torso's world position."""
-        B = all_us.shape[0]
-        s = map_tensors(self._lean(state),
-                        lambda x: x.expand((B,) + tuple(x.shape)).contiguous())
-        outs = []
-        for t in range(all_us.shape[1]):
-            with spans.span("rollout", device=self.device, follows=t > 0):
-                if self._step_graphs:
-                    s, reward, x = self.graphs.step("rollout step", self._rollout_step, s,
-                                                    all_us[:, t])
-                else:
-                    s, reward, x = self._rollout_step(s, all_us[:, t])
-            ps = s.pipeline
-            outs.append((reward, ps.qpos, ps.qvel, x) if want_states else (reward,))
-        stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
-        return stacked if want_states else stacked[0]
-
-    def _env_rollouts(self) -> bool:
-        """Whether the env's own `rollout_batch` rolls the candidates out: on
-        the fused path; off it `_step_rollouts` does, whose horizon step a
-        captured planner replays."""
-        return hasattr(self.env, "rollout_batch") and getattr(self.env, "on_fused_path", True)
-
-    def rollout_us_batch(self, state, all_us: torch.Tensor) -> torch.Tensor:
-        """(B, Hsample+1, nu) -> rewards (B, Hsample+1); every rollout starts
-        from `state`: the env's `rollout_batch`, else `env.step`."""
-        if self._env_rollouts():
-            return self.env.rollout_batch(state, all_us)
-        return self._step_rollouts(state, all_us)
-
-    def rollout_us_batch_diag(self, state, all_us: torch.Tensor):
-        """Rollouts that also return their states (Q4 diagnostics):
-        (rewss (B,T), qss (B,T,nq), qdss (B,T,nv), xss (B,T,3))."""
-        if self._env_rollouts():
-            return self.env.rollout_batch(state, all_us, want_states=True)
-        return self._step_rollouts(state, all_us, want_states=True)
+    def _rollouts(self, state, us):
+        """The rollouts `_score_update` reads: (rewss, the Q4 states
+        (qss, qdss, xss) under `diag_states`, else None)."""
+        if not self.args.diag_states:
+            return self.rollout_us_batch(state, us), None
+        rewss, *diag = self.rollout_us_batch(state, us, want_states=True)
+        return rewss, diag
 
     def rollout_us_batch_compat_q1(self, state, all_us: torch.Tensor):
         """Reference-quirk-Q1 rollouts: the candidates chained one after
@@ -237,15 +200,17 @@ class MBDPI:
         carries over from candidate to candidate, as the C++'s shared mjData
         does; StateInfo restarts from `state`'s for each candidate.  Returns
         (rewss (B, T), the final physics (qpos, qvel, warmstart)); the C++
-        executes its next control from that state."""
-        lean = self._lean(state)
+        executes its next control from that state.  Each `env.step` replays
+        its B=1 CUDA graph where the planner captures env steps."""
+        lean = to_lean(state)
         phys = lean.pipeline
+        compat_step = self._on_graphs("compat env.step", self.env.step)
         rewss = []
         for us in all_us:
             s = dataclasses.replace(lean, pipeline=phys)
             rews = []
             for u in us:
-                s = self.env_step(s, u)
+                s = compat_step(s, u)
                 rews.append(s.reward)
             rewss.append(torch.stack(rews))
             phys = to_lean(s).pipeline
@@ -409,10 +374,8 @@ class MBDPI:
         diag = None
         if self.args.compat_q1:
             rewss, _ = self.rollout_us_batch_compat_q1(state, all_us)
-        elif self.args.diag_states and hasattr(state, "pipeline"):
-            rewss, *diag = self.rollout_us_batch_diag(state, all_us)
         else:
-            rewss = self.rollout_us_batch(state, all_us)  # (Nsample+1, Hsample+1)
+            rewss, diag = self._rollouts(state, all_us)  # (Nsample+1, Hsample+1)
         with spans.span("score_update", device=self.device):
             return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)
 

@@ -2,12 +2,13 @@
 `tpu_dialmpc/planner/runner.py`).
 
 `make_control_step` is one control step: execute Y0[0], shift the plan,
-then `improve` it.  The executed step is the env's `step_lean` where the env
-is on the fused path (the loop then carries a LeanEnvState), else its
-`step` (the physics pipeline, and a full EnvState), as in the JAX runner.  `run` drives it from the
-reset state and the `reverse` warm start, the first control step with
-`Ndiffuse_init` annealing iterations and the rest with `Ndiffuse`, all noise
-drawn from one `torch.Generator` on the env's device seeded with cfg.seed.
+then `improve` it.  The executed step is the env's `step_lean` on either
+physics (`MBDPI.execute`), and the loop carries the LeanEnvState it returns:
+the env owns the physics, the planner the CUDA graphs.  `run` drives it
+from the reset state and the `reverse` warm start, the first control step
+with `Ndiffuse_init` annealing iterations and the rest with `Ndiffuse`, all
+noise drawn from one `torch.Generator` on the env's device seeded with
+cfg.seed.
 It takes an optional telemetry stream, checkpoints every `checkpoint_every`
 steps, resume from a checkpoint, and retries from the last checkpoint after
 a step that raises.  With none of these attached, its records stay on the
@@ -24,7 +25,7 @@ generator into the graph's buffer first (the JAX package's jitted control
 step and scan chunk); a unit's first call runs eagerly and its second
 captures it, so the one `Ndiffuse_init` step of a run runs eagerly.  Off
 the fused path (or with `compat_q1`) the env steps are the graphs: the
-executed step replays the graph of `env.step` at B=1, the rollouts that of
+executed step replays the graph of `step_lean` at B=1, the rollouts that of
 their horizon step.  The step returns copies of the graphs' outputs, so
 the records kept per step are not overwritten by the next replay.
 `capture=False` runs every step eagerly.  The executed step is the device
@@ -61,24 +62,15 @@ class RunResult(NamedTuple):
     captured: bool = False  # whether the planner ran its CUDA graphs (MBDPI.captured)
 
 
-def _lean_capable(env) -> bool:
-    """Whether the env executes its control step through `step_lean` (an env
-    on the fused path, or one with no `step`)."""
-    return (getattr(env, "step_lean", None) is not None
-            and getattr(env, "on_fused_path", True))
-
-
 def make_control_step(mbdpi: MBDPI, n_diffuse: int):
     """One receding-horizon step: execute, shift, anneal (dial-core-test.cpp:64-99):
     `control_step(state, Y0, generator, noise=None)` -> (state', Y', infos),
     `noise[i]` the i-th iteration's injected noise.  Where the planner
     captures its units whole (`PlannerGraphs.whole`) it is the step's CUDA
     graph (`planner/capture.py`), one per (planner, n_diffuse)."""
-    execute = mbdpi.env.step_lean if _lean_capable(mbdpi.env) else mbdpi.env_step
-
     def control_step(state, Y0: torch.Tensor, generator: torch.Generator, noise=None):
         with spans.span("execute", device=mbdpi.device):
-            state2 = execute(state, Y0[0])
+            state2 = mbdpi.execute(state, Y0[0])
         Y1 = mbdpi.shift(Y0)
         Y2, infos = mbdpi.improve(state2, Y1, generator, n_diffuse, noise=noise)
         return state2, Y2, infos
@@ -113,13 +105,12 @@ def run(
     `capture` is `MBDPI`'s (module docstring).
     """
     mbdpi = MBDPI(cfg, env, capture=capture)
-    carried = to_lean if _lean_capable(env) else (lambda s: s)
     if resume is not None:
         state, Y0, generator, t0 = resume
-        state = carried(state)
+        state = to_lean(state)
     else:
         generator = torch.Generator(device=mbdpi.device).manual_seed(cfg.seed)
-        state = carried(env.reset(generator))
+        state = to_lean(env.reset(generator))
         Y0 = torch.zeros((cfg.Hnode + 1, env.action_size), dtype=state.obs.dtype,
                          device=mbdpi.device)
         Y0 = mbdpi.reverse(state, Y0, generator)
@@ -149,7 +140,7 @@ def run(
             ck_state, Y0, generator, _, t_ck = checkpoint.load(checkpoint_path, env)
             if not t0 <= t_ck <= t:
                 raise  # a stale checkpoint of another run
-            state = carried(ck_state)
+            state = to_lean(ck_state)
             del records[t_ck - t0:]  # replay from the checkpoint
             t = t_ck
             continue

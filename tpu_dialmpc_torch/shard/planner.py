@@ -12,9 +12,9 @@ Nsample candidates (shard/mesh.py) and the reductions are explicit
   candidates of `MBDPI` (the JAX package's partitionable threefry).  An
   injected `noise=` is global too and is sliced the same way;
 - rollouts: each rank appends the anchor Ybar to its block and rolls the
-  block + 1 candidates out in one `rollout_us_batch` (one fused-kernel
-  launch per horizon step on a fused env; `MBDPI`'s env.step fallback
-  elsewhere);
+  block + 1 candidates out in one `rollout_us_batch`, the env's
+  `rollout_batch` (one fused-kernel launch per horizon step on a fused
+  env);
 - scoring, `MBDPI._score_update` over the rank's block, with its `_reduce`
   an all-reduce: with score_std="sample" the global mean, then the global
   variance, of all Nsample+1 mean rewards (two SUM reductions); with "time"
@@ -96,10 +96,6 @@ class ShardedMBDPI(MBDPI):
         with spans.span("candidates", device=self.device):
             all_Y0s = self._candidates(None, Ybar_i, noise_scale, noise[self.block])
             us = self.node2u(all_Y0s)  # (block + 1, Hsample+1, nu), the anchor last
-        diag = None
-        if self.args.diag_states and hasattr(state, "pipeline"):
-            rewss, *diag = self.rollout_us_batch_diag(state, us)
-        else:
-            rewss = self.rollout_us_batch(state, us)
+        rewss, diag = self._rollouts(state, us)
         with spans.span("score_update", device=self.device):
             return self._score_update(rewss, all_Y0s, noise_scale, diag=diag)
