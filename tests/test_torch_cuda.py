@@ -12,7 +12,9 @@ bracket, the nodes of the captured control step with the tracer off and on
 and of its traced second graph, `rollout/physics` against the profiler's
 B=2049 kernel records); the Go2 env step's two kernels against their plain
 version on the card, in a captured rollout and in the captured control
-step; the kernel's wave counter in a replay of H1's captured control step:
+step; the kernel's wave counter in a replay of H1's captured control step;
+the crate build right after the H1 build has filled shared memory, and a
+first launch on a non-blocking stream right after the model's upload:
 marked `cuda`, and each test skips without a CUDA device.
 
 It imports neither jax nor the JAX package, so it runs where only PyTorch is
@@ -142,6 +144,74 @@ def test_crate_kernel_matches_plain_on_card(card, crate_model, B):
         assert (o - r).abs().max().item() <= 1e-6 * max(1.0, r.abs().max().item())
 
 
+def _crate_args(m, B, seed, device):
+    rng = np.random.default_rng(seed)
+    qpos, qvel = crate_states(m, rng, B)
+    arrays = (qpos, qvel, np.zeros((B, m.nv)), rng.uniform(-10, 10, (B, m.nu)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous() for a in arrays]
+
+
+def test_crate_kernel_bit_equal_to_plain_after_another_build_on_card(card, crate_model,
+                                                                      h1_model):
+    """The crate build (four samples, 54 KB of shared memory a block) right
+    after the H1 build has filled every SM's shared memory with its own
+    layout: a read of a byte that the launch did not write would take H1's
+    values, and the outputs would not equal the plain version's."""
+    rng = np.random.default_rng(0)
+    qpos, qvel = h1_crate_states(h1_model, rng, 8193)
+    h1_args = [torch.as_tensor(a, dtype=torch.float32, device=card).contiguous()
+               for a in (qpos, qvel, np.zeros_like(qvel),
+                         rng.uniform(-10, 10, (8193, h1_model.nu)))]
+    h1 = fused_cuda.FusedStep(h1_model, 8, fused.DerivedSpec(
+        torso_body=h1_model.body_names.index("pelvis")))
+    fs = fused_cuda.FusedStep(crate_model, 8, SPEC)
+    args = _crate_args(crate_model, 2049, 3, card)
+    fs.library(card)
+    h1(*h1_args)
+    out = fs(*args)
+    ref = fs.plain(*args)
+    torch.cuda.synchronize()
+    assert (h1.launches, fs.launches) == (1, 1)
+    for o, r in zip(out, ref):
+        assert bool(torch.isfinite(o).all()) and torch.equal(o, r)
+
+
+def test_a_first_launch_on_another_stream_reads_the_uploaded_model_on_card(
+        card, crate_model, tmp_path):
+    """The model's upload has landed when it returns.  A library of its own
+    (a separate module, whose model can be zeroed without touching other
+    tests') first holds a zero model; then, while a 1 GiB copy from host
+    memory keeps the copy engine busy, the true model is uploaded and the
+    kernel launched at once on a non-blocking stream, which does not wait
+    for the copies of the legacy default stream: it must read the true
+    model.  Were the upload to return before its copies land, the outputs
+    would differ from the plain version's in every trial (H100: finite,
+    but not equal)."""
+    m = crate_model
+    fs = fused_cuda.FusedStep(m, 8, SPEC)
+    _, blob, tables = fused_cuda.pack_model(m, fs.meta, fs.spec)
+    lib, _, _ = fused_cuda.build_library(m, fs.meta, fs.spec, out_dir=tmp_path)
+    args = _crate_args(m, 2049, 4, card)
+    ref = fs.plain(*args)
+    outs = (torch.empty((2049, m.nq), device=card), torch.empty((2049, m.nv), device=card),
+            torch.empty((2049, m.nv), device=card), torch.empty((2049, fs.nd), device=card))
+    big = torch.empty(1 << 28, pin_memory=True)
+    copy, run = torch.cuda.Stream(card), torch.cuda.Stream(card)
+    for _ in range(3):
+        lib.upload(bytes(len(blob)), bytes(len(tables)))
+        torch.cuda.synchronize()
+        for o in outs:
+            o.fill_(0.0)
+        with torch.cuda.stream(copy):
+            big.to(card, non_blocking=True)
+        lib.upload(blob, tables)
+        with torch.cuda.device(card):
+            assert lib.launch(8, *args, outs, run.cuda_stream) == 0
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert bool(torch.isfinite(o).all()) and torch.equal(o, r)
+
+
 @pytest.mark.parametrize("B", [1, 2049])
 def test_h1_kernel_matches_plain_on_card(card, h1_model, B):
     """The H1 push-crate build (nv=26, cross-tree cliques and fill-in in the
@@ -223,7 +293,8 @@ def test_the_card_holds_the_samples_of_the_launch_config_on_card(card, scene):
     the runtime's occupancy on every SM and `samples_per_sm` at the build's
     shared memory and ptxas' registers, which do not bind on H1's build;
     ptxas spills nothing in the fused kernel; the H1 push-crate build holds
-    11 samples an SM or more, and go2_force's B=2049 launch is one wave."""
+    16 samples an SM (B=8193 in 4 waves), and go2_force's B=2049 launch is
+    one wave."""
     from tpu_dialmpc_torch.dynamics.model import load_scene
 
     root = PORT_NPZ.parents[2]
@@ -243,7 +314,9 @@ def test_the_card_holds_the_samples_of_the_launch_config_on_card(card, scene):
     assert lib.resident == info["blocks_per_sm"] * info["samples_per_block"] * sms
     assert lib.resident == fused_cuda.samples_per_sm(nbytes, spb, use["registers"]) * sms
     if scene == "h1_push_crate":
-        assert lib.resident == fused_cuda.samples_per_sm(nbytes, spb) * sms >= 11 * 132
+        assert info["bytes_per_sample"] <= 14336
+        assert lib.resident == fused_cuda.samples_per_sm(nbytes, spb) * sms == 16 * 132
+        assert fused_cuda.waves(8193, lib.resident) == 4
     if scene == "go2_force":
         assert fused_cuda.waves(2049, lib.resident) == 1
 
@@ -650,21 +723,21 @@ def test_control_step_counts_the_go2_kernels_on_card(card):
 
 
 def test_control_step_counts_the_kernel_waves_on_card(card):
-    """h1_push_crate at N2048/H4/Hnode2, Ndiffuse 2, the control step
+    """h1_push_crate at N4096/H4/Hnode2, Ndiffuse 2, the control step
     captured whole: the card holds the blocks per SM the runtime's
     occupancy reports on every SM at once, so each of the 10 rollout
-    launches at B=2049 takes ceil(2049 / resident) waves and the executed
+    launches at B=4097 takes ceil(4097 / resident) waves and the executed
     step's one; a replay adds exactly that to `FusedStep.waves`."""
     from tpu_dialmpc_torch.planner.dial import DialConfig
 
-    cfg = DialConfig(Nsample=2048, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
+    cfg = DialConfig(Nsample=4096, Hsample=4, Hnode=2, Ndiffuse=2, seed=1)
     unit, step = _captured_step(card, cfg, False, task="h1_push_crate")
     fs = unit.owner.mbdpi.env.fused_step
     lib = fs.library(card)
     info = lib.launch_info()
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert lib.resident == info["blocks_per_sm"] * info["samples_per_block"] * sms
-    per_step = 2 * 5 * fused_cuda.waves(2049, lib.resident) + 1
+    per_step = 2 * 5 * fused_cuda.waves(4097, lib.resident) + 1
     assert per_step > 2 * 5 + 1  # more than one wave a rollout launch
     launches, waves = fs.launches, fs.waves
     step()

@@ -188,15 +188,42 @@ def test_h1_kernel_source_host_build_matches_plain(models, host_build):
     assert kinds == set(tm.pairs)
 
 
-def test_h1_kernel_source_host_build_bit_equal_to_plain(models, host_build, monkeypatch):
+def _joint_limit_inputs(tm):
+    """Inputs where every contact kind, slots across the two trees and four
+    joint-limit rows a sample are active (both hip yaws and shoulder rolls a
+    little past a limit), and the Newton solve's second iteration moves
+    every sample."""
+    qpos, qvel, ws, ctrl = _batch(tm, seed=4)
+    qpos[:, [7, 12, 19, 23]] = (-0.44, 0.44, -0.35, 0.35)
+    args = [torch.as_tensor(a, dtype=torch.float32).contiguous()
+            for a in (qpos, qvel, ws, ctrl / 2)]
+    q = args[0].double()
+    limits = sum((r["sign"] * (q[:, r["qadr"]] - r["bound"]) < r["margin"]).int()
+                 for r in tfused._meta(tm).limit_rows)
+    assert bool((limits == 4).all()), limits
+    active = tfused.active_contacts(tm, args[0])
+    assert len(active) == 6 and all(n > 0 for n in active.values()), active
+    assert tfused.active_two_tree_contacts(tm, args[0]) > 0
+    assert tm.iterations == 2
+    one = tfused.build_fused_step(tm.with_options(iterations=1), 1, SPEC)(*args)
+    two = tfused.build_fused_step(tm, 1, SPEC)(*args)
+    assert bool((one[1] != two[1]).any(1).all())
+    return args
+
+
+@pytest.mark.parametrize("inputs", ["crate", "joint_limits"])
+def test_h1_kernel_source_host_build_bit_equal_to_plain(models, host_build, monkeypatch, inputs):
     """8 substeps: the host build equals the plain float32 version to the
     bit once the plain version's sin, cos and sqrt are the host's (glibc's
     sinf/cosf, IEEE sqrt; torch's CPU kernels round a few inputs in 1e3
     differently).  On the card both sides use the same CUDA math library,
-    which is why the kernel equals the plain version there."""
+    which is why the kernel equals the plain version there.  On the inputs
+    at the joint limits every row kind and a second Newton iteration run, so
+    the kernel's arrays that share bytes (Work's unions) are each read only
+    in their own phase of a substep, or these outputs would differ."""
     _, tm = models
     use_host_math(monkeypatch)
-    args = _host_inputs(tm, seed=3)
+    args = _host_inputs(tm, seed=3) if inputs == "crate" else _joint_limit_inputs(tm)
     outs = _host_step(host_build, tm, args, 8)
     plain = tfused.build_fused_step(tm, 8, SPEC)(*args)
     for name, k, p in zip(("qpos", "qvel", "ws", "derived"), outs, plain):

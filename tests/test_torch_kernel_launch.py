@@ -55,10 +55,10 @@ def _defines(tm):
 # (bytes per sample, samples per SM by shared memory) of each task's build,
 # and its waves at B = 1, 2049 (go2_stand's rollouts) and 8193
 # (h1_push_crate_n8192's) on an H100 (132 SMs): 28 x 132 = 3696 and
-# 13 x 132 = 1716 samples a wave (tests/test_torch_cuda.py holds the card's
+# 16 x 132 = 2112 samples a wave (tests/test_torch_cuda.py holds the card's
 # occupancy, registers included, against these)
-WAVES = {"go2_stand": (7472, 28, {1: 1, 2049: 1, 8193: 3}),
-         "h1_push_crate": (16856, 13, {1: 1, 2049: 2, 8193: 5})}
+WAVES = {"go2_stand": (7504, 28, {1: 1, 2049: 1, 8193: 3}),
+         "h1_push_crate": (14224, 16, {1: 1, 2049: 1, 8193: 4})}
 
 
 @pytest.mark.parametrize("task,B", [(t, b) for t in WAVES for b in (1, 2049, 8193)])
@@ -89,11 +89,26 @@ def test_launch_config_fits_shared_memory(scene, tmp_path):
     assert nbytes == fused_cuda.work_bytes(defines) and nbytes % 4 == 0
     assert spb * nbytes <= fused_cuda.SMEM_PER_BLOCK and 1 <= spb <= 4
     assert defines["FS_SPB"] == spb
+    # the launch bound: 16 warps an SM, or the blocks its shared memory holds
+    assert defines["FS_MIN_BLOCKS"] == min(fused_cuda.samples_per_sm(nbytes, spb) // spb, 16 // spb)
     # the host build of the source reports the same struct size and shape
     lib, _, _ = fused_cuda.build_library(tm, fused._meta(tm), fused.DerivedSpec(torso_body=1),
                                          host=True, out_dir=tmp_path)
     info = lib.launch_info()
     assert (info["bytes_per_sample"], info["samples_per_block"]) == (nbytes, spb)
+
+
+def test_h1_build_holds_16_samples_an_sm_at_4_a_block():
+    """H1 push-crate's working set fits 4 samples a block in 4 blocks an SM
+    (4 x (4 x 14,336 + 1,024 reserved) B = the SM's 228 KB), so at up to
+    128 registers a thread its SMs hold 16 samples: B=8193 in 4 waves."""
+    _, tm = _models("h1_push_crate")
+    defines = _defines(tm)
+    nbytes, spb = fused_cuda.launch_config(defines)
+    assert nbytes <= 14336 and spb == 4 and defines["FS_MIN_BLOCKS"] == 4
+    assert fused_cuda.samples_per_sm(nbytes, spb, registers=128) == 16
+    assert fused_cuda.samples_per_sm(nbytes, spb, registers=129) == 12
+    assert fused_cuda.waves(8193, 16 * 132) == 4
 
 
 def test_launch_config_picks_the_most_samples_per_sm_and_raises_beyond_a_block():

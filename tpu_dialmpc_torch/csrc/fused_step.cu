@@ -47,11 +47,14 @@
 //   about one sample's latency each, so Work is kept small: the values of a
 //   row that only its own lane reads (aref, D, active, and the solver's x
 //   and J.delta) stay in that lane's registers (RowRegs); each contact row's
-//   J takes its slot's dof count, its Hessian weight beside it; the
-//   smooth dynamics' intermediates (body frames and velocities, inertias,
-//   the actuator force) share memory with the rows and the solver's
-//   vectors, which are dead until the rows are built; and the reward
-//   inputs go straight to global memory;
+//   J takes its slot's dof count, its Hessian weight beside it; arrays
+//   that a substep's phases never hold live at once share bytes: the smooth
+//   dynamics' intermediates (body frames and velocities, inertias, the
+//   actuator force) with the rows' J, the kinematics' CoM, motion axes and
+//   geom poses with the solver's vectors, and H with the terms of the sums
+//   over rows (the slots' distances, J.v, dcost, the line search's terms),
+//   which are read only while H is dead; and the reward inputs go straight
+//   to global memory;
 // - lanes take independent outputs, each with the exact operation sequence
 //   of the sequential version (and so of the plain version and the JAX
 //   graph): bodies of one tree level, components of a sum up the tree,
@@ -87,8 +90,9 @@
 // (the LDL^T column steps, the row passes, the serial sums), each a chain of
 // shared-memory round trips, so one warp's latency, not the SM's
 // instruction throughput, sets the time of a wave.  How many samples a
-// wave holds is set by Work's size (H1 push-crate: 16,856 B, 13 an SM) and
-// by the registers (up to 128 a thread, an SM holds 16 warps; above, 12).
+// wave holds is set by Work's size (H1 push-crate: 14,224 B, 4 to a block,
+// 16 an SM) and by the registers (up to 128 a thread, an SM holds 16 warps;
+// above, 12).
 // No split of the latency by stage has been measured on this design (the
 // card has no ncu).
 //
@@ -403,7 +407,7 @@ FS_DEVICE float dot6(const float* a, const float* b) {
 // only, so fused_cuda.py:work_bytes can size it.  Constraint rows: r in
 // [0, NFL) friction loss, [NFL, NFL+NLIM) limits, [NFL+NLIM, NROW)
 // contacts; a contact row keeps its Jacobian on its slot's dof list.
-struct Work {
+struct alignas(16) Work {
   // the model's tables that the row and matvec loops read, copied once per
   // sample (global memory is an L2 round trip: the shared memory leaves
   // little L1): dof patterns, each contact row's slot, dof count and place
@@ -413,17 +417,49 @@ struct Work {
   unsigned char sdof[FS_R4(FS_NSLOT * FS_MAXD)];
   // state, carried across substeps
   float q[FS_NQ], v[FS_NV], w[FS_NV], ctrl[FS_NU];
-  // live from the kinematics until the rows are built
-  float com[FS_NBODY][3], cdof[FS_NV][6];
-  float gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
-  float M[FS_TRI(FS_NV)], H[FS_TRI(FS_NV)], dinv[FS_NV], qsm[FS_NV];
-  // Two phases share the rest.  sm: the kinematics' and the smooth
-  // dynamics' intermediates, dead once the smooth acceleration's bias and
-  // the reward inputs are taken (so the world body's frame and velocity are
-  // set again each substep).  rw: the rows and the solve, first written
-  // when the rows are built.
+  float M[FS_TRI(FS_NV)], dinv[FS_NV], qsm[FS_NV];
+  // A substep's phases: (1) the kinematics and smooth dynamics, to the
+  // smooth acceleration and the reward inputs; (2) the rows' build, from
+  // the contact slots to each row's aref, D and active; (3) the Newton
+  // solve and the integration.  Each union below holds members that are
+  // never live at once, and each member is written in its phase before it
+  // is read there.  Each union starts on 16 bytes, Work's size is a
+  // multiple of 16 and a block's Works lie end to end from a 16-byte
+  // aligned base, so the compiler can prove the alignment that 8- and
+  // 16-byte shared loads and stores of neighbouring values need.
   union {
+    // kin: the bodies' subtree CoM, the dofs' motion axes and the geoms'
+    // world poses, from (1) to their last reads in contact_slot in (2).
+    // sol: the Newton solve's and the integration's vectors, first written
+    // at the top of (3)
+    struct alignas(16) {
+      float com[FS_NBODY][3], cdof[FS_NV][6], gpos[FS_NGEOM][3], gmat[FS_NGEOM][9];
+    } kin;
     struct {
+      float a[FS_NV], a_new[FS_NV], da[FS_NV], mda[FS_NV], grad[FS_NV], delta[FS_NV];
+      float md[FS_NV], tv[FS_NV], tm[FS_NV], qacc[FS_NV], qfrc_con[FS_NV], qacc_int[FS_NV];
+    } sol;
+  };
+  union {
+    // H: the smooth LDL^T factor of M in (1), each Newton iteration's
+    // Hessian and its factor from the assembly to ldl_solve(delta), and the
+    // implicit re-solve's factor at the end of (3)
+    alignas(16) float H[FS_TRI(FS_NV)];
+    // rw: terms of sums over rows, each written and read only while H is
+    // dead.  In (2) t1 holds the contact rows' J.v and sdist the slots'
+    // distances; in (3) dc (the solver's dcost) is read by the gradient,
+    // before the assembly, and t1, t2 by the costs and the line search,
+    // after ldl_solve(delta)
+    struct {
+      union { float dc[FS_DIM(FS_NROW)], t1[FS_DIM(FS_NROW)]; };
+      union { float t2[FS_DIM(FS_NROW)], sdist[FS_DIM(FS_NSLOT)]; };
+    } rw;
+  };
+  union {
+    // sm: the intermediates of (1), dead once the smooth acceleration's
+    // bias and the reward inputs are taken (so the world body's frame and
+    // velocity are set again each substep)
+    struct alignas(16) {
       float xpos[FS_NBODY][3], xquat[FS_NBODY][4];
       float xanchor[FS_NJNT][3], xaxis[FS_NJNT][3];
       CInert cin[FS_NBODY], crb[FS_NBODY];
@@ -431,20 +467,10 @@ struct Work {
       float xipos[FS_NBODY][3], ximat[FS_NBODY][9], sub_mpos[FS_NBODY][3];
       float cdof_dot[FS_NV][6], crbf[FS_NV][6], cacc[FS_NBODY][6], cfrc[FS_NBODY][6];
     } sm;
-    struct {
-      // per row: its Hessian weight hc, then its Jacobian values (a
-      // friction-loss or limit row's one at 2 r + 1, a contact row's on its
-      // slot's dofs from rinfo's j0)
-      float jl[FS_DIM(FS_NJL)];
-      // terms of sums over rows.  dc (the solver's dcost) is dead while
-      // the line search and the costs write t1; before the solve t1 holds
-      // the contact rows' J.v, and sdist the slots' distances
-      union { float dc[FS_DIM(FS_NROW)], t1[FS_DIM(FS_NROW)]; };
-      union { float t2[FS_DIM(FS_NROW)], sdist[FS_DIM(FS_NSLOT)]; };
-      // the Newton solve and integration
-      float a[FS_NV], a_new[FS_NV], da[FS_NV], mda[FS_NV], grad[FS_NV], delta[FS_NV];
-      float md[FS_NV], tv[FS_NV], tm[FS_NV], qacc[FS_NV], qfrc_con[FS_NV], qacc_int[FS_NV];
-    } rw;
+    // per row, from (2) on: its Hessian weight hc, then its Jacobian values
+    // (a friction-loss or limit row's one at 2 r + 1, a contact row's on
+    // its slot's dofs from rinfo's j0)
+    float jl[FS_DIM(FS_NJL)];
   };
 };
 
@@ -618,16 +644,16 @@ FS_DEVICE void kinematics(const FusedModel& m, Work& W) {
 // world pose of geom g; a static geom's is the host's
 FS_DEVICE void geom_frame(const FusedModel& m, Work& W, int g) {
   if (m.geom_static[g]) {
-    for (int i = 0; i < 3; ++i) W.gpos[g][i] = m.geom_sxpos[g][i];
-    for (int i = 0; i < 9; ++i) W.gmat[g][i] = m.geom_sxmat[g][i];
+    for (int i = 0; i < 3; ++i) W.kin.gpos[g][i] = m.geom_sxpos[g][i];
+    for (int i = 0; i < 9; ++i) W.kin.gmat[g][i] = m.geom_sxmat[g][i];
     return;
   }
   int b = m.geom_body[g];
   float t[3], gq[4];
   qrotate(m.geom_pos[g], W.sm.xquat[b], t);
-  for (int i = 0; i < 3; ++i) W.gpos[g][i] = W.sm.xpos[b][i] + t[i];
+  for (int i = 0; i < 3; ++i) W.kin.gpos[g][i] = W.sm.xpos[b][i] + t[i];
   qmul(W.sm.xquat[b], m.geom_quat[g], gq);
-  qmat(gq, W.gmat[g]);
+  qmat(gq, W.kin.gmat[g]);
 }
 
 // ---- contact geometry (fused.py _contact_geometry and its helpers) ----
@@ -896,7 +922,7 @@ FS_DEVICE float row_dot(const FusedModel& m, const Work& W, int r, const float* 
   }
   uint32_t info = W.rinfo[r - FS_NFL - FS_NLIM];
   int nd = (info >> 8) & 0xffu;
-  const float* J = W.rw.jl + (info >> 16);
+  const float* J = W.jl + (info >> 16);
   const unsigned char* dofs = W.sdof + (info & 0xffu) * FS_MAXD;
   float acc = 0.0f;
 #pragma unroll 4
@@ -931,10 +957,10 @@ FS_DEVICE void s_terms(const FusedModel& m, int r, float x, bool active, float D
 // and J.v (into t1)
 FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
   float pos[3], n[3], t1[3], t2[3];
-  float dist = contact_geometry(m, s, W.gpos, W.gmat, pos, n, t1, t2);
+  float dist = contact_geometry(m, s, W.kin.gpos, W.kin.gmat, pos, n, t1, t2);
   W.rw.sdist[s] = dist;
-  const float* c2 = W.com[m.body_root[m.slot_body2[s]]];
-  const float* c1 = W.com[m.body_root[m.slot_body1[s]]];
+  const float* c2 = W.kin.com[m.body_root[m.slot_body2[s]]];
+  const float* c1 = W.kin.com[m.body_root[m.slot_body1[s]]];
   float off2[3] = {pos[0] - c2[0], pos[1] - c2[1], pos[2] - c2[2]};
   float off1[3] = {pos[0] - c1[0], pos[1] - c1[1], pos[2] - c1[2]};
   int c0 = m.slot_crow0[s], nr = m.slot_ncrow[s], nd = m.slot_ndof[s];
@@ -948,12 +974,12 @@ FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
     int d = m.slot_dof[s][k];
     float j2[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f}, cr[3];
     if (dof_bit(b2, d)) {
-      cross3(W.cdof[d], off2, cr);
-      for (int i = 0; i < 3; ++i) j2[i] = W.cdof[d][3 + i] + cr[i];
+      cross3(W.kin.cdof[d], off2, cr);
+      for (int i = 0; i < 3; ++i) j2[i] = W.kin.cdof[d][3 + i] + cr[i];
     }
     if (dof_bit(b1, d)) {
-      cross3(W.cdof[d], off1, cr);
-      for (int i = 0; i < 3; ++i) j1[i] = W.cdof[d][3 + i] + cr[i];
+      cross3(W.kin.cdof[d], off1, cr);
+      for (int i = 0; i < 3; ++i) j1[i] = W.kin.cdof[d][3 + i] + cr[i];
     }
     float jac[3] = {j2[0] - j1[0], j2[1] - j1[1], j2[2] - j1[2]};
     float jn = dot3(jac, n), jt1 = dot3(jac, t1), jt2 = dot3(jac, t2);
@@ -966,7 +992,7 @@ FS_DEVICE void contact_slot(const FusedModel& m, Work& W, int s) {
       float jr = jn;
       if (t == 0) jr = jr + m.crow_coef[c] * jt1;
       else if (t == 1) jr = jr + m.crow_coef[c] * jt2;
-      W.rw.jl[j0[q] + k] = jr;
+      W.jl[j0[q] + k] = jr;
       vel[q] = vel[q] + jr * vd;
     }
   }
@@ -998,13 +1024,13 @@ FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* o
       for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        float tj = W.rw.jl[u[q] & 0xffffu] * W.rw.dc[u[q] >> 16];
+        float tj = W.jl[u[q] & 0xffffu] * W.rw.dc[u[q] >> 16];
         g = subtract ? g - tj : g + tj;
       }
     }
     for (; t < n; ++t) {
       uint32_t u = term[t * 32];
-      float tj = W.rw.jl[u & 0xffffu] * W.rw.dc[u >> 16];
+      float tj = W.jl[u & 0xffffu] * W.rw.dc[u >> 16];
       g = subtract ? g - tj : g + tj;
     }
     out[d] = g;
@@ -1013,16 +1039,16 @@ FS_DEVICE void jt_dc(const FusedTables& T, Work& W, const float* start, float* o
 
 // 0.5 (a - qsm)' M (a - qsm) + the rows' costs at a (ends synced)
 FS_DEVICE float total_cost(const FusedModel& m, Work& W, const RowRegs& R, const float* a) {
-  FS_FOR(i, FS_NV) W.rw.tv[i] = a[i] - W.qsm[i];
+  FS_FOR(i, FS_NV) W.sol.tv[i] = a[i] - W.qsm[i];
   FS_ROWS(k, r) {
     float cost, dc, hc;
     s_terms(m, r, row_dot(m, W, r, a) - R.aref[k], row_active(R, k), R.D[k], &cost, &dc, &hc);
     W.rw.t1[r] = cost;
   }
   FS_SYNC();
-  m_vec(W, W.M, W.rw.tv, W.rw.tm);
+  m_vec(W, W.M, W.sol.tv, W.sol.tm);
   FS_SYNC();
-  float c = 0.5f * sum_prod(0.0f, W.rw.tv, W.rw.tm, FS_NV);
+  float c = 0.5f * sum_prod(0.0f, W.sol.tv, W.sol.tm, FS_NV);
 #pragma unroll 8
   for (int r = 0; r < FS_NROW; ++r) c = c + W.rw.t1[r];
   FS_SYNC();
@@ -1034,7 +1060,7 @@ FS_DEVICE float total_cost(const FusedModel& m, Work& W, const RowRegs& R, const
 // count are one sample's, so uniform over the warp.  R: the rows' aref, D
 // and active, from substep; x and jd are set here. ----
 FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W, RowRegs& R) {
-  FS_FOR(i, FS_NV) { W.rw.qacc[i] = W.qsm[i]; W.rw.qfrc_con[i] = 0.0f; }
+  FS_FOR(i, FS_NV) { W.sol.qacc[i] = W.qsm[i]; W.sol.qfrc_con[i] = 0.0f; }
   FS_SYNC();
 #if FS_NROW > 0
   bool any_active = FS_NFL > 0;
@@ -1044,27 +1070,29 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W, RowReg
   float cost_ws = total_cost(m, W, R, W.w);
   float cost_sm = total_cost(m, W, R, W.qsm);
   bool better = cost_ws < cost_sm;
-  FS_FOR(i, FS_NV) W.rw.a[i] = better ? W.w[i] : W.qsm[i];
+  FS_FOR(i, FS_NV) W.sol.a[i] = better ? W.w[i] : W.qsm[i];
   FS_SYNC();
   float cost_prev = fs_min(cost_ws, cost_sm);
   // done is sticky and a sample moves only while it was not done before,
   // so stopping at the top of an iteration is the same computation
   bool done = !any_active;
   for (int it = 0; it < c_model.iterations && !done; ++it) {
-    FS_FOR(i, FS_NV) W.rw.da[i] = W.rw.a[i] - W.qsm[i];
+    FS_FOR(i, FS_NV) W.sol.da[i] = W.sol.a[i] - W.qsm[i];
     FS_ROWS(k, r) {
       float cost;
-      float x = row_dot(m, W, r, W.rw.a) - R.aref[k];
+      float x = row_dot(m, W, r, W.sol.a) - R.aref[k];
       R.x[k] = x;
       s_terms(m, r, x, row_active(R, k), R.D[k], &cost, &W.rw.dc[r],
-              &W.rw.jl[jl_start(W, r) - 1]);
+              &W.jl[jl_start(W, r) - 1]);
     }
     FS_SYNC();
-    m_vec(W, W.M, W.rw.da, W.rw.mda);
+    m_vec(W, W.M, W.sol.da, W.sol.mda);
     FS_SYNC();
     // the gradient mda + J' dc; H = M + J' diag(hc) J on the solver
-    // pattern, one lane per entry, its rows in row order
-    jt_dc(T, W, W.rw.mda, W.rw.grad, false);
+    // pattern, one lane per entry, its rows in row order (H takes dc's
+    // bytes: the gradient's reads end first)
+    jt_dc(T, W, W.sol.mda, W.sol.grad, false);
+    FS_SYNC();
     FS_FOR(p, FS_TRI(FS_NV)) {
       int e = T.h_ent[p], idx = e & 0xffff, i = (e >> 16) & 0xff, j = e >> 24;
       float h = (i == j || dof_bit(dof_mask(W.anc[0][i]), j)) ? W.M[idx] : 0.0f;
@@ -1076,27 +1104,27 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W, RowReg
         for (int q = 0; q < 8; ++q) u[q] = term[(t + q) * 32];
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          const float* jr = W.rw.jl + (u[q] & 0xffffu);
+          const float* jr = W.jl + (u[q] & 0xffffu);
           h = h + jr[-1] * (jr[(u[q] >> 16) & 0xffu] * jr[u[q] >> 24]);
         }
       }
       for (; t < n; ++t) {
         uint32_t u = term[t * 32];
-        const float* jr = W.rw.jl + (u & 0xffffu);
+        const float* jr = W.jl + (u & 0xffffu);
         h = h + jr[-1] * (jr[(u >> 16) & 0xffu] * jr[u >> 24]);
       }
       W.H[idx] = h;
     }
     FS_SYNC();
     ldl_factor(T, 1, W.anc[1], W.H, W.dinv);
-    FS_FOR(i, FS_NV) W.rw.delta[i] = -W.rw.grad[i];
+    FS_FOR(i, FS_NV) W.sol.delta[i] = -W.sol.grad[i];
     FS_SYNC();
-    ldl_solve(W.anc[1], W.H, W.dinv, W.rw.delta);
-    FS_ROWS(k, r) R.jd[k] = row_dot(m, W, r, W.rw.delta);
-    m_vec(W, W.M, W.rw.delta, W.rw.md);
+    ldl_solve(W.anc[1], W.H, W.dinv, W.sol.delta);
+    FS_ROWS(k, r) R.jd[k] = row_dot(m, W, r, W.sol.delta);
+    m_vec(W, W.M, W.sol.delta, W.sol.md);
     FS_SYNC();
-    float dmd = sum_prod(0.0f, W.rw.delta, W.rw.md, FS_NV);
-    float dma = sum_prod(0.0f, W.rw.delta, W.rw.mda, FS_NV);
+    float dmd = sum_prod(0.0f, W.sol.delta, W.sol.md, FS_NV);
+    float dma = sum_prod(0.0f, W.sol.delta, W.sol.mda, FS_NV);
 
     // exactly ls_iterations 1-D Newton steps on alpha, then alpha >= 0
     float alpha = 0.0f;
@@ -1119,25 +1147,25 @@ FS_DEVICE void newton(const FusedModel& m, const FusedTables& T, Work& W, RowReg
     }
     alpha = fs_max(alpha, 0.0f);
 
-    FS_FOR(i, FS_NV) W.rw.a_new[i] = W.rw.a[i] + alpha * W.rw.delta[i];
+    FS_FOR(i, FS_NV) W.sol.a_new[i] = W.sol.a[i] + alpha * W.sol.delta[i];
     FS_SYNC();
-    float cost_new = total_cost(m, W, R, W.rw.a_new);
+    float cost_new = total_cost(m, W, R, W.sol.a_new);
     float improved = cost_prev - cost_new;
-    float gn = sqrtf(sum_prod(0.0f, W.rw.grad, W.rw.grad, FS_NV));
-    FS_FOR(i, FS_NV) W.rw.a[i] = W.rw.a_new[i];
+    float gn = sqrtf(sum_prod(0.0f, W.sol.grad, W.sol.grad, FS_NV));
+    FS_FOR(i, FS_NV) W.sol.a[i] = W.sol.a_new[i];
     FS_SYNC();
     cost_prev = cost_new;
     done = (improved < c_model.tol_scale) || (gn < c_model.tol_scale);
   }
   if (any_active) {
-    FS_FOR(i, FS_NV) W.rw.qacc[i] = W.rw.a[i];
+    FS_FOR(i, FS_NV) W.sol.qacc[i] = W.sol.a[i];
     FS_ROWS(k, r) {
       float cost, hc;
-      s_terms(m, r, row_dot(m, W, r, W.rw.a) - R.aref[k], row_active(R, k), R.D[k], &cost,
+      s_terms(m, r, row_dot(m, W, r, W.sol.a) - R.aref[k], row_active(R, k), R.D[k], &cost,
               &W.rw.dc[r], &hc);
     }
     FS_SYNC();
-    jt_dc(T, W, nullptr, W.rw.qfrc_con, true);
+    jt_dc(T, W, nullptr, W.sol.qfrc_con, true);
     FS_SYNC();
   }
 #endif
@@ -1184,13 +1212,13 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
   FS_SYNC();
   FS_FOR(e, FS_NBODY * 3) {
     int b = e / 3, i = e - 3 * b;
-    W.com[b][i] = W.sm.sub_mpos[b][i] * m.subtree_inv_mass[b];
+    W.kin.com[b][i] = W.sm.sub_mpos[b][i] * m.subtree_inv_mass[b];
   }
   FS_SYNC();
 
   // spatial inertia about the root's subtree CoM; cdof
   FS_FOR(b, FS_NBODY) {
-    const float* croot = W.com[m.body_root[b]];
+    const float* croot = W.kin.com[m.body_root[b]];
     const float* R = W.sm.ximat[b];
     const float* I3 = m.body_inertia[b];
     float c[3] = {W.sm.xipos[b][0] - croot[0], W.sm.xipos[b][1] - croot[1], W.sm.xipos[b][2] - croot[2]};
@@ -1212,10 +1240,10 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
   }
   FS_FOR(j, FS_NJNT) {
     int b = m.jnt_body[j], adr = m.jnt_dadr[j], jt = m.jnt_type[j];
-    const float* croot = W.com[m.body_root[b]];
+    const float* croot = W.kin.com[m.body_root[b]];
     if (jt == JNT_FREE) {
       for (int i = 0; i < 3; ++i)
-        for (int k = 0; k < 6; ++k) W.cdof[adr + i][k] = (k == 3 + i) ? 1.0f : 0.0f;
+        for (int k = 0; k < 6; ++k) W.kin.cdof[adr + i][k] = (k == 3 + i) ? 1.0f : 0.0f;
       float R[9], off[3];
       qmat(W.sm.xquat[b], R);
       for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.sm.xpos[b][i];
@@ -1224,17 +1252,23 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
         float cr[3];
         cross3(axc, off, cr);
         for (int k = 0; k < 3; ++k) {
-          W.cdof[adr + 3 + i][k] = axc[k];
-          W.cdof[adr + 3 + i][3 + k] = cr[k];
+          W.kin.cdof[adr + 3 + i][k] = axc[k];
+          W.kin.cdof[adr + 3 + i][3 + k] = cr[k];
         }
       }
     } else if (jt == JNT_SLIDE) {
-      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = 0.0f; W.cdof[adr][3 + k] = W.sm.xaxis[j][k]; }
+      for (int k = 0; k < 3; ++k) {
+        W.kin.cdof[adr][k] = 0.0f;
+        W.kin.cdof[adr][3 + k] = W.sm.xaxis[j][k];
+      }
     } else {
       float off[3], cr[3];
       for (int i = 0; i < 3; ++i) off[i] = croot[i] - W.sm.xanchor[j][i];
       cross3(W.sm.xaxis[j], off, cr);
-      for (int k = 0; k < 3; ++k) { W.cdof[adr][k] = W.sm.xaxis[j][k]; W.cdof[adr][3 + k] = cr[k]; }
+      for (int k = 0; k < 3; ++k) {
+        W.kin.cdof[adr][k] = W.sm.xaxis[j][k];
+        W.kin.cdof[adr][3 + k] = cr[k];
+      }
     }
   }
   FS_SYNC();
@@ -1253,13 +1287,14 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
           for (int i = 0; i < 3; ++i)
             for (int k = 0; k < 6; ++k) W.sm.cdof_dot[adr + i][k] = 0.0f;
           for (int i = 0; i < 3; ++i)
-            for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr + i][k] * W.v[adr + i];
-          for (int i = 3; i < 6; ++i) motion_cross(vel, W.cdof[adr + i], W.sm.cdof_dot[adr + i]);
+            for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.kin.cdof[adr + i][k] * W.v[adr + i];
           for (int i = 3; i < 6; ++i)
-            for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr + i][k] * W.v[adr + i];
+            motion_cross(vel, W.kin.cdof[adr + i], W.sm.cdof_dot[adr + i]);
+          for (int i = 3; i < 6; ++i)
+            for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.kin.cdof[adr + i][k] * W.v[adr + i];
         } else {
-          motion_cross(vel, W.cdof[adr], W.sm.cdof_dot[adr]);
-          for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.cdof[adr][k] * W.v[adr];
+          motion_cross(vel, W.kin.cdof[adr], W.sm.cdof_dot[adr]);
+          for (int k = 0; k < 6; ++k) vel[k] = vel[k] + W.kin.cdof[adr][k] * W.v[adr];
         }
       }
       for (int k = 0; k < 6; ++k) W.sm.cvel[b][k] = vel[k];
@@ -1298,13 +1333,13 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
   }
   FS_SYNC();
   // M on the tree pattern (+ armature), one lane per entry
-  FS_FOR(i, FS_NV) cinert_vec(W.sm.crb[m.dof_body[i]], W.cdof[i], W.sm.crbf[i]);
+  FS_FOR(i, FS_NV) cinert_vec(W.sm.crb[m.dof_body[i]], W.kin.cdof[i], W.sm.crbf[i]);
   FS_SYNC();
   FS_FOR(e, FS_TRI(FS_NV)) {
     int i, j;
     tri_ij(e, i, j);
-    if (i == j) W.M[e] = dot6(W.cdof[i], W.sm.crbf[i]) + m.dof_armature[i];
-    else W.M[e] = dof_bit(dof_mask(W.anc[0][i]), j) ? dot6(W.cdof[j], W.sm.crbf[i]) : 0.0f;
+    if (i == j) W.M[e] = dot6(W.kin.cdof[i], W.sm.crbf[i]) + m.dof_armature[i];
+    else W.M[e] = dof_bit(dof_mask(W.anc[0][i]), j) ? dot6(W.kin.cdof[j], W.sm.crbf[i]) : 0.0f;
   }
 
   // _rne_bias: cacc level by level, cfrc per body, summed up the tree
@@ -1344,7 +1379,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
   // smooth acceleration; the derived reward inputs, from this
   // (pre-integration) forward pass: the last reads of the phase sm
   FS_FOR(d, FS_NV) {
-    float bias = dot6(W.cdof[d], W.sm.cfrc[m.dof_body[d]]);
+    float bias = dot6(W.kin.cdof[d], W.sm.cfrc[m.dof_body[d]]);
     W.qsm[d] = ((-m.dof_damping[d]) * W.v[d] + W.sm.qfrc_act[d]) - bias;
   }
   FS_FOR(e, FS_TRI(FS_NV)) W.H[e] = W.M[e];
@@ -1353,7 +1388,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
     der[i] = (i < 3) ? W.sm.xpos[tb][i]
            : (i < 7) ? W.sm.xquat[tb][i - 3]
            : (i < 13) ? W.sm.cvel[tb][i - 7]
-                      : W.com[c_model.torso_root][i - 13];
+                      : W.kin.com[c_model.torso_root][i - 13];
   }
 #if FS_WANT_SITES
   FS_FOR(s, FS_NSITE) {
@@ -1384,7 +1419,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
       aref = m.fl_negb[r] * W.v[m.fl_dof[r]];
       D = m.fl_D[r];
       act = true;
-      W.rw.jl[2 * r + 1] = 1.0f;
+      W.jl[2 * r + 1] = 1.0f;
     } else if (r < FS_NFL + FS_NLIM) {
       int l = r - FS_NFL;
       float sign = m.lim_sign[l];
@@ -1392,7 +1427,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
       float vel = sign * W.v[m.lim_dadr[l]];
       aref_d(m.lim_imp[l], m.lim_invweight[l], dist, m.lim_margin[l], vel, &aref, &D);
       act = dist < m.lim_margin[l];
-      W.rw.jl[2 * r + 1] = sign;
+      W.jl[2 * r + 1] = sign;
     } else {
       int c = r - FS_NFL - FS_NLIM, s = m.crow_slot[c];
       aref_d(m.slot_imp[s], m.crow_diag[c], W.rw.sdist[s], m.slot_margin[s], W.rw.t1[r], &aref,
@@ -1417,18 +1452,18 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
     if (i == j && m.dof_damp_dt[i] != 0.0f) h = h + m.dof_damp_dt[i];
     W.H[e] = h;
   }
-  m_vec(W, W.M, W.qsm, W.rw.tm);
+  m_vec(W, W.M, W.qsm, W.sol.tm);
   FS_SYNC();
-  FS_FOR(d, FS_NV) W.rw.qacc_int[d] = W.rw.tm[d] + W.rw.qfrc_con[d];
+  FS_FOR(d, FS_NV) W.sol.qacc_int[d] = W.sol.tm[d] + W.sol.qfrc_con[d];
   FS_SYNC();
   ldl_factor(T, 0, W.anc[0], W.H, W.dinv);
-  ldl_solve(W.anc[0], W.H, W.dinv, W.rw.qacc_int);
+  ldl_solve(W.anc[0], W.H, W.dinv, W.sol.qacc_int);
 #else
-  FS_FOR(d, FS_NV) W.rw.qacc_int[d] = W.rw.qacc[d];
+  FS_FOR(d, FS_NV) W.sol.qacc_int[d] = W.sol.qacc[d];
   FS_SYNC();
 #endif
 
-  FS_FOR(d, FS_NV) W.v[d] = W.v[d] + dt * W.rw.qacc_int[d];
+  FS_FOR(d, FS_NV) W.v[d] = W.v[d] + dt * W.sol.qacc_int[d];
   FS_SYNC();
   FS_FOR(j, FS_NJNT) {
     int qa = m.jnt_qadr[j], da = m.jnt_dadr[j];
@@ -1451,7 +1486,7 @@ FS_DEVICE void substep(const FusedModel& m, const FusedTables& T, Work& W, float
     }
   }
   // the warmstart output is the solver's qacc (not the damped qacc_int)
-  FS_FOR(d, FS_NV) W.w[d] = W.rw.qacc[d];
+  FS_FOR(d, FS_NV) W.w[d] = W.sol.qacc[d];
   FS_SYNC();
 }
 
@@ -1481,13 +1516,17 @@ FS_DEVICE void step_sample(const FusedModel& m, const FusedTables& T, Work& W, i
 
 #ifdef __CUDACC__
 // one warp per sample, FS_SPB samples per block, each warp's Work in the
-// block's dynamic shared memory.  The launch bound's one block per SM lets
-// ptxas take the registers a build needs: with the thread count alone it
-// held some builds at 80-96 registers and spilled; so every stand-in build
-// takes 105-128 and spills nothing.  128 is the most at which each of an
-// SM's 4 register sub-partitions (16K) holds 4 warps (fused_cuda.py
-// samples_per_sm; H1's 13 samples an SM need it).
-__global__ void __launch_bounds__(FS_THREADS, 1)
+// block's dynamic shared memory.  128 registers a thread is the most at
+// which each of an SM's 4 register sub-partitions (16K) holds 4 warps, 16
+// an SM.  The launch bound asks for FS_MIN_BLOCKS blocks an SM: as many as
+// the SM holds at 128 registers (fused_cuda.py pack_model: 16 warps, 15 at
+// 3 a block, or fewer where shared memory holds fewer).  So ptxas keeps a
+// build whose shared memory holds 16 samples an SM within 128 registers
+// (asked for one block an SM, it gave H1's build 149 at 4 samples a block:
+// 12 an SM, not 16), and leaves a build that its shared memory holds to
+// fewer the registers those blocks allow.  With the thread count alone it
+// held some builds at 80-96 registers and spilled.
+__global__ void __launch_bounds__(FS_THREADS, FS_MIN_BLOCKS)
 fused_step_kernel(const FusedModel* __restrict__ gm, const FusedTables* __restrict__ gt,
                   int batch, int n_substeps, const float* __restrict__ qpos,
                   const float* __restrict__ qvel, const float* __restrict__ ws,
@@ -1501,6 +1540,11 @@ fused_step_kernel(const FusedModel* __restrict__ gm, const FusedTables* __restri
   step_sample(*gm, *gt, W, b, n_substeps, qpos, qvel, ws, ctrl, oq, ov, ow, od);
 }
 
+// Both uploads return once the device holds the data.  A copy from pageable
+// memory on the legacy default stream may return before its DMA lands, and
+// PyTorch's streams are created non-blocking, so they do not wait for it: a
+// first launch on such a stream (a captured unit's eager first call) could
+// read the model before it is there.
 extern "C" int fused_step_upload(const void* model, size_t nbytes) {
   if (nbytes != sizeof(FusedModel)) return -1;
   cudaError_t e = cudaMemcpyToSymbol(c_model, model, nbytes);
@@ -1508,12 +1552,15 @@ extern "C" int fused_step_upload(const void* model, size_t nbytes) {
   if (e == cudaSuccess && FS_SMEM > 48 * 1024)
     e = cudaFuncSetAttribute(fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)FS_SMEM);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
   return (int)e;
 }
 
 extern "C" int fused_tables_upload(const void* tables, size_t nbytes) {
   if (nbytes != sizeof(FusedTables)) return -1;
-  return (int)cudaMemcpyToSymbol(g_tables, tables, nbytes);
+  cudaError_t e = cudaMemcpyToSymbol(g_tables, tables, nbytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
 }
 
 // out: bytes per sample, samples per block, resident blocks per SM
@@ -1584,7 +1631,7 @@ extern "C" int fused_contacts(int batch, int nq, int nslot, const float* qpos, f
     for (int g = 0; g < FS_NGEOM; ++g) geom_frame(g_model, *W, g);
     for (int s = 0; s < FS_NSLOT; ++s) {
       float* o = out + ((size_t)b * FS_NSLOT + s) * 13;
-      o[0] = contact_geometry(g_model, s, W->gpos, W->gmat, o + 1, o + 4, o + 7, o + 10);
+      o[0] = contact_geometry(g_model, s, W->kin.gpos, W->kin.gmat, o + 1, o + 4, o + 7, o + 10);
     }
   }
   free(W);
@@ -1598,17 +1645,22 @@ extern "C" int fused_symbols(void** out) {
 }
 
 // The host build runs the samples one after another, each through the same
-// lane sections with one lane taking every index.
+// lane sections with one lane taking every index.  Each sample's Work starts
+// as all-ones bytes (a NaN in every float), as a card's shared memory holds
+// what the last kernel left: a read of a byte not written in the launch
+// shows as a non-finite output.
 extern "C" int fused_step_launch(int batch, int n_substeps, const void* gm, const void* gt,
                                  const float* qpos, const float* qvel, const float* ws,
                                  const float* ctrl, float* oq, float* ov, float* ow, float* od,
                                  void* stream) {
   (void)stream;
-  Work* W = (Work*)calloc(1, sizeof(Work));
+  Work* W = (Work*)malloc(sizeof(Work));
   if (!W) return -2;
-  for (int b = 0; b < batch; ++b)
+  for (int b = 0; b < batch; ++b) {
+    memset(W, 0xff, sizeof(Work));
     step_sample(*(const FusedModel*)gm, *(const FusedTables*)gt, *W, b, n_substeps, qpos, qvel,
                 ws, ctrl, oq, ov, ow, od);
+  }
   free(W);
   return 0;
 }

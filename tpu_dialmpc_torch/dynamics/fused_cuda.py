@@ -116,6 +116,10 @@ REGS_PER_SM = 65536
 SUB_PARTITIONS = 4
 REG_UNIT = 256
 MAX_SAMPLES_PER_BLOCK = 4
+# the most registers a thread at which an SM holds 16 warps, 4 in each
+# sub-partition: the kernel's launch bound asks ptxas to stay within it
+# where the build's shared memory holds that many (FS_MIN_BLOCKS)
+BOUND_REGISTERS = 128
 # the kernel's other limits: the __constant__ bank holding c_model; the
 # term lists' 16-bit row field and 16-bit places in Work.jl; Work's byte
 # tables (slots, dofs) and the terms' 8-bit places in a row's dof list; a
@@ -141,28 +145,32 @@ def jl_words(defines: dict) -> int:
 
 def work_bytes(defines: dict) -> int:
     """Bytes of one sample's working set, the kernel's `struct Work`, in its
-    order (4-byte fields, and byte arrays in whole words)."""
+    order (4-byte fields, and byte arrays in whole words): its fixed part,
+    then three unions, each starting on 16 bytes and taking a multiple of
+    16."""
     d = defines
     nq, nv, nu = d["FS_NQ"], d["FS_NV"], d["FS_NU"]
     nb, nj, ng = d["FS_NBODY"], d["FS_NJNT"], d["FS_NGEOM"]
     nrow = max(d["FS_NFL"] + d["FS_NLIM"] + d["FS_NCROW"], 1)
     nw = mask_words(nv)
     tri = nv * (nv + 1) // 2
-    floats = (
+    words = (
         2 * nv * nw + max(d["FS_NCROW"], 1)  # anc; rinfo
         + (max(d["FS_NSLOT"] * d["FS_MAXD"], 1) + 3) // 4  # sdof, bytes in whole words
         + nq + 2 * nv + nu  # q, v, w, ctrl
-        + 3 * nb + 6 * nv + 12 * ng  # com, cdof; gpos, gmat
-        + 2 * tri + 2 * nv  # M, H; dinv, qsm
-        + max(
+        + tri + 2 * nv,  # M; dinv, qsm
+        # kin: com, cdof, gpos, gmat | sol: the solver's vectors
+        max(3 * nb + 6 * nv + 12 * ng, 12 * nv),
+        # H | rw: dc | t1; t2 | sdist
+        max(tri, nrow + max(nrow, d["FS_NSLOT"])),
+        max(
             # sm: xpos, xquat; xanchor, xaxis; cin, crb; cvel, qfrc_act; the
             # inertial frames, cdof_dot, crbf, cacc, cfrc
             7 * nb + 6 * nj + 20 * nb + 6 * nb + nv + 27 * nb + 12 * nv,
-            # rw: jl; dc | t1; t2 | sdist; the solver's vectors
-            max(jl_words(d), 1) + nrow + max(nrow, d["FS_NSLOT"]) + 12 * nv,
-        )
+            max(jl_words(d), 1),  # jl
+        ),
     )
-    return 4 * floats
+    return sum(-(-4 * n // 16) * 16 for n in words)
 
 
 def model_bytes(defines: dict) -> int:
@@ -359,8 +367,9 @@ def _interleave(lists):
 
 
 def kernel_sizes(model: PhysicsModel, meta, spec: fused.DerivedSpec) -> Tuple[dict, list]:
-    """(the build's -D sizes but the tables' lengths and FS_SPB, the contact
-    rows (slot, t, s * mu, diagApprox) in the plain version's row order)."""
+    """(the build's -D sizes but the tables' lengths, FS_SPB and
+    FS_MIN_BLOCKS, the contact rows (slot, t, s * mu, diagApprox) in the
+    plain version's row order)."""
     slots, limits, floss = meta.contact_slots, meta.limit_rows, meta.floss_rows
     crows = []
     for si, s in enumerate(slots):
@@ -418,7 +427,10 @@ def pack_model(
         FS_NLDLPAIR=sum(len(p) for pk in pairs for p in pk),
         FS_NHTERM=len(h_words), FS_NGTERM=len(g_words),
     )
-    defines["FS_SPB"] = launch_config(defines)[1]
+    nbytes, defines["FS_SPB"] = launch_config(defines)
+    # the launch bound's blocks an SM: as many as it holds at BOUND_REGISTERS
+    defines["FS_MIN_BLOCKS"] = (samples_per_sm(nbytes, defines["FS_SPB"], BOUND_REGISTERS)
+                                // defines["FS_SPB"])
 
     parts: List[np.ndarray] = []
 
